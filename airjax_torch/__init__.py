@@ -1,0 +1,30 @@
+"""airjax_torch — the airjax DF17 decode path in PyTorch, with hand-written
+CUDA kernels for Hopper (sm_90a).
+
+A second package beside `airjax` (the JAX reference, which is unchanged).
+Every public function here names its airjax counterpart by file and line
+and returns the same output, bit for bit, on the same int16 IQ:
+
+  airjax.dsp.magnitude            -> airjax_torch.dsp.magnitude
+  airjax.dsp.demod (main path)    -> airjax_torch.dsp.demod
+  airjax.kernels.magdet (Pallas)  -> airjax_torch.kernels.magdet + csrc/magdet.cu
+  airjax.protocol.crc             -> airjax_torch.protocol.crc
+  (XLA-fused slice + CRC)         -> airjax_torch.kernels.candidate + csrc/candidate.cu
+  airjax.pipeline                 -> airjax_torch.pipeline
+  airjax.runner                   -> airjax_torch.runner
+  airjax.config (DF17 fields)     -> airjax_torch.config
+  airjax.io.synth / source / c16  -> airjax_torch.io.synth / source / c16
+  airjax.cli (adsb, stream mode)  -> airjax_torch.cli
+
+Device rule (airjax_torch._dispatch): a kernel wrapper given CPU tensors
+runs the kernel's plain torch version; given CUDA tensors it launches the
+kernel or raises. There is no fallback between the two.
+
+The package imports torch and numpy, never jax and no module of airjax.
+"""
+
+from airjax_torch.config import PipelineConfig
+
+__version__ = "0.1.0"
+
+__all__ = ["PipelineConfig", "__version__"]

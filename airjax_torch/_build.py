@@ -1,0 +1,106 @@
+"""Build the port's CUDA kernels at first use and bind them with ctypes.
+
+The counterpart of airjax/native.py:37-45, which builds `native/` with make
+and loads it through ctypes. Here `nvcc` compiles every `csrc/*.cu` into one
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds):
+
+  nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+       -Xcompiler -fPIC -o build/airjax_torch/libairjax_torch_<hash>.so csrc/*.cu
+
+No `--use_fast_math`: the magnitude's exactness argument assumes a
+correctly rounded `sqrtf` (the fixup then makes it exact either way).
+The library is named by a hash of the flags and sources, so an edited
+source rebuilds and an unchanged one loads the cached file. Every pointer
+and the stream are passed as `c_void_p`; every entry point returns
+`cudaGetLastError()`, which the wrappers check (_dispatch.check_launch).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+_PKG_DIR = pathlib.Path(__file__).resolve().parent
+CSRC_DIR = _PKG_DIR / "csrc"
+BUILD_DIR = _PKG_DIR.parent / "build" / "airjax_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_longlong
+# name -> (restype, argtypes); see the extern "C" blocks in csrc/*.cu.
+_SIGNATURES = {
+    "airjax_magdet": (ctypes.c_int, [_P, _I64, _I64, _P, _P, _I64, ctypes.c_int, _P]),
+    "airjax_candidates": (ctypes.c_int, [_P, _I64, _P, _I64, _P, _P, _P, _P]),
+    "airjax_load_syndromes": (ctypes.c_int, [_P]),
+    "airjax_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def sources() -> list[pathlib.Path]:
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def library_path() -> pathlib.Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libairjax_torch_{h.hexdigest()[:16]}.so"
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def build() -> pathlib.Path:
+    """Compile csrc/*.cu unless the library for these sources exists."""
+    path = library_path()
+    if path.exists():
+        return path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    cu = [str(s) for s in sources() if s.suffix == ".cu"]
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n{proc.stderr}"
+        )
+    os.replace(tmp, path)  # atomic: a concurrent build never loads a partial file
+    return path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, (restype, argtypes) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.restype = restype
+                fn.argtypes = argtypes
+            _lib = lib
+        return _lib
+
+
+def error_string(rc: int) -> str:
+    return library().airjax_error_string(rc).decode()

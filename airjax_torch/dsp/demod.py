@@ -1,0 +1,118 @@
+"""Preamble/DF17 detection, ordered compaction and packed PPM compares in
+plain torch — the main-path subset of airjax/dsp/demod.py.
+
+An offset i is a detection iff the four preamble highs are all >= the
+twelve preamble lows and the five DF17 highs are all >= the five DF17
+lows (airjax/dsp/demod.py:44-64). Candidate bit t of a detection at o is
+cmp[o + 16 + 2t] with cmp[i] = mag[i] > mag[i+1], read from the compares
+packed 32 per word (airjax/dsp/demod.py:222-306).
+
+Magnitudes are int32 (airjax_torch.dsp.magnitude); packed words are held
+as int32 with the uint32 bit pattern of airjax's words (compare them
+through `.numpy().view(np.uint32)`).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+# Mode S preamble and DF=17 pattern taps (airjax/dsp/demod.py:28-37).
+PREAMBLE_HIGHS = (0, 2, 7, 9)
+PREAMBLE_LOWS = (1, 3, 4, 5, 6, 8, 10, 11, 12, 13, 14, 15)
+DF17_HIGHS = (16, 19, 21, 23, 24)
+DF17_LOWS = (17, 18, 20, 22, 25)
+
+WINDOW = 240  # 16 preamble + 224 data samples
+DATA_OFFSET = 16
+FRAME_SAMPLES = 224
+FRAME_BITS = 112
+
+WORDS_PER_CAND = 8  # ceil((31 + 223) / 32): any 32-bit alignment of a frame
+
+
+def _shifted(mags: torch.Tensor, shift: int, n_off: int) -> torch.Tensor:
+    return mags[..., shift : shift + n_off]
+
+
+def detect(mags: torch.Tensor, n_off: int) -> torch.Tensor:
+    """(..., L) int32 magnitudes, L >= n_off + 25 -> (..., n_off) bool
+    (airjax/dsp/demod.py:44-64)."""
+    if mags.shape[-1] < n_off + DF17_LOWS[-1]:
+        raise ValueError(f"detect needs {n_off + 25} samples, got {mags.shape[-1]}")
+    hmin = functools.reduce(torch.minimum, (_shifted(mags, s, n_off) for s in PREAMBLE_HIGHS))
+    lmax = functools.reduce(torch.maximum, (_shifted(mags, s, n_off) for s in PREAMBLE_LOWS))
+    dmin = functools.reduce(torch.minimum, (_shifted(mags, s, n_off) for s in DF17_HIGHS))
+    dmax = functools.reduce(torch.maximum, (_shifted(mags, s, n_off) for s in DF17_LOWS))
+    return (hmin >= lmax) & (dmin >= dmax)
+
+
+def compact_detections(
+    det: torch.Tensor, max_candidates: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(n_off,) bool or uint8 mask -> ascending candidate offsets
+    (airjax/dsp/demod.py:87-126, same semantics without the TPU tiles).
+
+    Returns (offsets (K,) int32 with invalid slots = n_off, valid (K,)
+    bool, n_detections () int32). Detections past capacity are dropped;
+    the count still includes them, so callers can flag overflow. A
+    cumsum plus one searchsorted: no host synchronisation on either
+    device.
+    """
+    n_off = det.shape[-1]
+    cum = torch.cumsum(det, dim=0, dtype=torch.int32)
+    total = cum[-1] if n_off else torch.zeros((), dtype=torch.int32, device=det.device)
+    ranks = torch.arange(1, max_candidates + 1, dtype=torch.int32, device=det.device)
+    # The rank-th detection is the first position whose running count
+    # reaches the rank; ranks past the total search to n_off.
+    offsets = torch.searchsorted(cum, ranks, side="left", out_int32=True)
+    valid = ranks <= total
+    offsets = torch.where(valid, offsets, n_off)
+    return offsets, valid, total
+
+
+def n_words(n_samples: int) -> int:
+    """Length of pack_cmp_words' output for n_samples magnitudes: the
+    (L-1) compares in whole 128-bit rows, then WORDS_PER_CAND zero words."""
+    return 4 * (-(-(n_samples - 1) // 128)) + WORDS_PER_CAND
+
+
+def pack_cmp_words(mags: torch.Tensor) -> torch.Tensor:
+    """(L,) int32 magnitudes -> (n_words(L),) int32 packed compares
+    (airjax/dsp/demod.py:222-250's layout; not its MXU formulation).
+
+    Word w holds cmp[32w .. 32w+31], MSB first; compares past L-2 are 0,
+    and the last WORDS_PER_CAND words are zero padding for the
+    candidate gather.
+    """
+    cmp = mags[:-1] > mags[1:]
+    total = n_words(mags.shape[0])
+    bits = torch.zeros(total * 32, dtype=torch.int64, device=mags.device)
+    bits[: cmp.shape[0]] = cmp
+    weights = torch.ones(32, dtype=torch.int64, device=mags.device) << torch.arange(
+        31, -1, -1, dtype=torch.int64, device=mags.device
+    )
+    words = (bits.view(total, 32) * weights).sum(dim=1)
+    # uint32 bit pattern -> int32 (two's complement), without relying on
+    # how an out-of-range int64 -> int32 cast behaves.
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+
+
+def slice_bits_packed(words: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """(K,) offsets -> (K, 112) uint8 bits via 8 word gathers per candidate
+    (airjax/dsp/demod.py:285-306).
+
+    Word indices are clamped to the array, as airjax's gather clamps
+    them; in-range offsets (o + WINDOW <= L) never need it.
+    """
+    d0 = offsets.to(torch.int64) + DATA_OFFSET
+    word0 = d0 >> 5
+    align = d0 & 31
+    j = torch.arange(WORDS_PER_CAND, dtype=torch.int64, device=words.device)
+    idx = (word0[:, None] + j[None, :]).clamp(0, words.shape[0] - 1)
+    gathered = words.to(torch.int64)[idx] & 0xFFFFFFFF  # (K, 8) as unsigned
+    t = torch.arange(FRAME_BITS, dtype=torch.int64, device=words.device)
+    pos = align[:, None] + 2 * t[None, :]  # (K, 112) in [0, 253]
+    sel = torch.gather(gathered, 1, pos >> 5)
+    return ((sel >> (31 - (pos & 31))) & 1).to(torch.uint8)

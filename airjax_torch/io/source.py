@@ -1,0 +1,107 @@
+"""IQ block sources (airjax/io/source.py): .c16 playback, a synthetic
+stream on airjax_torch.io.synth, and a bounded background prefetcher.
+
+A source is an iterator of (N, 2) int16 arrays; each matches its airjax
+counterpart block for block.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from typing import Iterator, Optional
+
+import numpy as np
+
+from airjax_torch.io import synth
+from airjax_torch.io.c16 import load_c16
+
+
+def playback_blocks(
+    path: str,
+    chunk: int = 20000,
+    realtime_factor: float | None = 2.0,
+    sample_rate_hz: float = 2_000_000.0,
+) -> Iterator[np.ndarray]:
+    """Replay a .c16 capture in fixed chunks (airjax/io/source.py:22-45).
+
+    Like the reference, it stops while `i < len - chunk`, dropping the tail
+    including the final full chunk. realtime_factor=None replays as fast as
+    possible; otherwise it sleeps chunk / (rate * factor) per chunk.
+    """
+    data = load_c16(path)
+    sleep_s = 0.0
+    if realtime_factor:
+        sleep_s = chunk / (sample_rate_hz * realtime_factor)
+    i = 0
+    while i < len(data) - chunk:
+        yield data[i : i + chunk]
+        i += chunk
+        if sleep_s:
+            time.sleep(sleep_s)
+
+
+def synthetic_blocks(
+    chunk: int = 20000,
+    n_blocks: int | None = None,
+    frames_per_block: int = 2,
+    seed: int = 0,
+) -> Iterator[np.ndarray]:
+    """Endless (or bounded) synthetic IQ stream with embedded DF17 traffic,
+    block for block equal to airjax/io/source.py:48-79."""
+    rng = np.random.default_rng(seed)
+    icaos = [0x7C6B30, 0x40621D, 0xC82B10]
+    b = 0
+    while n_blocks is None or b < n_blocks:
+        frames = []
+        offsets = []
+        step = max(300, chunk // max(frames_per_block, 1))
+        for k in range(frames_per_block):
+            icao = icaos[(b + k) % len(icaos)]
+            if (b + k) % 2 == 0:
+                me = synth.make_id_me("SYN" + str(100 + (b + k) % 900))
+            else:
+                me = synth.make_position_me(
+                    tc=11,
+                    altitude_ft=10000 + 25 * ((b + k) % 100),
+                    cpr_lat=int(rng.integers(0, 1 << 17)),
+                    cpr_lon=int(rng.integers(0, 1 << 17)),
+                    odd=bool((b + k) % 2),
+                )
+            frames.append(synth.make_df17(icao, me))
+            offsets.append(100 + k * step)
+        yield synth.modulate(frames, offsets, chunk, seed=seed + b)
+        b += 1
+
+
+class Prefetcher:
+    """Bounded background prefetch of source blocks (airjax/io/source.py:
+    82-115): the source is read on a thread while blocks are decoded, with
+    backpressure instead of an unbounded queue."""
+
+    _DONE = object()
+
+    def __init__(self, source: Iterator[np.ndarray], depth: int = 4):
+        self._queue: queue.Queue = queue.Queue(maxsize=depth)
+        self._thread = threading.Thread(target=self._run, args=(source,), daemon=True)
+        self._error: Optional[BaseException] = None
+        self._thread.start()
+
+    def _run(self, source):
+        try:
+            for block in source:
+                self._queue.put(block)
+        except BaseException as e:  # surfaced on the consumer side
+            self._error = e
+        finally:
+            self._queue.put(self._DONE)
+
+    def __iter__(self):
+        while True:
+            item = self._queue.get()
+            if item is self._DONE:
+                if self._error is not None:
+                    raise self._error
+                return
+            yield item

@@ -1,0 +1,128 @@
+"""Mode S CRC-24 with single-bit syndrome repair, in numpy and plain torch
+(airjax/protocol/crc.py:38-135, :200-204).
+
+CRC-24 is linear over GF(2): crc(bits) = XOR of crc(e_i) over the set
+data bits i, so a batch of frames is one (N, 88) @ (88, 24) product and a
+parity. Flipping data bit j changes the CRC by the syndrome S_j = crc(e_j);
+a failed frame is repaired iff its delta equals some S_j with j < 88.
+Syndromes are pairwise distinct, so that j is unique, and a flip in the
+CRC field can never validate (the reference compares against the original
+packet CRC).
+
+The tables are built here in numpy (the airjax module imports jax);
+`load_tables` turns any such numpy pair — ours or airjax's — into the
+tensors the torch functions take.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+GENERATOR = 0x1FFF409  # 25-bit polynomial
+CRC_BITS = 24
+DATA_BITS = 88
+FRAME_BITS = 112
+FRAME_BYTES = 14
+
+
+def crc24(data: bytes | list[int] | np.ndarray) -> int:
+    """Scalar bit-serial CRC-24 (airjax/protocol/crc.py:38-57)."""
+    bits = []
+    for byte in bytes(data):
+        for i in range(7, -1, -1):
+            bits.append((byte >> i) & 1)
+    bits.extend([0] * CRC_BITS)
+
+    for i in range(len(bits) - CRC_BITS):
+        if bits[i]:
+            for j in range(CRC_BITS + 1):
+                bits[i + j] ^= (GENERATOR >> (CRC_BITS - j)) & 1
+
+    remainder = 0
+    for i in range(CRC_BITS):
+        remainder = (remainder << 1) | bits[len(bits) - CRC_BITS + i]
+    return remainder
+
+
+@functools.cache
+def _tables() -> tuple[np.ndarray, np.ndarray]:
+    """(crc_matrix (88, 24) uint8, syndromes (88,) uint32), as
+    airjax/protocol/crc.py:60-76 builds them."""
+    matrix = np.zeros((DATA_BITS, CRC_BITS), dtype=np.uint8)
+    syndromes = np.zeros((DATA_BITS,), dtype=np.uint32)
+    for j in range(DATA_BITS):
+        msg = bytearray(DATA_BITS // 8)
+        msg[j // 8] = 1 << (7 - j % 8)
+        s = crc24(bytes(msg))
+        syndromes[j] = s
+        for k in range(CRC_BITS):
+            matrix[j, k] = (s >> (CRC_BITS - 1 - k)) & 1
+    return matrix, syndromes
+
+
+@dataclasses.dataclass(frozen=True)
+class CrcTables:
+    matrix: torch.Tensor  # (88, 24) float32 {0, 1}
+    syndromes: torch.Tensor  # (88,) int32, each < 2^24
+
+
+def load_tables(
+    crc_matrix: np.ndarray, syndromes: np.ndarray, device: torch.device | str
+) -> CrcTables:
+    """Numpy CRC tables -> the tensors the torch CRC functions take."""
+    return CrcTables(
+        matrix=torch.as_tensor(np.asarray(crc_matrix, np.float32), device=device),
+        syndromes=torch.as_tensor(np.asarray(syndromes, np.int64).astype(np.int32), device=device),
+    )
+
+
+@functools.cache
+def tables(device: torch.device | str = "cpu") -> CrcTables:
+    """This module's tables on `device` (cached per device)."""
+    return load_tables(*_tables(), device)
+
+
+def pack_bits_msbfirst(bits: torch.Tensor, width: int) -> torch.Tensor:
+    """Pack a trailing axis of <= 31 {0,1} bits (MSB first) into int32."""
+    weights = torch.ones(width, dtype=torch.int32, device=bits.device) << torch.arange(
+        width - 1, -1, -1, dtype=torch.int32, device=bits.device
+    )
+    return (bits.to(torch.int32) * weights).sum(dim=-1, dtype=torch.int32)
+
+
+def crc24_batch(bits88: torch.Tensor, tab: CrcTables) -> torch.Tensor:
+    """(..., 88) {0,1} -> (...,) int32 CRC. The f32 product is exact:
+    every column sum is an integer <= 88."""
+    sums = torch.matmul(bits88.to(torch.float32), tab.matrix).to(torch.int32)
+    return pack_bits_msbfirst(sums & 1, CRC_BITS)
+
+
+def crc_check_and_recover(
+    bits112: torch.Tensor, tab: CrcTables
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(N, 112) {0,1} bits -> (corrected bits, good (N,) bool, recovered
+    (N,) bool), as airjax/protocol/crc.py:108-135."""
+    calced = crc24_batch(bits112[..., :DATA_BITS], tab)
+    packet_crc = pack_bits_msbfirst(bits112[..., DATA_BITS:], CRC_BITS)
+    delta = calced ^ packet_crc
+    ok = delta == 0
+    match = delta[..., None] == tab.syndromes  # (N, 88)
+    found = match.any(dim=-1) & ~ok
+    # Unique match (distinct syndromes); never a flip in the CRC field.
+    flip = torch.zeros_like(bits112)
+    flip[..., :DATA_BITS] = match
+    corrected = torch.where(found[..., None], bits112 ^ flip, bits112)
+    return corrected, ok | found, found
+
+
+def bits_to_bytes(bits: torch.Tensor) -> torch.Tensor:
+    """(..., 112) {0,1} -> (..., 14) uint8, MSB first."""
+    shaped = bits.reshape(bits.shape[:-1] + (FRAME_BYTES, 8)).to(torch.int32)
+    weights = torch.ones(8, dtype=torch.int32, device=bits.device) << torch.arange(
+        7, -1, -1, dtype=torch.int32, device=bits.device
+    )
+    return (shaped * weights).sum(dim=-1, dtype=torch.int32).to(torch.uint8)

@@ -1,0 +1,121 @@
+"""airjax_torch.pipeline against airjax.pipeline: whole block dicts, the
+adaptive regrow, and the overlap and parity capture decodes (and the
+parity hits against the golden scalar decoder)."""
+
+import dataclasses
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from airjax import golden
+from airjax import pipeline as jp
+from airjax.config import DEFAULT_CONFIG
+from airjax_torch import config as tconfig
+from airjax.kernels.magdet import EXTRA, TILE
+from airjax_torch import pipeline as tp
+from airjax_torch.dsp.magnitude import magnitude_u16
+from airjax_torch.io import synth
+from torch_parity import assert_same_dict
+
+
+def _traffic(n: int, offsets, seed: int, flips: dict | None = None, noise: float = 50.0):
+    frames = []
+    for i, _ in enumerate(offsets):
+        if i % 2:
+            me = synth.make_position_me(11, 10000 + 25 * i, (i * 7919) % (1 << 17), (i * 104729) % (1 << 17), bool(i % 4 == 1))
+        else:
+            me = synth.make_id_me(f"PIPE{i:03d}")
+        f = synth.make_df17(0x7C6B30 + i, me)
+        if flips and i in flips:
+            f = synth.flip_bit(f, flips[i])
+        frames.append(f)
+    return synth.modulate(frames, list(offsets), n, noise_std=noise, seed=seed), frames
+
+
+def test_decode_iq_block_equals_airjax_and_pallas_path():
+    n = TILE + EXTRA
+    offsets = [0, 1000, 9000, 20000, 40000, 60000, TILE - 240 - 1]
+    iq, _ = _traffic(n, offsets, 7, flips={1: 10, 2: 95, 3: 87})
+    n_off = TILE - 240
+    want = jax.device_get(jp.decode_iq_block(jnp.asarray(iq), n_off, 64))
+    want_k = jax.device_get(jp.decode_iq_block_kernel(jnp.asarray(iq), n_off, 64, interpret=True))
+    got = tp.to_host(tp.decode_iq_block(torch.as_tensor(iq), n_off, 64))
+    assert_same_dict(want, got)
+    assert_same_dict(want_k, got)
+    assert int(got["n_good"]) == 6 and int(got["recovered"].sum()) == 2
+    plain = tp.to_host(tp.decode_mags_block(magnitude_u16(torch.as_tensor(iq)), n_off, 64))
+    assert_same_dict(want, plain)
+
+
+@pytest.mark.parametrize("amplitude", [2, 300])
+def test_decode_iq_block_noise_equals_airjax(amplitude):
+    # Small amplitudes tie often, and ties pass the gate: many detections,
+    # past capacity (overflow) at amplitude 2.
+    rng = np.random.default_rng(amplitude)
+    iq = rng.integers(-amplitude, amplitude + 1, size=(20000, 2), dtype=np.int16)
+    want = jax.device_get(jp.decode_iq_block(jnp.asarray(iq), 20000 - 240, 256))
+    got = tp.to_host(tp.decode_iq_block(torch.as_tensor(iq), 20000 - 240, 256))
+    assert_same_dict(want, got)
+    if amplitude == 2:
+        assert bool(got["overflow"])
+
+
+def test_adaptive_regrow_equals_airjax():
+    # Constant magnitudes detect at every offset: capacity must regrow.
+    iq = np.zeros((3000, 2), np.int16)
+    iq[:, 0] = 100
+    n_off = 3000 - 240
+    want = jp.decode_iq_block_adaptive(iq, n_off, 16)
+    got = tp.decode_iq_block_adaptive(iq, n_off, 16, "cpu")
+    assert_same_dict(want, got)
+    assert int(got["n_detections"]) == n_off and not bool(got["overflow"])
+    assert got["offsets"].shape[0] == n_off  # 16 -> 64 -> 256 -> 1024 -> n_off
+
+
+def test_decode_block_rejects_short_input():
+    iq = torch.zeros((1000, 2), dtype=torch.int16)
+    with pytest.raises(ValueError):
+        tp.decode_iq_block(iq, 1000 - 238, 16)
+
+
+def test_pad_and_chunk_helpers_equal_airjax():
+    iq = np.random.default_rng(2).integers(-5, 5, (777, 2), dtype=np.int16)
+    np.testing.assert_array_equal(tp.pad_iq_non_detecting(iq, 2000), jp.pad_iq_non_detecting(iq, 2000))
+    for n in (0, 19999, 20000, 20001, 40000, 123457):
+        assert tp.reference_chunk_count(n) == jp.reference_chunk_count(n)
+
+
+def test_decode_capture_overlap_equals_airjax():
+    cfg = dataclasses.replace(DEFAULT_CONFIG, block_len=8192, max_candidates=8)
+    tcfg = tconfig.PipelineConfig(block_len=8192, max_candidates=8)
+    n = 50000
+    scan = 8192 - 1264
+    # Frames straddling every block edge, plus a cluster that overflows.
+    offsets = [scan * b - 100 for b in range(1, 7)] + [30000 + 300 * k for k in range(12)]
+    iq, frames = _traffic(n, sorted(offsets), 3, flips={4: 20})
+    want_hits, want_stats = jp.decode_capture_overlap(iq, cfg)
+    got_hits, got_stats = tp.decode_capture_overlap(iq, tcfg, device="cpu")
+    assert got_hits == want_hits
+    assert got_stats == want_stats
+    assert len(got_hits) == len(offsets)
+
+
+def test_decode_capture_parity_equals_airjax_and_golden():
+    n = 5 * 20000 + 1234
+    offsets = [500, 19700, 19900, 39990, 52000, 79800, 85000, 99000]
+    iq, _ = _traffic(n, offsets, 11, flips={2: 7})
+    want_hits, want_stats = jp.decode_capture_parity(iq)
+    got_hits, got_stats = tp.decode_capture_parity(iq, device="cpu")
+    assert got_hits == want_hits
+    assert got_stats == want_stats
+    gold = golden.decode_capture_playback(iq)
+    assert [(c, o, f) for c, o, f, _ in got_hits] == gold
+    assert 0 < len(got_hits) < len(offsets)  # chunk-edge frames are lost
+
+
+def test_config_defaults_equal_airjax():
+    for field in dataclasses.fields(tconfig.PipelineConfig):
+        assert getattr(tconfig.DEFAULT_CONFIG, field.name) == getattr(DEFAULT_CONFIG, field.name)

@@ -1,0 +1,178 @@
+"""airjax_torch.runner, io and cli against airjax: the frame stream and
+StreamStats of run_stream in overlap and parity modes, byte equality of
+the synthetic IQ, and the CLI end to end on the CPU."""
+
+import io
+import contextlib
+
+import numpy as np
+import pytest
+import torch
+
+from airjax import runner as jrunner
+from airjax.io import source as jsource
+from airjax.io import synth as jsynth
+from airjax.io import c16 as jc16
+from airjax_torch import cli
+from airjax_torch import runner as trunner
+from airjax_torch.io import c16 as tc16
+from airjax_torch.io import source as tsource
+from airjax_torch.io import synth as tsynth
+
+STAT_KEYS = ("blocks", "samples", "detections", "good", "recovered", "overflow_blocks")
+
+
+def _capture(n: int, offsets, seed: int, flips=()) -> tuple[np.ndarray, list[bytes]]:
+    """IQ with DF17 frames at offsets (those indexed by `flips` sent with
+    one data bit flipped) -> (iq, the frames as sent before corruption)."""
+    frames, sent = [], []
+    for i, _ in enumerate(offsets):
+        me = tsynth.make_id_me(f"RUN{i:04d}") if i % 2 else tsynth.make_position_me(
+            11, 5000 + 25 * i, (i * 31337) % (1 << 17), (i * 7331) % (1 << 17), bool(i % 4 == 1))
+        f = tsynth.make_df17(0xA00000 + i, me)
+        frames.append(f)
+        sent.append(tsynth.flip_bit(f, 30 + i % 50) if i in flips else f)
+    return tsynth.modulate(sent, list(offsets), n, seed=seed), frames
+
+
+def _blocks(iq: np.ndarray, sizes):
+    """Split iq into blocks of the given sizes (cycled), last one ragged."""
+    i, k = 0, 0
+    while i < len(iq):
+        size = sizes[k % len(sizes)]
+        yield iq[i : i + size]
+        i += size
+        k += 1
+
+
+def _run_both(iq, sizes, overlap):
+    got: list[trunner.Frame] = []
+    t_stats = trunner.run_stream(_blocks(iq, sizes), got.append, overlap=overlap, device="cpu")
+    want = []
+    j_stats = jrunner.run_stream(_blocks(iq, sizes), want.append, overlap=overlap)
+    return got, t_stats.as_dict(), [p.packet for p in want], j_stats.as_dict()
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+def test_run_stream_equals_airjax(overlap):
+    chunk = 20000
+    n = 7 * chunk + 70000 + 5000
+    # Straddlers at every 20k edge, frames inside the large block, one
+    # in the ragged tail, a few corrupted (repairable) ones.
+    offsets = sorted([chunk * b - 120 for b in range(1, 8)] + [150000, 181000, 209000, 213500, 5000, 65000])
+    iq, frames = _capture(n, offsets, 21, flips=(1, 4, 9))
+    sizes = [chunk] * 7 + [70000, 5000]  # the 70000-sample block takes the tuned scan
+    got, t_stats, want, j_stats = _run_both(iq, sizes, overlap)
+    assert [f.data for f in got] == want
+    for key in STAT_KEYS:
+        assert t_stats[key] == j_stats[key], key
+    assert set(t_stats["stages"]) == {"apply", "dispatch", "fetch"}
+    if overlap:
+        assert [f.offset for f in got] == offsets  # every frame once, global offsets
+        assert [f.data for f in got] == frames  # repairs restore the sent frames
+        assert sum(f.recovered for f in got) == 3 == t_stats["recovered"]
+    else:
+        assert len(got) < len(offsets)  # chunk-edge straddlers are lost
+
+
+def test_run_stream_short_reads_equal_airjax():
+    n = 12000
+    iq, _ = _capture(n, [100, 700, 3000, 11700], 4)
+    sizes = [100, 900, 37, 5000, 239, 1]  # reads shorter than a window accumulate
+    got, t_stats, want, j_stats = _run_both(iq, sizes, True)
+    assert [f.data for f in got] == want and len(want) == 4
+    for key in STAT_KEYS:
+        assert t_stats[key] == j_stats[key], key
+
+
+def test_synth_is_byte_identical_to_airjax():
+    me_t = tsynth.make_position_me(11, 35000, 93000, 51372, True, q25=False, nic=1)
+    me_j = jsynth.make_position_me(11, 35000, 93000, 51372, True, q25=False, nic=1)
+    assert me_t == me_j
+    assert tsynth.make_id_me("KLM1023", category=3) == jsynth.make_id_me("KLM1023", category=3)
+    f = tsynth.make_df17(0x484175, me_t, capability=4)
+    assert f == jsynth.make_df17(0x484175, me_j, capability=4)
+    assert tsynth.flip_bit(f, 87) == jsynth.flip_bit(f, 87)
+    np.testing.assert_array_equal(tsynth.frame_to_pulses(f), jsynth.frame_to_pulses(f))
+    np.testing.assert_array_equal(tsynth.frame_to_pulses(f[:7]), jsynth.frame_to_pulses(f[:7]))
+    a = tsynth.modulate([f, f], [10, 500], 2000, snr_db=12.0, seed=9)
+    b = jsynth.modulate([f, f], [10, 500], 2000, snr_db=12.0, seed=9)
+    assert a.dtype == b.dtype and np.array_equal(a, b)
+    with pytest.raises(ValueError):
+        tsynth.make_id_me("a~b")
+
+
+def test_synthetic_blocks_equal_airjax():
+    got = list(tsource.synthetic_blocks(n_blocks=3, frames_per_block=4, seed=2))
+    want = list(jsource.synthetic_blocks(n_blocks=3, frames_per_block=4, seed=2))
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_c16_and_playback_equal_airjax(tmp_path):
+    iq = np.random.default_rng(3).integers(-32768, 32768, (3 * 1000 + 17, 2), dtype=np.int16)
+    tc16.save_c16(iq, tmp_path / "t.c16")
+    jc16.save_c16(iq, tmp_path / "j.c16")
+    assert (tmp_path / "t.c16").read_bytes() == (tmp_path / "j.c16").read_bytes()
+    np.testing.assert_array_equal(tc16.load_c16(tmp_path / "j.c16"), iq)
+    (tmp_path / "bad.c16").write_bytes(b"\x00" * 6)
+    with pytest.raises(ValueError):
+        tc16.load_c16(tmp_path / "bad.c16")
+    got = list(tsource.playback_blocks(str(tmp_path / "t.c16"), chunk=1000, realtime_factor=None))
+    want = list(jsource.playback_blocks(str(tmp_path / "t.c16"), chunk=1000, realtime_factor=None))
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_prefetcher_keeps_order_and_raises_source_errors():
+    def failing():
+        yield from (np.full((4, 2), i, np.int16) for i in range(10))
+        raise OSError("read failed")
+
+    seen = []
+    with pytest.raises(OSError):
+        for block in tsource.Prefetcher(failing(), depth=2):
+            seen.append(int(block[0, 0]))
+    assert seen == list(range(10))
+
+
+def _cli(argv) -> tuple[int, list[str], str]:
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    text = out.getvalue()
+    hexes = [line[3:-3] for line in text.splitlines() if line.startswith("== ")]
+    return rc, hexes, text
+
+
+def test_cli_synthetic_on_cpu():
+    rc, hexes, text = _cli(["adsb", "--synthetic", "3", "--device", "cpu"])
+    assert rc == 0
+    want = []
+    jrunner.run_stream(jsource.synthetic_blocks(n_blocks=3), lambda p: want.append(p.packet.hex()))
+    assert hexes == want and len(hexes) == 6
+    assert "\nstats: {'blocks': 3," in text
+
+
+def test_cli_playback_overlap_and_no_overlap(tmp_path):
+    chunk = 20000
+    offsets = [300, chunk - 100, 2 * chunk + 4000, 3 * chunk - 50]
+    iq, frames = _capture(4 * chunk + 10, offsets, 8)
+    path = tmp_path / "capture.c16"
+    tc16.save_c16(iq, path)
+    rc, hexes, _ = _cli(["adsb", "--playback", str(path), "--fast", "--device", "cpu"])
+    assert rc == 0 and hexes == [f.hex() for f in frames]
+    rc, hexes, _ = _cli(["adsb", "-p", str(path), "--fast", "--no-overlap", "--device", "cpu"])
+    assert rc == 0 and hexes == [frames[0].hex(), frames[2].hex()]
+    rc, hexes, _ = _cli(["adsb", "-p", str(path), "--fast", "--max-blocks", "1", "--device", "cpu"])
+    assert hexes == [frames[0].hex()]
+    assert _cli(["adsb", "-p", str(tmp_path / "missing.c16"), "--fast", "--device", "cpu"])[0] == 1
+
+
+def test_cli_cuda_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError):
+        cli.main(["adsb", "--synthetic", "1"])

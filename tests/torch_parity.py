@@ -1,0 +1,47 @@
+"""Shared helpers for the airjax_torch tests: exact comparison of an airjax
+result with the port's, and the fixture that gates tests on a CUDA card.
+
+Inputs are made with numpy from a seed and handed to both packages; every
+output is an integer or a bit, so the tolerance is exact equality.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+
+def as_numpy(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    return np.asarray(x)
+
+
+def assert_same(expected, got, name: str = "") -> None:
+    """Exact equality of one array; integer arrays compare by value and
+    bit pattern (the port holds uint32 words as int32)."""
+    a, b = as_numpy(expected), as_numpy(got)
+    assert a.shape == b.shape, f"{name}: shape {a.shape} != {b.shape}"
+    if a.dtype == np.uint32 and b.dtype == np.int32:
+        b = b.view(np.uint32)
+    if a.dtype == np.bool_ or b.dtype == np.bool_:
+        assert a.dtype == b.dtype, f"{name}: dtype {a.dtype} != {b.dtype}"
+    np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+def assert_same_dict(expected: dict, got: dict) -> None:
+    """Key by key over the whole dict, dtypes included."""
+    assert sorted(expected) == sorted(got)
+    for key in expected:
+        a, b = as_numpy(expected[key]), as_numpy(got[key])
+        assert a.dtype == b.dtype, f"{key}: dtype {a.dtype} != {b.dtype}"
+        assert_same(a, b, key)
+
+
+@pytest.fixture
+def cuda_device() -> torch.device:
+    """The card, or a skip: decided when the test runs, never at import."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the GPU machine)")
+    return torch.device("cuda")
