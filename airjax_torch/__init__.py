@@ -1,20 +1,28 @@
-"""airjax_torch — the airjax DF17 decode path in PyTorch, with hand-written
-CUDA kernels for Hopper (sm_90a).
+"""airjax_torch — the airjax decode paths in PyTorch, with hand-written
+CUDA kernels for Hopper (sm_90a): the DF17 main path and the extended
+decode of every Mode S downlink format.
 
 A second package beside `airjax` (the JAX reference, which is unchanged).
 Every public function here names its airjax counterpart by file and line
 and returns the same output, bit for bit, on the same int16 IQ:
 
-  airjax.dsp.magnitude            -> airjax_torch.dsp.magnitude
-  airjax.dsp.demod (main path)    -> airjax_torch.dsp.demod
-  airjax.kernels.magdet (Pallas)  -> airjax_torch.kernels.magdet + csrc/magdet.cu
-  airjax.protocol.crc             -> airjax_torch.protocol.crc
-  (XLA-fused slice + CRC)         -> airjax_torch.kernels.candidate + csrc/candidate.cu
-  airjax.pipeline                 -> airjax_torch.pipeline
-  airjax.runner                   -> airjax_torch.runner
-  airjax.config (DF17 fields)     -> airjax_torch.config
-  airjax.io.synth / source / c16  -> airjax_torch.io.synth / source / c16
-  airjax.cli (adsb, stream mode)  -> airjax_torch.cli
+  airjax.dsp.magnitude              -> airjax_torch.dsp.magnitude
+  airjax.dsp.demod (decode paths)   -> airjax_torch.dsp.demod
+  airjax.kernels.magdet (Pallas)    -> airjax_torch.kernels.magdet + csrc/magdet.cu
+  airjax.kernels.stencil3 (Pallas)  -> airjax_torch.kernels.stencil3 + csrc/magdet.cu
+  airjax.protocol.crc               -> airjax_torch.protocol.crc
+  (XLA-fused slice + CRC)           -> airjax_torch.kernels.candidate + csrc/candidate.cu
+  airjax.protocol.shortframe        -> airjax_torch.protocol.shortframe (CRC, makers)
+  airjax.protocol.packet / acas /
+    commb, fields (constants)       -> airjax_torch.protocol.*
+  airjax.track.icao_cache           -> airjax_torch.track.icao_cache
+  airjax.extended (per packet)      -> airjax_torch.extended
+  airjax.pipeline                   -> airjax_torch.pipeline
+  airjax.runner (per-packet sinks)  -> airjax_torch.runner
+  airjax.config (DF17 fields)       -> airjax_torch.config
+  airjax.io.synth / source / c16    -> airjax_torch.io.synth / source / c16
+  airjax.ui.stream                  -> airjax_torch.ui.stream
+  airjax.cli (adsb, stream mode)    -> airjax_torch.cli
 
 Device rule (airjax_torch._dispatch): a kernel wrapper given CPU tensors
 runs the kernel's plain torch version; given CUDA tensors it launches the

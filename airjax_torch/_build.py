@@ -38,8 +38,9 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 # name -> (restype, argtypes); see the extern "C" blocks in csrc/*.cu.
 _SIGNATURES = {
-    "airjax_magdet": (ctypes.c_int, [_P, _I64, _I64, _P, _P, _I64, ctypes.c_int, _P]),
-    "airjax_candidates": (ctypes.c_int, [_P, _I64, _P, _I64, _P, _P, _P, _P]),
+    "airjax_magdet": (ctypes.c_int, [_P, _I64, _I64, _P, _P, _I64, ctypes.c_int, ctypes.c_int, _P]),
+    "airjax_magdet_stencil": (ctypes.c_int, [_P, _I64, _I64, _P, _P, ctypes.c_int, _P]),
+    "airjax_candidates": (ctypes.c_int, [_P, _I64, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]),
     "airjax_load_syndromes": (ctypes.c_int, [_P]),
     "airjax_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }

@@ -2,9 +2,13 @@
 
   python -m airjax_torch.cli adsb [--playback FILE | --synthetic N] [--fast]
                                   [--no-overlap] [--max-blocks N]
+                                  [--extended] [--jsonl PATH]
                                   [--device cuda|cpu]
 
-Prints `== <hex> ==` per validated frame and a final `stats:` line.
+Prints the reference's Display of every decoded packet (a DF17 packet
+opens with `== <hex> ==`) and a final `stats:` line; `--jsonl` also
+appends each packet as a JSON line; `--extended` decodes every Mode S
+downlink format, not just DF17.
 `--device` defaults to cuda; without a card that raises — the port never
 falls back to the CPU on its own.
 """
@@ -20,7 +24,7 @@ import torch
 
 def _cmd_adsb(args) -> int:
     from airjax_torch.runner import run_stream
-    from airjax_torch.ui.stream import stream_printer
+    from airjax_torch.ui.stream import jsonl_writer, stream_printer, tee
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -47,23 +51,33 @@ def _cmd_adsb(args) -> int:
     if args.max_blocks is not None:
         source = itertools.islice(source, args.max_blocks)
 
-    stats = run_stream(source, stream_printer(), overlap=not args.no_overlap, device=device)
+    sink = stream_printer()
+    if args.jsonl:
+        sink = tee(sink, jsonl_writer(args.jsonl))
+    stats = run_stream(
+        source, sink, overlap=not args.no_overlap, extended=args.extended, device=device
+    )
     print(f"\nstats: {stats.as_dict()}")
     return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
-        prog="airjax_torch", description="ADS-B DF17 decode on PyTorch/CUDA"
+        prog="airjax_torch", description="ADS-B / Mode S decode on PyTorch/CUDA"
     )
     sub = parser.add_subparsers(dest="command", required=True)
-    adsb = sub.add_parser("adsb", help="decode and print ADS-B DF17 frames")
+    adsb = sub.add_parser("adsb", help="decode and print ADS-B packets")
     src = adsb.add_mutually_exclusive_group()
     src.add_argument("-p", "--playback", default=None, help=".c16 capture to replay")
     src.add_argument("--synthetic", type=int, default=None, metavar="N")
     adsb.add_argument("--max-blocks", type=int, default=None, metavar="N")
     adsb.add_argument("--no-overlap", action="store_true", help="reference chunking: boundary frames lost")
     adsb.add_argument("--fast", action="store_true", help="replay without the 2x-real-time sleep")
+    adsb.add_argument("--jsonl", default=None, help="append decoded packets as JSON lines")
+    adsb.add_argument(
+        "--extended", action="store_true",
+        help="decode all Mode S downlink formats (DF0/4/5/11/16/20/21/24), not just DF17",
+    )
     adsb.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return parser
 

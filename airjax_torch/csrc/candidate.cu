@@ -15,6 +15,18 @@
 // syndrome of data bit j (j < 88; syndromes are pairwise distinct, so the
 // match is unique) flips bit j. A flip in the CRC field never validates.
 //
+// Mode extended (`adsb --extended`, every downlink format) also writes,
+// per candidate, what airjax/pipeline.py:206-237 derives from the raw
+// bits: the bytes before the repair, df = the first 5 bits, the long
+// AP residual (the pre-repair delta, crc24(bits[:88]) ^ bits[88:112]) and
+// the short one (the CRC of data bits 0-31 ^ PI = bits 32-55). The short
+// CRC needs the syndromes of a 32-bit message; bit j of it has the
+// syndrome of bit j + 56 of the 88-bit message (both x^(55-j) mod G), so
+// it reads the same table. It also writes the candidate classes with
+// airjax/pipeline.py:216-250's expressions, from the slot's validity: the
+// ~30 (K,) torch ops that would compute them after the kernel cost more
+// host launch time than the whole pass takes on the device.
+//
 // Bound: neither bandwidth nor arithmetic at the main path's sizes — a
 // block holds at most a few thousand candidates, each gathering 32 B and
 // writing 16 B; the 88 syndromes sit in __constant__ memory, read at one
@@ -43,11 +55,33 @@ __device__ __forceinline__ uint32_t even_bits(uint32_t x) {
   return x;
 }
 
+// The extended mode's input and outputs; null in the DF17 mode.
+struct Extended {
+  const bool* valid;    // (n_cand,) in: the slot holds a detection
+  uint8_t* frames_raw;  // (n_cand, 14)
+  int32_t* df;          // (n_cand,)
+  int32_t* icao_long;   // (n_cand,)
+  int32_t* icao_short;  // (n_cand,)
+  bool* classes;        // (kClasses, n_cand), rows in the order of enum Class
+};
+
+enum Class { kGoodLong, kRecovered, kGoodDf11, kCandDf11Ic, kCandShortAp, kCandLongAp, kClasses };
+
+__device__ __forceinline__ void store_frame(uint8_t* f, const uint32_t* h) {
+#pragma unroll
+  for (int q = 0; q < 7; ++q) {
+    f[2 * q] = static_cast<uint8_t>(h[q] >> 8);
+    f[2 * q + 1] = static_cast<uint8_t>(h[q] & 0xFFu);
+  }
+}
+
+template <bool kExtended>
 __global__ void __launch_bounds__(kThreads)
 candidate_kernel(const uint32_t* __restrict__ words, long long n_words,
                  const int32_t* __restrict__ offsets, long long n_cand,
                  uint8_t* __restrict__ frames, bool* __restrict__ crc_ok,
-                 bool* __restrict__ recovered) {
+                 bool* __restrict__ recovered, Extended ext) {
+  // Mode extended writes its classes instead of crc_ok and recovered.
   const long long k = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (k >= n_cand) return;
 
@@ -75,6 +109,20 @@ candidate_kernel(const uint32_t* __restrict__ words, long long n_words,
   const uint32_t packet_crc = ((h[5] & 0xFFu) << 16) | h[6];
   const uint32_t delta = calced ^ packet_crc;
 
+  const int df = static_cast<int>(h[0] >> 11);
+  uint32_t icao_short = 0;
+  if constexpr (kExtended) {
+    store_frame(ext.frames_raw + k * 14, h);
+    ext.df[k] = df;
+    ext.icao_long[k] = static_cast<int32_t>(delta);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if ((h[i >> 4] >> (15 - (i & 15))) & 1u) icao_short ^= c_syndromes[56 + i];
+    }
+    icao_short ^= (h[2] << 8) | (h[3] >> 8);  // PI: frame bits 32-55
+    ext.icao_short[k] = static_cast<int32_t>(icao_short);
+  }
+
   int flip = -1;
   if (delta != 0) {
     for (int j = 0; j < kDataBits; ++j) {
@@ -86,14 +134,24 @@ candidate_kernel(const uint32_t* __restrict__ words, long long n_words,
     if (flip >= 0 && (flip >> 4) == q) h[q] ^= 1u << (15 - (flip & 15));
   }
 
-  uint8_t* f = frames + k * 14;
-#pragma unroll
-  for (int q = 0; q < 7; ++q) {
-    f[2 * q] = static_cast<uint8_t>(h[q] >> 8);
-    f[2 * q + 1] = static_cast<uint8_t>(h[q] & 0xFFu);
+  store_frame(frames + k * 14, h);
+  const bool ok = delta == 0 || flip >= 0;
+  if constexpr (kExtended) {
+    const bool valid = ext.valid[k];
+    // AP-addressed long frames: DF16 ACAS, DF20/21 Comm-B, DF24+ Comm-D ELM.
+    const bool is_long_ap = df == 16 || df == 20 || df == 21 || df >= 24;
+    const bool good_long = ok && df >= 16 && valid && !is_long_ap;
+    bool* c = ext.classes;
+    c[kGoodLong * n_cand + k] = good_long;
+    c[kRecovered * n_cand + k] = flip >= 0 && good_long;
+    c[kGoodDf11 * n_cand + k] = df == 11 && icao_short == 0 && valid;
+    c[kCandDf11Ic * n_cand + k] = df == 11 && valid && icao_short != 0 && icao_short < 80;
+    c[kCandShortAp * n_cand + k] = (df == 0 || df == 4 || df == 5) && valid && icao_short != 0;
+    c[kCandLongAp * n_cand + k] = is_long_ap && valid && delta != 0;
+  } else {
+    crc_ok[k] = ok;
+    recovered[k] = flip >= 0;
   }
-  crc_ok[k] = delta == 0 || flip >= 0;
-  recovered[k] = flip >= 0;
 }
 
 }  // namespace
@@ -106,19 +164,32 @@ extern "C" int airjax_load_syndromes(const void* host) {
 }
 
 // words: (n_words,) u32 packed compares; offsets: (n_cand,) int32, invalid
-// slots already replaced by 0; frames: (n_cand, 14) u8; crc_ok, recovered:
-// (n_cand,) bool.
+// slots already replaced by 0; frames: (n_cand, 14) u8. Mode DF17 (valid
+// null): crc_ok, recovered (n_cand,) bool. Mode extended: valid (n_cand,)
+// bool in; frames_raw (n_cand, 14) u8; df, icao_long, icao_short (n_cand,)
+// int32; classes (6, n_cand) bool (enum Class); crc_ok, recovered unused.
 extern "C" int airjax_candidates(const void* words, long long n_words,
                                  const void* offsets, long long n_cand,
                                  void* frames, void* crc_ok, void* recovered,
+                                 const void* valid, void* frames_raw, void* df,
+                                 void* icao_long, void* icao_short, void* classes,
                                  void* stream) {
   const long long blocks = (n_cand + kThreads - 1) / kThreads;
   if (blocks == 0) return static_cast<int>(cudaGetLastError());
-  candidate_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), n_words,
-      static_cast<const int32_t*>(offsets), n_cand,
-      static_cast<uint8_t*>(frames), static_cast<bool*>(crc_ok),
-      static_cast<bool*>(recovered));
+  const auto grid = static_cast<unsigned>(blocks);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* w = static_cast<const uint32_t*>(words);
+  const auto* o = static_cast<const int32_t*>(offsets);
+  auto* f = static_cast<uint8_t*>(frames);
+  auto* ok = static_cast<bool*>(crc_ok);
+  auto* rec = static_cast<bool*>(recovered);
+  const Extended ext{static_cast<const bool*>(valid), static_cast<uint8_t*>(frames_raw),
+                     static_cast<int32_t*>(df), static_cast<int32_t*>(icao_long),
+                     static_cast<int32_t*>(icao_short), static_cast<bool*>(classes)};
+  if (valid != nullptr) {
+    candidate_kernel<true><<<grid, kThreads, 0, s>>>(w, n_words, o, n_cand, f, ok, rec, ext);
+  } else {
+    candidate_kernel<false><<<grid, kThreads, 0, s>>>(w, n_words, o, n_cand, f, ok, rec, ext);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,6 @@
 """Preamble/DF17 detection, ordered compaction and packed PPM compares in
-plain torch — the main-path subset of airjax/dsp/demod.py.
+plain torch — the subset of airjax/dsp/demod.py that the port's decode
+paths run.
 
 An offset i is a detection iff the four preamble highs are all >= the
 twelve preamble lows and the five DF17 highs are all >= the five DF17
@@ -46,6 +47,15 @@ def detect(mags: torch.Tensor, n_off: int) -> torch.Tensor:
     dmin = functools.reduce(torch.minimum, (_shifted(mags, s, n_off) for s in DF17_HIGHS))
     dmax = functools.reduce(torch.maximum, (_shifted(mags, s, n_off) for s in DF17_LOWS))
     return (hmin >= lmax) & (dmin >= dmax)
+
+
+def detect_preamble_only(mags: torch.Tensor, n_off: int) -> torch.Tensor:
+    """The preamble gate alone, without the DF17 check, for the extended
+    decode of every downlink format (airjax/dsp/demod.py:70-84): downstream
+    CRC and address checks do the filtering. (..., L) -> (..., n_off) bool."""
+    hmin = functools.reduce(torch.minimum, (_shifted(mags, s, n_off) for s in PREAMBLE_HIGHS))
+    lmax = functools.reduce(torch.maximum, (_shifted(mags, s, n_off) for s in PREAMBLE_LOWS))
+    return hmin >= lmax
 
 
 def compact_detections(

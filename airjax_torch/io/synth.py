@@ -1,6 +1,7 @@
-"""Synthetic IQ in numpy: DF17 frames PPM-modulated into a 2 MS/s noise
+"""Synthetic IQ in numpy: Mode S frames PPM-modulated into a 2 MS/s noise
 floor. Byte-identical to airjax/io/synth.py for the same arguments (that
-module imports jax through airjax.protocol).
+module imports jax through airjax.protocol). The makers of the other
+downlink formats are in airjax_torch.protocol.shortframe, as in airjax.
 
 Modulation matches what the detector and slicer expect:
   preamble: pulses at half-us samples {0, 2, 7, 9} of 16
@@ -11,16 +12,16 @@ from __future__ import annotations
 
 import numpy as np
 
+from airjax_torch.protocol import acas
+from airjax_torch.protocol import shortframe as sf
 from airjax_torch.protocol.crc import crc24
+from airjax_torch.protocol.fields import CHAR_CONVERT
 
 PREAMBLE_PULSES = (0, 2, 7, 9)
 PREAMBLE_LEN = 16
 FRAME_BITS = 112
 FRAME_SAMPLES = 224
 WINDOW = PREAMBLE_LEN + FRAME_SAMPLES
-
-# The 6-bit ADS-B character set (airjax/protocol/fields.py:24).
-CHAR_CONVERT = "#ABCDEFGHIJKLMNOPQRSTUVWXYZ#####_###############0123456789######"
 
 
 def make_df17(icao: int, me: bytes, capability: int = 5) -> bytes:
@@ -111,3 +112,36 @@ def flip_bit(frame: bytes, bit_index: int) -> bytes:
     buf = bytearray(frame)
     buf[bit_index // 8] ^= 1 << (7 - bit_index % 8)
     return bytes(buf)
+
+
+def make_mixed_frames(n_aircraft: int, seed: int) -> list[bytes]:
+    """Traffic of every downlink format the extended decode emits, for
+    tests and smoke runs: per aircraft, in this order, a DF17 (which makes
+    its ICAO known to the acceptance cache), then a DF11 acquisition
+    squitter, an interrogated DF11, DF0, DF4, DF5, DF16 (with an RA
+    report), DF20 (BDS 2,0 callsign), DF21 and DF24 reply. Altitudes
+    alternate between the 25 ft and the Gillham encodings."""
+    rng = np.random.default_rng(seed)
+    frames = []
+    for i in range(n_aircraft):
+        icao = int(rng.integers(1, 1 << 24))
+        alt = 100 * int(rng.integers(10, 400))
+        gillham = bool(i % 2)
+        squawk = int("".join(str(d) for d in rng.integers(0, 8, 4)))
+        if i % 2:
+            me = make_position_me(11, alt, int(rng.integers(0, 1 << 17)), int(rng.integers(0, 1 << 17)), bool(i % 4 == 1))
+        else:
+            me = make_id_me(f"MIX{i % 100000:05d}")
+        frames += [
+            make_df17(icao, me),
+            sf.make_df11(icao),
+            sf.make_df11(icao, interrogator=int(rng.integers(1, 80))),
+            sf.make_df0(icao, alt, vs=i % 2, gillham=gillham),
+            sf.make_df4(icao, alt, fs=i % 6, gillham=gillham),
+            sf.make_df5(icao, squawk),
+            sf.make_df16(icao, alt, mv=acas.make_mv_ra(ara=1 << int(rng.integers(0, 14)))),
+            sf.make_df20(icao, alt, mb=make_id_me(f"CB{i % 1000000:06d}")),
+            sf.make_df21(icao, squawk, mb=make_id_me(f"CB{i % 1000000:06d}")),
+            sf.make_df24(icao, nd=i % 16, md=rng.integers(0, 256, 10, dtype=np.uint8).tobytes()),
+        ]
+    return frames

@@ -6,6 +6,9 @@ the pallas_call at :138) mode planes, of one CUDA kernel,
 csrc/magdet.cu. Mode packed emits pack_cmp_words' dense word layout, not
 the TPU's sparse byte plane. The TPU's TILE/EXTRA geometry and
 `pad_for_kernel` are not ported: the kernel masks the ragged edge itself.
+`gate` picks the detector: "df17" (the reference's preamble + DF17 taps,
+the main path) or "preamble" (the preamble alone, for the extended decode
+of every downlink format).
 
 `magdet` launches the kernel for a CUDA tensor and runs `magdet_plain`
 for a CPU tensor. `launches` counts kernel launches.
@@ -16,53 +19,68 @@ from __future__ import annotations
 import torch
 
 from airjax_torch._dispatch import check_launch, check_tensor, use_kernel
-from airjax_torch.dsp.demod import DF17_LOWS, detect, n_words, pack_cmp_words
+from airjax_torch.dsp.demod import (
+    DF17_LOWS,
+    detect,
+    detect_preamble_only,
+    n_words,
+    pack_cmp_words,
+)
 from airjax_torch.dsp.magnitude import magnitude_u16
 
 launches = 0
+GATES = {"df17": 0, "preamble": 1}  # the kernel's Gate values
 
 
 def magdet_plain(
-    iq: torch.Tensor, n_off: int, packed: bool = True
+    iq: torch.Tensor, n_off: int, packed: bool = True, gate: str = "df17"
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain torch version: magnitude_u16 -> detect, and pack_cmp_words
-    (packed) or the unpacked compares (planes)."""
+    """Plain torch version: magnitude_u16 -> detect (or
+    detect_preamble_only), and pack_cmp_words (packed) or the unpacked
+    compares (planes)."""
     mags = magnitude_u16(iq)
-    det = detect(mags, n_off).to(torch.uint8)
+    det = (detect if gate == "df17" else detect_preamble_only)(mags, n_off).to(torch.uint8)
     if packed:
         return det, pack_cmp_words(mags)
     return det, (mags[:-1] > mags[1:]).to(torch.uint8)
 
 
 def magdet(
-    iq: torch.Tensor, n_off: int, packed: bool = True
+    iq: torch.Tensor, n_off: int, packed: bool = True, gate: str = "df17"
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(L, 2) int16 IQ -> (det, cmp) over one block.
 
-    det: (n_off,) uint8, the preamble/DF17 gate at offsets [0, n_off)
-    (needs L >= n_off + 25). packed: (n_words(L),) int32 packed compares
+    det: (n_off,) uint8, the `gate` at offsets [0, n_off) (needs
+    L >= n_off + 25). packed: (n_words(L),) int32 packed compares
     (airjax_torch.dsp.demod.pack_cmp_words). planes: (L-1,) uint8
     compares mag[i] > mag[i+1].
     """
+    check_iq(iq, n_off)
+    if gate not in GATES:
+        raise ValueError(f"gate: expected one of {sorted(GATES)}, got {gate!r}")
+    if use_kernel(iq):
+        return _magdet_cuda(iq, n_off, packed, gate)
+    return magdet_plain(iq, n_off, packed, gate)
+
+
+def check_iq(iq: torch.Tensor, n_off: int) -> None:
+    """Raise on an IQ block or offset count the front kernels do not take."""
     check_tensor(iq, "iq", torch.int16, 2)
     n_samples = iq.shape[0]
     if iq.shape[1] != 2:
         raise ValueError(f"iq: expected (L, 2), got {tuple(iq.shape)}")
     if n_off < 0 or n_samples < n_off + DF17_LOWS[-1]:
         raise ValueError(f"n_off={n_off} needs at least {n_off + 25} samples, got {n_samples}")
-    if use_kernel(iq):
-        return _magdet_cuda(iq, n_off, packed)
-    return magdet_plain(iq, n_off, packed)
+    if iq.device.type == "cuda" and iq.data_ptr() % 4:
+        raise ValueError("iq: the kernel reads one 4-byte word per sample; pointer not aligned")
 
 
 def _magdet_cuda(
-    iq: torch.Tensor, n_off: int, packed: bool
+    iq: torch.Tensor, n_off: int, packed: bool, gate: str
 ) -> tuple[torch.Tensor, torch.Tensor]:
     global launches
     from airjax_torch._build import library
 
-    if iq.data_ptr() % 4:
-        raise ValueError("iq: the kernel reads one 4-byte word per sample; pointer not aligned")
     lib = library()
     n_samples = iq.shape[0]
     det = torch.empty(n_off, dtype=torch.uint8, device=iq.device)
@@ -73,7 +91,7 @@ def _magdet_cuda(
     with torch.cuda.device(iq.device):
         rc = lib.airjax_magdet(
             iq.data_ptr(), n_samples, n_off, det.data_ptr(), out.data_ptr(),
-            out.numel(), int(packed), torch.cuda.current_stream().cuda_stream,
+            out.numel(), int(packed), GATES[gate], torch.cuda.current_stream().cuda_stream,
         )
     check_launch(rc, "magdet kernel")
     launches += 1

@@ -13,6 +13,12 @@ the same wrappers run their plain versions. `decode_mags_block` is the
 plain torch chain from magnitudes on either device, the counterpart of
 airjax's XLA path (:59-108).
 
+`decode_iq_block_extended` is the extended decode of every Mode S
+downlink format (airjax/pipeline.py:174-284, recover2=False): the front
+kernel with the preamble-only gate, the same compaction, then the
+candidate kernel in its extended mode; `decode_mags_block_extended` is
+its plain chain from magnitudes.
+
 Both block decompositions of airjax are kept: parity (reference playback
 chunking, applied as an offset filter over one whole-stream scan) and
 overlap (every global offset scanned exactly once).
@@ -31,8 +37,19 @@ import numpy as np
 import torch
 
 from airjax_torch.config import DEFAULT_CONFIG, PipelineConfig
-from airjax_torch.dsp.demod import WINDOW, compact_detections, detect, pack_cmp_words
-from airjax_torch.kernels.candidate import decode_candidates, decode_candidates_plain
+from airjax_torch.dsp.demod import (
+    WINDOW,
+    compact_detections,
+    detect,
+    detect_preamble_only,
+    pack_cmp_words,
+)
+from airjax_torch.kernels.candidate import (
+    decode_candidates,
+    decode_candidates_extended,
+    decode_candidates_extended_plain,
+    decode_candidates_plain,
+)
 from airjax_torch.kernels.magdet import magdet
 
 Hit = tuple[int, int, bytes, bool]
@@ -76,6 +93,42 @@ def decode_iq_block(iq: torch.Tensor, n_off: int, capacity: int) -> dict[str, to
     _check_block(iq.shape[0], n_off)
     det, words = magdet(iq, n_off)
     return _decode_candidates(det, words, capacity, decode_candidates)
+
+
+def _decode_candidates_extended(det, words, capacity, candidates) -> dict[str, torch.Tensor]:
+    """Compaction, then `candidates` (the extended kernel wrapper or its
+    plain version) on the compacted offsets: airjax's extended dict
+    (airjax/pipeline.py:254-270; its AP residuals are uint32, int32 here,
+    all < 2^24)."""
+    offsets, valid, n_det = compact_detections(det, capacity)
+    return {
+        "offsets": offsets,
+        "valid": valid,
+        **candidates(words, torch.where(valid, offsets, 0), valid),
+        "n_detections": n_det,
+        "overflow": n_det > capacity,
+    }
+
+
+def decode_mags_block_extended(
+    mags: torch.Tensor, n_off: int, capacity: int
+) -> dict[str, torch.Tensor]:
+    """(L,) int32 magnitudes -> the extended candidate dict, in plain torch
+    on either device (airjax/pipeline.py:174-273, recover2=False)."""
+    _check_block(mags.shape[0], n_off)
+    return _decode_candidates_extended(
+        detect_preamble_only(mags, n_off), pack_cmp_words(mags), capacity,
+        decode_candidates_extended_plain,
+    )
+
+
+def decode_iq_block_extended(iq: torch.Tensor, n_off: int, capacity: int) -> dict[str, torch.Tensor]:
+    """(L, 2) int16 IQ -> the extended candidate dict, through the front
+    kernel (preamble gate) and the candidate kernel's extended mode on CUDA
+    (airjax/pipeline.py:276-284)."""
+    _check_block(iq.shape[0], n_off)
+    det, words = magdet(iq, n_off, gate="preamble")
+    return _decode_candidates_extended(det, words, capacity, decode_candidates_extended)
 
 
 def to_host(out: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:

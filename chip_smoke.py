@@ -9,10 +9,15 @@ Phases; any failure raises and the exit code is nonzero:
   2. build: nvcc compiles airjax_torch/csrc/*.cu for sm_90a into
      build/airjax_torch/ (timed);
   3. kernel against plain on the card, bit for bit: the front kernel in
-     both modes and the candidate kernel, on int16 extremes, ragged
-     lengths, frames with 1-bit flips in the data bits and the CRC field,
-     and the full block of phase 4; each kernel timed against its plain
-     version with CUDA events;
+     both modes with both gates (DF17, preamble only), the three stencil
+     variants (tree32, tree16, flat16) against their plain versions and
+     against the flat front, on int16 extremes, small-range noise (ties and
+     detections at every tile edge), the ragged lengths 20239 / 65536+777 /
+     2^22+13 and the block of phase 4; the candidate kernel in both modes
+     (DF17 frames, and every downlink format, with 1-bit flips in the data
+     bits and the CRC field, plus random offsets and the blocks' own
+     candidates); each kernel and mode timed against its plain version
+     with CUDA events;
   4. one block at bench.py's shape (2^24 + 1024 samples, n_off = 2^24 - 240,
      capacity 2048, 1024 DF17 frames at multiples of 300, noise 60):
      every frame decoded, both kernels launched; kernel path and plain
@@ -20,16 +25,29 @@ Phases; any failure raises and the exit code is nonzero:
      (torch.profiler, 10 passes each): device time per kernel and per
      pass, the busy time against this run's CUDA-event pass time, and the
      front kernel's bytes moved per second;
-  5. a 20 M-sample (10 s at 2 MS/s) capture with ~600 frames, some
+  5. the front-stencil A/B (airjax's tools/bench_stencil3.py, the path the
+     stencil variants serve): tree32, tree16 and flat16 against the flat
+     front in mode planes on the 2^24-sample block, in turns, in one run;
+  6. a 20 M-sample (10 s at 2 MS/s) capture with ~600 frames, some
      straddling the 20,000-sample chunk edges and some corrupted, replayed
      through the CLI (`adsb --playback FILE --fast`): overlap mode emits
      every frame once, in order; --no-overlap loses the straddlers; both
-     hit lists equal the plain path's on the card.
+     hit lists equal the plain path's on the card;
+  7. the extended decode of every downlink format on a 2^24 + 1024-sample
+     block (1024 aircraft, each a DF17 before its DF0/4/5/11/16/20/21/24
+     replies, noise 60; capacity from the plain path's detection count):
+     every embedded frame in its class, the dict equal to the plain
+     path's, both kernels launched, both paths timed and profiled;
+  8. a 4 M-sample mixed-format capture through
+     `adsb --playback FILE --fast --extended`: its packet text equals the
+     plain path's assembly on the card (`Processed Time` masked), every
+     embedded frame emitted, the corrupted DF17s repaired.
 
-Prints the kernel table as one JSON line, the card's name and power limit
-(nvidia-smi), and last `{"ok": true, "device": {...}}`. Imports no jax.
-Exits nonzero, before printing any result, without a CUDA card. Loads no
-module of the JAX package `airjax` either.
+Prints the kernel table as one JSON line (`launches` counted on the path
+named in `path`), the card's name and power limit (nvidia-smi), and last
+`{"ok": true, "device": {...}}`. Imports no jax. Exits nonzero, before
+printing any result, without a CUDA card. Loads no module of the JAX
+package `airjax` either.
 """
 
 from __future__ import annotations
@@ -53,6 +71,8 @@ HALO = 1024
 CAPACITY = 2048
 CHUNK = 20000
 STREAM_SAMPLES = 20_000_000  # 10 s at 2 MS/s
+EXT_STREAM_SAMPLES = 4_000_000  # 2 s at 2 MS/s
+VARIANTS = ("tree32", "tree16", "flat16")
 
 
 def check(cond: bool, what: str) -> None:
@@ -135,32 +155,91 @@ def phase_build() -> None:
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
 
 
-def phase_kernels(block_dev: torch.Tensor) -> list[dict]:
+def mixed_capture(n_aircraft: int, n_samples: int, span: int, seed: int, flips: int = 0):
+    """Every downlink format (synth.make_mixed_frames) at sorted random
+    multiples of 300 whose windows end inside the first `span` samples, so
+    each aircraft's DF17 precedes its replies; `flips` DF17s sent with a
+    data-bit flip past the DF field. Returns (iq, offsets, frames as made,
+    indices of the flipped frames)."""
+    from airjax_torch.io import synth
+
+    rng = np.random.default_rng(seed)
+    frames = synth.make_mixed_frames(n_aircraft, seed)
+    slots = (span - 240) // 300
+    offsets = np.sort(rng.choice(np.arange(slots) * 300, len(frames), replace=False))
+    flipped = sorted(rng.choice(np.arange(0, len(frames), 10), flips, replace=False).tolist())
+    sent = list(frames)
+    for i in flipped:
+        sent[i] = synth.flip_bit(frames[i], int(rng.integers(5, 88)))
+    iq = synth.modulate(sent, list(map(int, offsets)), n_samples, noise_std=60.0, seed=seed)
+    return iq, offsets, frames, flipped
+
+
+def flipped_mixed_iq(seed: int):
+    """Every downlink format with a third of the frames flipped in the data
+    bits (past the DF field) and a third in the CRC field -> (iq, offsets)."""
+    from airjax_torch.io import synth
+
+    rng = np.random.default_rng(seed)
+    frames = synth.make_mixed_frames(100, seed)
+    for i, f in enumerate(frames):
+        data = 88 if len(f) == 14 else 32
+        if i % 3 == 1:
+            frames[i] = synth.flip_bit(f, int(rng.integers(5, data)))
+        elif i % 3 == 2:
+            frames[i] = synth.flip_bit(f, int(rng.integers(data, 8 * len(f))))
+    offs = np.arange(len(frames)) * 301 + 7
+    return synth.modulate(frames, list(offs), len(frames) * 301 + 500, seed=seed), offs
+
+
+def phase_kernels(
+    block_dev: torch.Tensor, ext_block_dev: torch.Tensor, capacity_ext: int
+) -> tuple[list[dict], dict[str, int]]:
+    """Phase 3 -> the kernel table's entries of the decode paths, and the
+    stencil variants' max abs errors."""
     from airjax_torch.dsp.demod import compact_detections
     from airjax_torch.io import synth
-    from airjax_torch.kernels.candidate import decode_candidates, decode_candidates_plain
-    from airjax_torch.kernels.magdet import magdet, magdet_plain
+    from airjax_torch.kernels.candidate import (
+        decode_candidates,
+        decode_candidates_extended,
+        decode_candidates_extended_plain,
+        decode_candidates_plain,
+    )
+    from airjax_torch.kernels.magdet import GATES, magdet, magdet_plain
+    from airjax_torch.kernels.stencil3 import magdet_tree, magdet_tree_plain
 
     dev = block_dev.device
     rng = np.random.default_rng(12)
 
-    # Front kernel: extremes + full-range random at ragged lengths, and the block.
-    front_err = 0
+    # Front kernel and stencil variants: extremes + full-range random at
+    # ragged lengths, small-range noise, and the block.
+    front_err = dict.fromkeys(GATES, 0)
+    tree_err = dict.fromkeys(VARIANTS, 0)
     cases = []
     for n in (20239, 65536 + 777, (1 << 22) + 13):
         iq = rng.integers(-32768, 32768, size=(n, 2), dtype=np.int16)
-        iq[:6] = [[-32768, -32768], [32767, 32767], [-32768, 32767], [0, 0], [1, 0], [3, 4]]
+        iq[:8] = [[-32768, -32768], [32767, 32767], [-32768, 32767], [0, 0], [1, 0], [3, 4],
+                  [255, 255], [256, 256]]
         cases.append(torch.as_tensor(iq).to(dev))
+    cases.append(torch.as_tensor(rng.integers(-2, 3, size=((1 << 20) + 99, 2), dtype=np.int16)).to(dev))
     cases.append(block_dev)
     for iq in cases:
         n_off = iq.shape[0] - 240
-        for packed in (True, False):
-            got = magdet(iq, n_off, packed=packed)
-            want = magdet_plain(iq, n_off, packed=packed)
-            front_err = max(front_err, max_abs_err(zip(got, want)))
+        for gate in GATES:
+            for packed in (True, False):
+                got = magdet(iq, n_off, packed=packed, gate=gate)
+                want = magdet_plain(iq, n_off, packed=packed, gate=gate)
+                front_err[gate] = max(front_err[gate], max_abs_err(zip(got, want)))
+        flat = magdet(iq, n_off, packed=False)
+        for v in VARIANTS:
+            got = magdet_tree(iq, n_off, v)
+            err = max(max_abs_err(zip(got, magdet_tree_plain(iq, n_off, v))), max_abs_err(zip(got, flat)))
+            tree_err[v] = max(tree_err[v], err)
     torch.cuda.synchronize()
-    check(front_err == 0, f"front kernel disagrees with plain (max abs err {front_err})")
-    print(f"front kernel == plain on {len(cases)} inputs, both modes")
+    check(not any(front_err.values()), f"front kernel disagrees with plain (max abs err {front_err})")
+    check(not any(tree_err.values()), f"a stencil variant disagrees (max abs err {tree_err})")
+    print(f"front kernel == plain on {len(cases)} inputs, both modes, both gates; "
+          f"tree32, tree16, flat16 == plain == flat front on the same inputs")
 
     # Candidate kernel: frames with 1-bit flips in the data bits and in the
     # CRC field, random offsets, and the block's own candidates.
@@ -193,26 +272,57 @@ def phase_kernels(block_dev: torch.Tensor) -> list[dict]:
     check(cand_err == 0, f"candidate kernel disagrees with plain (max abs err {cand_err})")
     print(f"candidate kernel == plain on {len(inputs)} inputs")
 
-    # Times at the main path's shapes: the 2^24-sample block, K = CAPACITY.
+    # Extended mode: every downlink format with flips, random offsets, and
+    # the extended block's own candidates.
+    iq_m, offs_m = flipped_mixed_iq(13)
+    iq_m = torch.as_tensor(iq_m).to(dev)
+    _, words_m = magdet(iq_m, iq_m.shape[0] - 240, gate="preamble")
+    o = np.concatenate([offs_m, rng.integers(0, iq_m.shape[0] - 240, 500)]).astype(np.int32)
+    valid_m = torch.as_tensor(rng.random(len(o)) < 0.9).to(dev)  # some invalid slots
+    ext_inputs = [(words_m, torch.as_tensor(o).to(dev), valid_m)]
+    det_e, words_e = magdet(ext_block_dev, BLOCK - 240, gate="preamble")
+    offsets_e, valid_e, _ = compact_detections(det_e, capacity_ext)
+    ext_inputs.append((words_e, torch.where(valid_e, offsets_e, 0), valid_e))
+    ext_err = 0
+    for w, off, valid in ext_inputs:
+        got = decode_candidates_extended(w, off, valid)
+        want = decode_candidates_extended_plain(w, off, valid)
+        check(sorted(got) == sorted(want), "extended candidate keys differ")
+        ext_err = max(ext_err, max_abs_err((got[key], want[key]) for key in want))
+    torch.cuda.synchronize()
+    check(ext_err == 0, f"extended candidate kernel disagrees with plain (max abs err {ext_err})")
+    print(f"candidate kernel, mode extended == plain on {len(ext_inputs)} inputs")
+
+    # Times at the main paths' shapes: the 2^24-sample blocks, K = CAPACITY
+    # (DF17) and K = capacity_ext (extended).
     n_off = BLOCK - 240
     w_b, o_b = inputs[-1]
-    front_ms = cuda_ms(lambda: magdet(block_dev, n_off))
-    front_plain_ms = cuda_ms(lambda: magdet_plain(block_dev, n_off))
-    planes_ms = cuda_ms(lambda: magdet(block_dev, n_off, packed=False))
-    planes_plain_ms = cuda_ms(lambda: magdet_plain(block_dev, n_off, packed=False))
-    cand_ms = cuda_ms(lambda: decode_candidates(w_b, o_b))
-    cand_plain_ms = cuda_ms(lambda: decode_candidates_plain(w_b, o_b))
-    print(f"front kernel {front_ms:.4f} ms, plain {front_plain_ms:.4f} ms (2^24 samples); "
-          f"candidate kernel {cand_ms:.4f} ms, plain {cand_plain_ms:.4f} ms (K={CAPACITY}); "
-          f"front in mode planes {planes_ms:.4f} ms, plain {planes_plain_ms:.4f} ms")
+    w_e, o_e, v_e = ext_inputs[-1]
+    times = {
+        "magdet_front": (lambda: magdet(block_dev, n_off), lambda: magdet_plain(block_dev, n_off)),
+        "magdet_front_planes": (lambda: magdet(block_dev, n_off, packed=False),
+                                lambda: magdet_plain(block_dev, n_off, packed=False)),
+        "magdet_front_preamble": (lambda: magdet(ext_block_dev, n_off, gate="preamble"),
+                                  lambda: magdet_plain(ext_block_dev, n_off, gate="preamble")),
+        "candidate_crc": (lambda: decode_candidates(w_b, o_b), lambda: decode_candidates_plain(w_b, o_b)),
+        "candidate_extended": (lambda: decode_candidates_extended(w_e, o_e, v_e),
+                               lambda: decode_candidates_extended_plain(w_e, o_e, v_e)),
+    }
+    ms = {name: (cuda_ms(kernel), cuda_ms(plain)) for name, (kernel, plain) in times.items()}
+    for name, (k_ms, p_ms) in ms.items():
+        print(f"{name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+
+    def entry(name, source, replaces, err):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": None, "path": None, "max_abs_err": err, "ms": ms[name][0], "plain_ms": ms[name][1]}
+
     return [
-        {"name": "magdet_front", "route": "cuda", "source": "airjax_torch/csrc/magdet.cu",
-         "replaces": "airjax/kernels/magdet.py:250", "launches": None,
-         "max_abs_err": front_err, "ms": front_ms, "plain_ms": front_plain_ms},
-        {"name": "candidate_crc", "route": "cuda", "source": "airjax_torch/csrc/candidate.cu",
-         "replaces": "airjax/dsp/demod.py:285", "launches": None,
-         "max_abs_err": cand_err, "ms": cand_ms, "plain_ms": cand_plain_ms},
-    ]
+        entry("magdet_front", "airjax_torch/csrc/magdet.cu", "airjax/kernels/magdet.py:250", front_err["df17"]),
+        entry("magdet_front_preamble", "airjax_torch/csrc/magdet.cu", "airjax/dsp/demod.py:70",
+              front_err["preamble"]),
+        entry("candidate_crc", "airjax_torch/csrc/candidate.cu", "airjax/dsp/demod.py:285", cand_err),
+        entry("candidate_extended", "airjax_torch/csrc/candidate.cu", "airjax/pipeline.py:204", ext_err),
+    ], tree_err
 
 
 def phase_block(block_dev: torch.Tensor, frames: list[bytes], offsets: np.ndarray) -> None:
@@ -242,34 +352,43 @@ def phase_block(block_dev: torch.Tensor, frames: list[bytes], offsets: np.ndarra
         profile_pass(name, fn, ms * 1e3, block_dev.shape[0], n_off)
 
 
-def profile_pass(name: str, fn, pass_us: float, n_samples: int, n_off: int, passes: int = 10) -> None:
-    """Where one block decode's device time goes: device time per kernel
-    and the busy time per pass under torch.profiler, against the pass time
-    that CUDA events measured just before without it."""
+def device_profile(fn, marker: str, passes: int = 10) -> tuple[dict[str, float], float, int]:
+    """torch.profiler over `passes` calls of fn: device µs per pass by
+    kernel name, the device's busy µs per pass (union of the device
+    intervals), and the passes it recorded: the count of the kernel named
+    by `marker`, which fn launches once (the profiler can lose whole
+    passes); ({}, 0.0, 0) if it recorded no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(passes):
             fn()
         torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    seen = sum(marker in e.name for e in events)
+    if not seen:
+        return {}, 0.0, 0
     per_kernel: dict[str, float] = {}
-    intervals = []
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        t0, t1 = e.time_range.start, e.time_range.end
-        per_kernel[e.name] = per_kernel.get(e.name, 0.0) + (t1 - t0) / passes
-        intervals.append((t0, t1))
-    if not intervals:
-        print(f"profile, {name}: the profiler recorded no device activity (not measured)")
-        return
+    for e in events:
+        per_kernel[e.name] = per_kernel.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / seen
     busy, end = 0.0, float("-inf")
-    for t0, t1 in sorted(intervals):  # union of the device intervals
+    for t0, t1 in sorted((e.time_range.start, e.time_range.end) for e in events):
         busy += max(0.0, t1 - max(t0, end))
         end = max(end, t1)
-    busy /= passes
+    return per_kernel, busy / seen, seen
+
+
+def profile_pass(name: str, fn, pass_us: float, n_samples: int, n_off: int) -> None:
+    """Where one block decode's device time goes: device time per kernel
+    and the busy time per pass under torch.profiler, against the pass time
+    that CUDA events measured just before without it."""
+    per_kernel, busy, seen = device_profile(fn, "searchsorted")  # the compaction's, once a pass
+    if not per_kernel:
+        print(f"profile, {name}: the profiler recorded no device activity (not measured)")
+        return
     print(f"profile, {name}: {pass_us:.1f} us/pass by CUDA events, device busy "
-          f"{busy:.1f} us/pass under the profiler, idle share {1 - busy / pass_us:.3f}")
+          f"{busy:.1f} us/pass under the profiler ({seen} of 10 passes recorded), "
+          f"idle share {1 - busy / pass_us:.3f}")
     for k, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  {us:9.2f} us/pass  {k[:100]}")
     front = [us for k, us in per_kernel.items() if "magdet_kernel" in k]
@@ -277,6 +396,176 @@ def profile_pass(name: str, fn, pass_us: float, n_samples: int, n_off: int, pass
         # IQ read, det written over n_off offsets, the packed compare words.
         moved = 4 * n_samples + n_off + 4 * (4 * -(-(n_samples - 1) // 128) + 8)
         print(f"  front kernel: {moved} bytes in {front[0]:.2f} us = {moved / front[0] / 1e3:.1f} GB/s")
+
+
+def phase_stencil_ab(block_dev: torch.Tensor) -> dict[str, tuple[float, float, int]]:
+    """The front-stencil A/B on the 2^24-sample block, in turns (flat,
+    tree32, tree16, flat16, then the reverse), each a median of CUDA-event
+    passes; the variants' plain versions after. Returns per variant
+    (kernel ms, plain ms, launches in the A/B)."""
+    from airjax_torch.kernels import stencil3
+    from airjax_torch.kernels.magdet import magdet
+
+    n_off = BLOCK - 240
+    order = ("flat",) + VARIANTS
+    runs: dict[str, list[float]] = {name: [] for name in order}
+    stencil3.launches = 0
+    launches = dict.fromkeys(VARIANTS, 0)
+    for name in order + order[::-1]:
+        before = stencil3.launches
+        if name == "flat":
+            runs[name].append(cuda_ms(lambda: magdet(block_dev, n_off, packed=False)))
+        else:
+            runs[name].append(cuda_ms(lambda: stencil3.magdet_tree(block_dev, n_off, name)))
+            launches[name] += stencil3.launches - before
+    ms = {name: statistics.mean(v) for name, v in runs.items()}
+    plain = {v: cuda_ms(lambda: stencil3.magdet_tree_plain(block_dev, n_off, v)) for v in VARIANTS}
+    print("stencil A/B (2^24 samples, mode planes, two turns each): "
+          + ", ".join(f"{name} {ms[name]:.4f} ms ({' / '.join(f'{t:.4f}' for t in runs[name])})" for name in order))
+    print("stencil variants, plain: " + ", ".join(f"{v} {plain[v]:.4f} ms" for v in VARIANTS))
+    # Device time alone (no host launch cost), one kernel per call.
+    device = {}
+    for name in order:
+        fn = (lambda: magdet(block_dev, n_off, packed=False)) if name == "flat" else (
+            lambda: stencil3.magdet_tree(block_dev, n_off, name))
+        before = stencil3.launches
+        per_kernel, _, _ = device_profile(fn, "magdet")
+        if name != "flat":
+            launches[name] += stencil3.launches - before
+        device[name] = max(per_kernel.values(), default=float("nan"))
+    moved = 4 * block_dev.shape[0] + n_off + block_dev.shape[0] - 1  # IQ in, det and cmp out
+    print("stencil A/B, device time (profiler, 10 calls): " + ", ".join(
+        f"{name} {device[name]:.2f} us ({moved / device[name] / 1e3:.1f} GB/s)" for name in order))
+    return {v: (ms[v], plain[v], launches[v]) for v in VARIANTS}
+
+
+def embedded_class(frame: bytes) -> str:
+    """The extended dict's class of a frame sent clean."""
+    from airjax_torch.protocol.crc import crc24
+
+    df = frame[0] >> 3
+    if df == 17:
+        return "good_long"
+    if df == 11:
+        return "good_df11" if crc24(frame[:4]) == int.from_bytes(frame[4:7], "big") else "cand_df11_ic"
+    return "cand_short_ap" if df in (0, 4, 5) else "cand_long_ap"
+
+
+def ext_capacity(iq_dev: torch.Tensor, n_off: int) -> int:
+    """The preamble-only gate's detection count on this block by the plain
+    path, rounded up to a multiple of 1024: the capacity that holds it."""
+    from airjax_torch.dsp.demod import detect_preamble_only
+    from airjax_torch.dsp.magnitude import magnitude_u16
+
+    n_det = int(detect_preamble_only(magnitude_u16(iq_dev), n_off).sum())
+    return -(-n_det // 1024) * 1024
+
+
+def phase_extended_block(block_dev: torch.Tensor, capacity: int, frames: list[bytes],
+                         offsets: np.ndarray) -> None:
+    from airjax_torch import pipeline
+    from airjax_torch.dsp.magnitude import magnitude_u16
+    from airjax_torch.extended import assemble_extended
+    from airjax_torch.kernels import candidate, magdet
+    from airjax_torch.track.icao_cache import IcaoCache
+
+    n_off = BLOCK - 240
+    magdet.launches = 0
+    candidate.launches = 0
+    out = pipeline.to_host(pipeline.decode_iq_block_extended(block_dev, n_off, capacity))
+    check(magdet.launches > 0 and candidate.launches > 0, "the extended block did not run both kernels")
+    check(not bool(out["overflow"]), "extended capacity overflow")
+    plain = pipeline.to_host(pipeline.decode_mags_block_extended(magnitude_u16(block_dev), n_off, capacity))
+    check(sorted(plain) == sorted(out), "extended dict keys differ")
+    for key in plain:
+        check(plain[key].dtype == out[key].dtype and np.array_equal(plain[key], out[key]),
+              f"extended dict differs from the plain path at {key}")
+    at = {int(o): k for k, o in enumerate(out["offsets"]) if out["valid"][k]}
+    for frame, off in zip(frames, offsets):
+        k = at.get(int(off))
+        check(k is not None and bool(out[embedded_class(frame)][k]), f"frame at {off} not in its class")
+        raw = out["frames" if frame[0] >> 3 == 17 else "frames_raw"][k].tobytes()
+        check(raw[: len(frame)] == frame, f"frame at {off}: bytes differ")
+    packets = assemble_extended(out, time.time(), IcaoCache())
+    emitted = {o for o, _ in packets}
+    check(all(int(o) in emitted for o in offsets), "an embedded frame emitted no packet")
+    kinds = {}
+    for _, p in packets:
+        kinds[type(p).__name__] = kinds.get(type(p).__name__, 0) + 1
+    print(f"extended block: {len(frames)} frames in their classes, {int(out['n_detections'])} detections "
+          f"(capacity {capacity}), dict == plain path; packets {json.dumps(kinds)}")
+
+    paths = {
+        "extended kernel path": lambda: pipeline.decode_iq_block_extended(block_dev, n_off, capacity),
+        "extended plain path": lambda: pipeline.decode_mags_block_extended(
+            magnitude_u16(block_dev), n_off, capacity),
+    }
+    for name, fn in paths.items():
+        ms = cuda_ms(fn, reps=15)
+        print(f"block decode, {name}: {ms:.4f} ms median of 15 = "
+              f"{BLOCK / ms / 1e3:.1f} MS/s, {len(frames) / ms * 1e3:.1f} msgs/s")
+        profile_pass(name, fn, ms * 1e3, block_dev.shape[0], n_off)
+
+
+def plain_extended_packets(iq: np.ndarray, dev: torch.device, now: float):
+    """The whole capture's extended packets through the plain torch path on
+    the card and one ICAO cache (overlap-save slices of 2^22 offsets,
+    independent of the CLI's 20k blocks): [(global offset, packet)]."""
+    from airjax_torch import pipeline
+    from airjax_torch.dsp.magnitude import magnitude_u16
+    from airjax_torch.extended import assemble_extended
+    from airjax_torch.track.icao_cache import IcaoCache
+
+    scan = 1 << 22
+    cache = IcaoCache()
+    packets = []
+    for start in range(0, len(iq) - 239, scan):
+        sl = torch.as_tensor(iq[start : start + scan + 239]).to(dev)
+        n_off = min(scan, sl.shape[0] - 239)
+        out = pipeline.to_host(pipeline.decode_mags_block_extended(
+            magnitude_u16(sl), n_off, ext_capacity(sl, n_off)))
+        packets += [(start + o, p) for o, p in assemble_extended(out, now, cache)]
+    return packets
+
+
+def masked(text: str) -> list[str]:
+    """Printed packets without their wall-clock lines."""
+    return [ln for ln in text.splitlines() if not ln.startswith("Processed Time  : ")]
+
+
+def phase_extended_stream(dev: torch.device) -> dict[str, int]:
+    from airjax_torch.io.c16 import save_c16
+    from airjax_torch.kernels import candidate, magdet
+    from airjax_torch.ui.stream import stream_printer
+
+    iq, offsets, frames, flipped = mixed_capture(200, EXT_STREAM_SAMPLES + 10_000, EXT_STREAM_SAMPLES, 40, flips=12)
+    straddle = sum(1 for o in offsets if o % CHUNK > CHUNK - 240)
+    print(f"extended stream: {len(frames)} frames of every format, {straddle} straddling chunk edges, "
+          f"{len(flipped)} DF17s corrupted")
+    # Playback drops its tail: only the first EXT_STREAM_SAMPLES are replayed.
+    plain = plain_extended_packets(iq[:EXT_STREAM_SAMPLES], dev, time.time())
+    check([o for o, _ in plain] == offsets.tolist(), "plain extended packets differ from the embedded offsets")
+    want = io.StringIO()
+    sink = stream_printer(want)
+    for _, packet in plain:
+        sink(packet)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mixed.c16")
+        save_c16(iq, path)
+        magdet.launches = 0
+        candidate.launches = 0
+        text, stats, wall = run_cli(["adsb", "--playback", path, "--fast", "--extended"])
+        launches = {"magdet_front_preamble": magdet.launches, "candidate_extended": candidate.launches}
+    check(all(v > 0 for v in launches.values()), f"the extended stream did not run both kernels: {launches}")
+    check(masked(text[: text.rindex("\nstats: ")]) == masked(want.getvalue()),
+          "extended stream text differs from the plain path's assembly")
+    check(stats["recovered"] == len(flipped), f"recovered {stats['recovered']} != {len(flipped)}")
+    check(stats["good"] == len(frames) and stats["overflow_blocks"] == 0, f"stats {stats}")
+    print(f"extended stream: {stats['good']} packets == the plain path's text; {wall:.2f} s wall, "
+          f"stats {json.dumps({k: v for k, v in stats.items() if k != 'stages'})}")
+    print(f"extended stream stages: {json.dumps(stats['stages'])}")
+    return launches
 
 
 def plain_stream_hits(iq: np.ndarray, dev: torch.device) -> list[tuple[int, bytes]]:
@@ -298,7 +587,8 @@ def plain_stream_hits(iq: np.ndarray, dev: torch.device) -> list[tuple[int, byte
     return hits
 
 
-def run_cli(argv: list[str]) -> tuple[list[str], dict, float]:
+def run_cli(argv: list[str]) -> tuple[str, dict, float]:
+    """The CLI's standard output, its final stats and its wall time."""
     from airjax_torch import cli
 
     buf = io.StringIO()
@@ -307,10 +597,14 @@ def run_cli(argv: list[str]) -> tuple[list[str], dict, float]:
         rc = cli.main(argv)
     wall = time.perf_counter() - t0
     check(rc == 0, f"cli {argv} returned {rc}")
-    lines = buf.getvalue().splitlines()
-    hexes = [ln[3:-3] for ln in lines if ln.startswith("== ") and ln.endswith(" ==")]
-    stats = ast.literal_eval([ln for ln in lines if ln.startswith("stats: ")][-1][len("stats: "):])
-    return hexes, stats, wall
+    text = buf.getvalue()
+    stats = ast.literal_eval([ln for ln in text.splitlines() if ln.startswith("stats: ")][-1][len("stats: "):])
+    return text, stats, wall
+
+
+def hexes(text: str) -> list[str]:
+    """The `== <hex> ==` first lines of the printed DF17 packets."""
+    return [ln[3:-3] for ln in text.splitlines() if ln.startswith("== ") and ln.endswith(" ==")]
 
 
 def phase_stream(dev: torch.device) -> dict[str, int]:
@@ -346,20 +640,22 @@ def phase_stream(dev: torch.device) -> dict[str, int]:
         save_c16(iq, path)
         magdet.launches = 0
         candidate.launches = 0
-        hexes, stats, wall = run_cli(["adsb", "--playback", path, "--fast"])
+        text, stats, wall = run_cli(["adsb", "--playback", path, "--fast"])
+        got = hexes(text)
         launches = {"magdet_front": magdet.launches, "candidate_crc": candidate.launches}
         check(all(v > 0 for v in launches.values()), f"the stream did not run both kernels: {launches}")
-        check(hexes == [f.hex() for _, f in plain], "overlap stream differs from the plain path")
+        check(got == [f.hex() for _, f in plain], "overlap stream differs from the plain path")
         check(stats["recovered"] == len(corrupt), f"recovered {stats['recovered']} != {len(corrupt)}")
         check(stats["blocks"] == n_chunks and stats["overflow_blocks"] == 0, f"stats {stats}")
-        print(f"stream overlap: {len(hexes)} frames, each once, in order; {wall:.2f} s wall, "
+        print(f"stream overlap: {len(got)} frames, each once, in order; {wall:.2f} s wall, "
               f"stats {json.dumps({k: v for k, v in stats.items() if k != 'stages'})}")
         print(f"stream stages: {json.dumps(stats['stages'])}")
 
-        hexes_p, stats_p, wall_p = run_cli(["adsb", "--playback", path, "--fast", "--no-overlap"])
+        text_p, _, wall_p = run_cli(["adsb", "--playback", path, "--fast", "--no-overlap"])
+        hexes_p = hexes(text_p)
         want = [f.hex() for g, f in plain if g % CHUNK < CHUNK - 240]
         check(hexes_p == want, "no-overlap stream differs from the plain path's chunk filter")
-        lost = len(hexes) - len(hexes_p)
+        lost = len(got) - len(hexes_p)
         check(lost >= len(straddle), f"no-overlap lost {lost} < {len(straddle)} straddlers")
         print(f"stream no-overlap: {len(hexes_p)} frames ({lost} lost at chunk edges); {wall_p:.2f} s wall")
     return launches
@@ -377,7 +673,7 @@ def main() -> int:
     card = phase_env()
     phase_build()
     dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False  # the CRC product stays f32
+    torch.backends.cuda.matmul.allow_tf32 = False  # the CRC products stay f32
 
     rng = np.random.default_rng(0)
     n_off = BLOCK - WINDOW
@@ -386,13 +682,29 @@ def main() -> int:
     t0 = time.perf_counter()
     block = synth.modulate(frames, list(map(int, offsets)), BLOCK + HALO, noise_std=60.0, seed=0)
     block_dev = torch.as_tensor(block).to(dev)
-    print(f"block: {BLOCK + HALO} samples, {len(frames)} frames, made in {time.perf_counter() - t0:.2f} s")
+    ext_block, ext_offsets, ext_frames, _ = mixed_capture(1024, BLOCK + HALO, BLOCK, 30)
+    ext_block_dev = torch.as_tensor(ext_block).to(dev)
+    capacity = ext_capacity(ext_block_dev, n_off)
+    print(f"blocks: {BLOCK + HALO} samples, {len(frames)} DF17 frames; {len(ext_frames)} frames of "
+          f"every format, extended capacity {capacity}; made in {time.perf_counter() - t0:.2f} s")
 
-    kernels = phase_kernels(block_dev)
+    kernels, tree_err = phase_kernels(block_dev, ext_block_dev, capacity)
     phase_block(block_dev, frames, offsets)
+    ab = phase_stencil_ab(block_dev)
     launches = phase_stream(dev)
+    phase_extended_block(ext_block_dev, capacity, ext_frames, ext_offsets)
+    launches.update(phase_extended_stream(dev))
+    paths = {"magdet_front": "adsb stream", "candidate_crc": "adsb stream",
+             "magdet_front_preamble": "adsb --extended stream", "candidate_extended": "adsb --extended stream"}
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        k["path"] = paths[k["name"]]
+    body = {"tree32": 148, "tree16": 157, "flat16": 169}
+    for v in VARIANTS:
+        kernels.insert(2 + VARIANTS.index(v), {
+            "name": f"magdet_tree_{v}", "route": "cuda", "source": "airjax_torch/csrc/magdet.cu",
+            "replaces": f"airjax/kernels/stencil3.py:{body[v]}", "launches": ab[v][2], "path": "stencil A/B",
+            "max_abs_err": tree_err[v], "ms": ab[v][0], "plain_ms": ab[v][1]})
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -7,7 +7,8 @@ no jax, so that it also runs where only torch is installed:
 
 (--noconftest: tests/conftest.py configures jax). The equality of the
 plain versions with airjax is tested on the CPU by the other
-tests/test_torch_*.py files.
+tests/test_torch_*.py files. Every output is an integer or a bit: the
+tolerance is exact equality.
 """
 
 import numpy as np
@@ -20,6 +21,7 @@ from airjax_torch.dsp.magnitude import magnitude_u16
 from airjax_torch.io import synth
 from airjax_torch.kernels import candidate as candidate_mod
 from airjax_torch.kernels import magdet as magdet_mod
+from airjax_torch.kernels import stencil3 as stencil3_mod
 from torch_parity import assert_same_dict, cuda_device  # noqa: F401
 
 pytestmark = pytest.mark.cuda
@@ -29,6 +31,30 @@ def _random_iq(n: int, seed: int) -> np.ndarray:
     iq = np.random.default_rng(seed).integers(-32768, 32768, size=(n, 2), dtype=np.int16)
     iq[:6] = [[-32768, -32768], [32767, 32767], [-32768, 32767], [0, 0], [1, 0], [3, 4]]
     return iq
+
+
+def _iq(n: int, seed: int, kind: str) -> np.ndarray:
+    """Full-range noise, small-range noise (ties and detections at nearly
+    every tile edge) or DF17 traffic."""
+    if kind == "random":
+        return _random_iq(n, seed)
+    if kind == "small":
+        return np.random.default_rng(seed).integers(-2, 3, size=(n, 2), dtype=np.int16)
+    return _traffic(n, seed, spacing=1999)[0]
+
+
+def _mixed(n: int, seed: int) -> np.ndarray:
+    """Every downlink format, a third of the frames with a 1-bit flip in
+    data bits 5-87 or in the CRC field."""
+    rng = np.random.default_rng(seed)
+    frames = synth.make_mixed_frames(max(1, (n - 600) // 3000), seed)
+    for i in range(1, len(frames), 3):
+        frames[i] = synth.flip_bit(frames[i], int(rng.integers(5, 88 if len(frames[i]) == 14 else 32)))
+    for i in range(2, len(frames), 3):
+        lo = 88 if len(frames[i]) == 14 else 32
+        frames[i] = synth.flip_bit(frames[i], int(rng.integers(lo, 8 * len(frames[i]))))
+    offsets = [300 + 300 * i for i in range(len(frames))]
+    return synth.modulate(frames, offsets, n, seed=seed)
 
 
 def _traffic(n: int, seed: int, spacing: int = 3001) -> tuple[np.ndarray, list[bytes]]:
@@ -107,3 +133,66 @@ def test_capture_decodes_on_card_equal_cpu(cuda_device):  # noqa: F811
         m0 = magdet_mod.launches
         assert decode(iq, device=cuda_device) == decode(iq, device="cpu")
         assert magdet_mod.launches > m0
+
+
+@pytest.mark.parametrize("n", [265, 20239, 65536 + 777, (1 << 20) + 1024])
+@pytest.mark.parametrize("kind", ["random", "small", "frames"])
+@pytest.mark.parametrize("variant", ["tree32", "tree16", "flat16"])
+def test_stencil_variant_matches_plain_and_flat_front(cuda_device, variant, kind, n):  # noqa: F811
+    iq = torch.as_tensor(_iq(n, n, kind)).to(cuda_device)
+    before = stencil3_mod.launches
+    det, cmp = stencil3_mod.magdet_tree(iq, n - 240, variant)
+    assert stencil3_mod.launches == before + 1
+    det_p, cmp_p = stencil3_mod.magdet_tree_plain(iq, n - 240, variant)
+    det_f, cmp_f = magdet_mod.magdet(iq, n - 240, packed=False)
+    torch.cuda.synchronize()
+    assert torch.equal(det, det_p) and torch.equal(cmp, cmp_p)
+    assert torch.equal(det, det_f) and torch.equal(cmp, cmp_f)
+
+
+@pytest.mark.parametrize("n", [265, 20239, 65536 + 777, (1 << 20) + 1024])
+@pytest.mark.parametrize("packed", [True, False])
+def test_preamble_gate_matches_plain(cuda_device, n, packed):  # noqa: F811
+    for kind in ("random", "small"):
+        iq = torch.as_tensor(_iq(n, n + 1, kind)).to(cuda_device)
+        det, out = magdet_mod.magdet(iq, n - 240, packed=packed, gate="preamble")
+        det_p, out_p = magdet_mod.magdet_plain(iq, n - 240, packed=packed, gate="preamble")
+        torch.cuda.synchronize()
+        assert torch.equal(det, det_p) and torch.equal(out, out_p)
+
+
+@pytest.mark.parametrize("kind", ["mixed", "random"])
+def test_extended_candidate_kernel_matches_plain(cuda_device, kind):  # noqa: F811
+    rng = np.random.default_rng(9)
+    n = 60000
+    if kind == "mixed":
+        words = pack_cmp_words(magnitude_u16(torch.as_tensor(_mixed(n, 9))))
+        offsets = np.concatenate([300 + 300 * np.arange(190), rng.integers(0, n - 240, 300), [0, n - 240]])
+    else:
+        words = torch.as_tensor(rng.integers(-(1 << 31), 1 << 31, n // 32 + 8, dtype=np.int32))
+        offsets = rng.integers(0, n - 240, 500)
+    w = words.to(cuda_device)
+    o = torch.as_tensor(offsets.astype(np.int32)).to(cuda_device)
+    valid = torch.as_tensor(rng.random(len(offsets)) < 0.9).to(cuda_device)  # some invalid slots
+    before = candidate_mod.launches
+    got = candidate_mod.decode_candidates_extended(w, o, valid)
+    assert candidate_mod.launches == before + 1
+    want = candidate_mod.decode_candidates_extended_plain(w, o, valid)
+    torch.cuda.synchronize()
+    assert_same_dict(want, got)
+    if kind == "mixed":
+        assert all(bool(got[c].any()) for c in candidate_mod.CLASSES)
+
+
+def test_extended_block_kernel_path_matches_plain_path(cuda_device):  # noqa: F811
+    n = (1 << 20) + 1024
+    iq_dev = torch.as_tensor(_mixed(n, 10)).to(cuda_device)
+    n_off = (1 << 20) - 240
+    m0, c0 = magdet_mod.launches, candidate_mod.launches
+    got = pipeline.to_host(pipeline.decode_iq_block_extended(iq_dev, n_off, 1 << 14))
+    assert magdet_mod.launches == m0 + 1 and candidate_mod.launches == c0 + 1
+    assert not got["overflow"]
+    want = pipeline.to_host(pipeline.decode_mags_block_extended(magnitude_u16(iq_dev), n_off, 1 << 14))
+    assert_same_dict(want, got)
+    cpu = pipeline.to_host(pipeline.decode_iq_block_extended(iq_dev.cpu(), n_off, 1 << 14))
+    assert_same_dict(cpu, got)

@@ -47,7 +47,12 @@ hits, stats = pipeline.decode_capture_overlap(iq, device="cpu")
 assert [h[2] for h in hits] == [frame, frame], hits
 got = []
 runner.run_stream(iter([iq[:20000], iq[20000:]]), got.append, device="cpu")
-assert [f.data for f in got] == [frame, frame], got
+assert [p.packet for p in got] == [frame, frame], got
+mixed = synth.make_mixed_frames(1, 2)
+iq = synth.modulate(mixed, [300 * (i + 1) for i in range(len(mixed))], 5000, seed=1)
+got = []
+runner.run_stream(iter([iq]), got.append, extended=True, device="cpu")
+assert len(got) == len(mixed), got
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "airjax")]
 print("modules", len(names))
 """

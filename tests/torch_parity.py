@@ -31,11 +31,13 @@ def assert_same(expected, got, name: str = "") -> None:
 
 
 def assert_same_dict(expected: dict, got: dict) -> None:
-    """Key by key over the whole dict, dtypes included."""
+    """Key by key over the whole dict, dtypes included (a uint32 array of
+    airjax's is held as int32 by the port)."""
     assert sorted(expected) == sorted(got)
     for key in expected:
         a, b = as_numpy(expected[key]), as_numpy(got[key])
-        assert a.dtype == b.dtype, f"{key}: dtype {a.dtype} != {b.dtype}"
+        if not (a.dtype == np.uint32 and b.dtype == np.int32):
+            assert a.dtype == b.dtype, f"{key}: dtype {a.dtype} != {b.dtype}"
         assert_same(a, b, key)
 
 
