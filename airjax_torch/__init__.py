@@ -8,7 +8,9 @@ and returns the same output, bit for bit, on the same int16 IQ:
 
   airjax.dsp.magnitude              -> airjax_torch.dsp.magnitude
   airjax.dsp.demod (decode paths)   -> airjax_torch.dsp.demod
-  airjax.kernels.magdet (Pallas)    -> airjax_torch.kernels.magdet + csrc/magdet.cu
+  airjax.kernels.magdet (Pallas)    -> airjax_torch.kernels.magdet + csrc/front.cu
+                                       (decode paths), csrc/magdet.cu (oracle)
+  (XLA-fused compact_detections)    -> airjax_torch.kernels.compact + csrc/compact.cu
   airjax.kernels.stencil3 (Pallas)  -> airjax_torch.kernels.stencil3 + csrc/magdet.cu
   airjax.protocol.crc               -> airjax_torch.protocol.crc
   (XLA-fused slice + CRC)           -> airjax_torch.kernels.candidate + csrc/candidate.cu

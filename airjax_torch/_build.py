@@ -1,12 +1,17 @@
 """Build the port's CUDA kernels at first use and bind them with ctypes.
 
 The counterpart of airjax/native.py:37-45, which builds `native/` with make
-and loads it through ctypes. Here `nvcc` compiles every `csrc/*.cu` into one
-shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds):
+and loads it through ctypes. Here `nvcc` compiles each `csrc/*.cu` into an
+object, one process per source and all started together, then links them
+into one shared library with a plain C interface (no PyTorch headers, so a
+build takes seconds):
 
-  nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-       -Xcompiler -fPIC -o build/airjax_torch/libairjax_torch_<hash>.so csrc/*.cu
+  nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \\
+       -c -o build/airjax_torch/<lib>.<pid>/<name>.o csrc/<name>.cu   # each source
+  nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+       -o build/airjax_torch/<lib>.so build/airjax_torch/<lib>.<pid>/*.o
+
+where <lib> is libairjax_torch_<hash>.
 
 No `--use_fast_math`: the magnitude's exactness argument assumes a
 correctly rounded `sqrtf` (the fixup then makes it exact either way).
@@ -29,16 +34,16 @@ import threading
 _PKG_DIR = pathlib.Path(__file__).resolve().parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "airjax_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 # name -> (restype, argtypes); see the extern "C" blocks in csrc/*.cu.
 _SIGNATURES = {
     "airjax_magdet": (ctypes.c_int, [_P, _I64, _I64, _P, _P, _I64, ctypes.c_int, ctypes.c_int, _P]),
+    "airjax_magdet_bits": (ctypes.c_int, [_P, _I64, _I64, _P, _P, _I64, _P, ctypes.c_int, _P]),
+    "airjax_compact": (ctypes.c_int, [_P, _P, _I64, _I64, _P, _P, _P, _P, _P, _P]),
     "airjax_magdet_stencil": (ctypes.c_int, [_P, _I64, _I64, _P, _P, ctypes.c_int, _P]),
     "airjax_candidates": (ctypes.c_int, [_P, _I64, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]),
     "airjax_load_syndromes": (ctypes.c_int, [_P]),
@@ -71,21 +76,29 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands all at once; raise with the first failure's output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for c in cmds]
+    errs = [p.communicate()[1] for p in procs]
+    for cmd, proc, err in zip(cmds, procs, errs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n{err}")
+
+
 def build() -> pathlib.Path:
     """Compile csrc/*.cu unless the library for these sources exists."""
     path = library_path()
     if path.exists():
         return path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    objs = BUILD_DIR / f"{path.stem}.{os.getpid()}"
+    objs.mkdir(parents=True, exist_ok=True)
+    cu = [s for s in sources() if s.suffix == ".cu"]
+    obj = [objs / f"{s.stem}.o" for s in cu]
+    _run([[nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(s)] for s, o in zip(cu, obj)])
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cu = [str(s) for s in sources() if s.suffix == ".cu"]
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n{proc.stderr}"
-        )
+    _run([[nvcc(), *ARCH, "-shared", "-o", str(tmp), *map(str, obj)]])
     os.replace(tmp, path)  # atomic: a concurrent build never loads a partial file
+    shutil.rmtree(objs)
     return path
 
 

@@ -51,11 +51,16 @@
 // mag <= 46341. A word pairs offsets j and j + kWords (not j and j+1), so
 // a shift by s stays one aligned 32-bit load.
 //
-// Built without --use_fast_math: sqrtf is correctly rounded, and the
-// two-sided fixup makes the isqrt exact whichever way it rounds.
+// The decode paths run csrc/front.cu's magdet_bits_kernel, which emits the
+// gate as bits with a count per tile; magdet_kernel stays as its oracle
+// and as the u8 mask of pipeline._count_chunked_detections.
+//
+// The exact magnitude is mag_from_word (magnitude.cuh).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "magnitude.cuh"
 
 namespace {
 
@@ -65,21 +70,6 @@ constexpr int kHalo = 32;    // look-ahead >= 26: taps reach +25, cmp +1
 constexpr int kWarps = kThreads / 32;
 constexpr int kWordsPerWarp = kTile / 32 / kWarps;
 constexpr int kWords = 1024;  // shared words per block in magdet_stencil_kernel
-
-enum class Gate : int { kDf17 = 0, kPreamble = 1 };
-
-__device__ __forceinline__ uint32_t mag_from_word(uint32_t w) {
-  // I in the low 16 bits, Q in the high 16 (little-endian int16 pairs).
-  const int re = static_cast<int16_t>(w & 0xFFFFu);
-  const int im = static_cast<int16_t>(w >> 16);
-  // Each square <= 2^30; the sum is at most 2^31, exact in uint32.
-  const uint32_t s = static_cast<uint32_t>(re * re) + static_cast<uint32_t>(im * im);
-  uint32_t k = static_cast<uint32_t>(sqrtf(static_cast<float>(s)));
-  const uint32_t up = k + 1;  // <= 46342, so up * up < 2^32
-  if (up * up <= s) k = up;
-  if (k > 0 && k * k > s) k -= 1;
-  return k;
-}
 
 // One uint32 magnitude per word: word j is offset j of the block.
 struct Mag32 {

@@ -96,17 +96,32 @@ def pack_cmp_words(mags: torch.Tensor) -> torch.Tensor:
     and the last WORDS_PER_CAND words are zero padding for the
     candidate gather.
     """
-    cmp = mags[:-1] > mags[1:]
-    total = n_words(mags.shape[0])
-    bits = torch.zeros(total * 32, dtype=torch.int64, device=mags.device)
-    bits[: cmp.shape[0]] = cmp
-    weights = torch.ones(32, dtype=torch.int64, device=mags.device) << torch.arange(
-        31, -1, -1, dtype=torch.int64, device=mags.device
+    return pack_msb_words(mags[:-1] > mags[1:], n_words(mags.shape[0]))
+
+
+def _msb_weights(device: torch.device) -> torch.Tensor:
+    return torch.ones(32, dtype=torch.int64, device=device) << torch.arange(
+        31, -1, -1, dtype=torch.int64, device=device
     )
-    words = (bits.view(total, 32) * weights).sum(dim=1)
+
+
+def pack_msb_words(bits: torch.Tensor, total: int) -> torch.Tensor:
+    """(m,) bool/uint8 bits, m <= 32 * total -> (total,) int32 words: word w
+    holds bits[32w .. 32w+31], MSB first; bits past m are 0 (the layout of
+    pack_cmp_words, and of the front kernel's detection words)."""
+    padded = torch.zeros(total * 32, dtype=torch.int64, device=bits.device)
+    padded[: bits.shape[0]] = bits
+    words = (padded.view(total, 32) * _msb_weights(bits.device)).sum(dim=1)
     # uint32 bit pattern -> int32 (two's complement), without relying on
     # how an out-of-range int64 -> int32 cast behaves.
     return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+
+
+def unpack_msb_words(words: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """The inverse of pack_msb_words: (W,) int32 words -> (n_bits,) bool,
+    n_bits <= 32 * W."""
+    bits = (words.to(torch.int64)[:, None] & _msb_weights(words.device)) != 0
+    return bits.reshape(-1)[:n_bits]
 
 
 def slice_bits_packed(words: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:

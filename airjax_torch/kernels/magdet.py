@@ -12,6 +12,15 @@ of every downlink format).
 
 `magdet` launches the kernel for a CUDA tensor and runs `magdet_plain`
 for a CPU tensor. `launches` counts kernel launches.
+
+`magdet_bits` is the front of the decode paths, the same function
+redesigned for Hopper (csrc/front.cu): the gate as bits, 32 offsets per
+int32 word in pack_cmp_words' layout, the packed compares, and the
+detections per tile of TILE offsets, which is what the compaction kernel
+(kernels/compact.py) reads. Its plain version `magdet_bits_plain` packs
+`magdet_plain`'s mask. `bits_launches` counts its launches. `magdet`
+stays as its oracle and for the u8 mask of
+pipeline._count_chunked_detections.
 """
 
 from __future__ import annotations
@@ -25,11 +34,56 @@ from airjax_torch.dsp.demod import (
     detect_preamble_only,
     n_words,
     pack_cmp_words,
+    pack_msb_words,
 )
 from airjax_torch.dsp.magnitude import magnitude_u16
 
 launches = 0
+bits_launches = 0
 GATES = {"df17": 0, "preamble": 1}  # the kernel's Gate values
+TILE = 8192  # offsets per tile count; csrc/front.cu and csrc/compact.cu kTile
+
+
+def n_det_words(n_off: int) -> int:
+    return -(-n_off // 32)
+
+
+def n_tiles(n_off: int) -> int:
+    return -(-n_off // TILE)
+
+
+def tile_counts(det: torch.Tensor) -> torch.Tensor:
+    """(n_off,) bool/uint8 mask -> (n_tiles(n_off),) int32 detections per tile."""
+    n_off = det.shape[0]
+    padded = torch.zeros(n_tiles(n_off) * TILE, dtype=torch.int32, device=det.device)
+    padded[:n_off] = det
+    return padded.view(-1, TILE).sum(dim=1, dtype=torch.int32)
+
+
+def magdet_bits_plain(
+    iq: torch.Tensor, n_off: int, gate: str = "df17"
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain torch version: magdet_plain, then its mask packed into words
+    (pack_msb_words) and counted per tile."""
+    det, words = magdet_plain(iq, n_off, True, gate)
+    return pack_msb_words(det, n_det_words(n_off)), words, tile_counts(det)
+
+
+def magdet_bits(
+    iq: torch.Tensor, n_off: int, gate: str = "df17"
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(L, 2) int16 IQ -> (det_words, words, tile_counts) over one block.
+
+    det_words: (ceil(n_off/32),) int32, bit 31-k of word w the `gate` at
+    offset 32w+k (needs L >= n_off + 25), 0 past n_off. words:
+    (n_words(L),) int32 packed compares (pack_cmp_words). tile_counts:
+    (ceil(n_off/TILE),) int32 detections per tile of TILE offsets.
+    """
+    check_iq(iq, n_off)
+    check_gate(gate)
+    if use_kernel(iq):
+        return _bits_cuda(iq, n_off, gate)
+    return magdet_bits_plain(iq, n_off, gate)
 
 
 def magdet_plain(
@@ -56,11 +110,15 @@ def magdet(
     compares mag[i] > mag[i+1].
     """
     check_iq(iq, n_off)
-    if gate not in GATES:
-        raise ValueError(f"gate: expected one of {sorted(GATES)}, got {gate!r}")
+    check_gate(gate)
     if use_kernel(iq):
         return _magdet_cuda(iq, n_off, packed, gate)
     return magdet_plain(iq, n_off, packed, gate)
+
+
+def check_gate(gate: str) -> None:
+    if gate not in GATES:
+        raise ValueError(f"gate: expected one of {sorted(GATES)}, got {gate!r}")
 
 
 def check_iq(iq: torch.Tensor, n_off: int) -> None:
@@ -96,3 +154,27 @@ def _magdet_cuda(
     check_launch(rc, "magdet kernel")
     launches += 1
     return det, out
+
+
+def _bits_cuda(
+    iq: torch.Tensor, n_off: int, gate: str
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    global bits_launches
+    from airjax_torch._build import library
+
+    lib = library()
+    n_samples = iq.shape[0]
+
+    # One allocation, three slices: on the card an allocation costs more
+    # host time than a slice.
+    a, b = n_det_words(n_off), n_words(n_samples)
+    buf = torch.empty(a + b + n_tiles(n_off), dtype=torch.int32, device=iq.device)
+    det_words, words, counts = buf[:a], buf[a : a + b], buf[a + b :]
+    with torch.cuda.device(iq.device):
+        rc = lib.airjax_magdet_bits(
+            iq.data_ptr(), n_samples, n_off, det_words.data_ptr(), words.data_ptr(),
+            words.numel(), counts.data_ptr(), GATES[gate], torch.cuda.current_stream().cuda_stream,
+        )
+    check_launch(rc, "magdet_bits kernel")
+    bits_launches += 1
+    return det_words, words, counts

@@ -6,8 +6,9 @@
   8-word candidate slice -> CRC-24 + single-bit repair -> frames
 
 `decode_iq_block` runs that chain through the kernel wrappers: on CUDA the
-front kernel (csrc/magdet.cu), the compaction in plain torch, then the
-candidate kernel (csrc/candidate.cu) — the dataflow of airjax's
+front kernel (csrc/front.cu: detection bits, packed compares, detections
+per tile), the compaction kernel (csrc/compact.cu), then the candidate
+kernel (csrc/candidate.cu) — the dataflow of airjax's
 `decode_iq_block_kernel` (:140-171) with the dense word layout. On the CPU
 the same wrappers run their plain versions. `decode_mags_block` is the
 plain torch chain from magnitudes on either device, the counterpart of
@@ -15,7 +16,7 @@ airjax's XLA path (:59-108).
 
 `decode_iq_block_extended` is the extended decode of every Mode S
 downlink format (airjax/pipeline.py:174-284, recover2=False): the front
-kernel with the preamble-only gate, the same compaction, then the
+kernel with the preamble-only gate, the same compaction kernel, then the
 candidate kernel in its extended mode; `decode_mags_block_extended` is
 its plain chain from magnitudes.
 
@@ -39,7 +40,6 @@ import torch
 from airjax_torch.config import DEFAULT_CONFIG, PipelineConfig
 from airjax_torch.dsp.demod import (
     WINDOW,
-    compact_detections,
     detect,
     detect_preamble_only,
     pack_cmp_words,
@@ -50,16 +50,17 @@ from airjax_torch.kernels.candidate import (
     decode_candidates_extended_plain,
     decode_candidates_plain,
 )
-from airjax_torch.kernels.magdet import magdet
+from airjax_torch.kernels.compact import compact_bits, compact_mask
+from airjax_torch.kernels.magdet import magdet, magdet_bits
 
 Hit = tuple[int, int, bytes, bool]
 
 
-def _decode_candidates(det, words, capacity, candidates) -> dict[str, torch.Tensor]:
-    """Compaction, then `candidates` (the kernel wrapper or its plain
-    version) on the compacted offsets; invalid slots decode at offset 0."""
-    offsets, valid, n_det = compact_detections(det, capacity)
-    frames, crc_ok, recovered = candidates(words, torch.where(valid, offsets, 0))
+def _decode_candidates(compacted, words, capacity, candidates) -> dict[str, torch.Tensor]:
+    """`candidates` (the kernel wrapper or its plain version) on the
+    compacted offsets; invalid slots decode at offset 0."""
+    offsets, valid, n_det, gather = compacted
+    frames, crc_ok, recovered = candidates(words, gather)
     good = crc_ok & valid
     return {
         "offsets": offsets,
@@ -83,28 +84,29 @@ def decode_mags_block(mags: torch.Tensor, n_off: int, capacity: int) -> dict[str
     in plain torch on either device (airjax/pipeline.py:59-108)."""
     _check_block(mags.shape[0], n_off)
     return _decode_candidates(
-        detect(mags, n_off), pack_cmp_words(mags), capacity, decode_candidates_plain
+        compact_mask(detect(mags, n_off), capacity), pack_cmp_words(mags), capacity,
+        decode_candidates_plain,
     )
 
 
 def decode_iq_block(iq: torch.Tensor, n_off: int, capacity: int) -> dict[str, torch.Tensor]:
-    """(L, 2) int16 IQ -> candidate dict, through the front and candidate
-    kernels on CUDA (airjax/pipeline.py:111-116, :140-171)."""
+    """(L, 2) int16 IQ -> candidate dict, through the front, compaction
+    and candidate kernels on CUDA (airjax/pipeline.py:111-116, :140-171)."""
     _check_block(iq.shape[0], n_off)
-    det, words = magdet(iq, n_off)
-    return _decode_candidates(det, words, capacity, decode_candidates)
+    det_words, words, counts = magdet_bits(iq, n_off)
+    compacted = compact_bits(det_words, counts, n_off, capacity)
+    return _decode_candidates(compacted, words, capacity, decode_candidates)
 
 
-def _decode_candidates_extended(det, words, capacity, candidates) -> dict[str, torch.Tensor]:
-    """Compaction, then `candidates` (the extended kernel wrapper or its
-    plain version) on the compacted offsets: airjax's extended dict
-    (airjax/pipeline.py:254-270; its AP residuals are uint32, int32 here,
-    all < 2^24)."""
-    offsets, valid, n_det = compact_detections(det, capacity)
+def _decode_candidates_extended(compacted, words, capacity, candidates) -> dict[str, torch.Tensor]:
+    """`candidates` (the extended kernel wrapper or its plain version) on
+    the compacted offsets: airjax's extended dict (airjax/pipeline.py:
+    254-270; its AP residuals are uint32, int32 here, all < 2^24)."""
+    offsets, valid, n_det, gather = compacted
     return {
         "offsets": offsets,
         "valid": valid,
-        **candidates(words, torch.where(valid, offsets, 0), valid),
+        **candidates(words, gather, valid),
         "n_detections": n_det,
         "overflow": n_det > capacity,
     }
@@ -117,18 +119,19 @@ def decode_mags_block_extended(
     on either device (airjax/pipeline.py:174-273, recover2=False)."""
     _check_block(mags.shape[0], n_off)
     return _decode_candidates_extended(
-        detect_preamble_only(mags, n_off), pack_cmp_words(mags), capacity,
+        compact_mask(detect_preamble_only(mags, n_off), capacity), pack_cmp_words(mags), capacity,
         decode_candidates_extended_plain,
     )
 
 
 def decode_iq_block_extended(iq: torch.Tensor, n_off: int, capacity: int) -> dict[str, torch.Tensor]:
     """(L, 2) int16 IQ -> the extended candidate dict, through the front
-    kernel (preamble gate) and the candidate kernel's extended mode on CUDA
-    (airjax/pipeline.py:276-284)."""
+    kernel (preamble gate), the compaction kernel and the candidate
+    kernel's extended mode on CUDA (airjax/pipeline.py:276-284)."""
     _check_block(iq.shape[0], n_off)
-    det, words = magdet(iq, n_off, gate="preamble")
-    return _decode_candidates_extended(det, words, capacity, decode_candidates_extended)
+    det_words, words, counts = magdet_bits(iq, n_off, gate="preamble")
+    compacted = compact_bits(det_words, counts, n_off, capacity)
+    return _decode_candidates_extended(compacted, words, capacity, decode_candidates_extended)
 
 
 def to_host(out: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:

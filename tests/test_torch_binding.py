@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from airjax_torch import _build
-from airjax_torch.kernels import candidate, magdet, stencil3
+from airjax_torch.kernels import candidate, compact, magdet, stencil3
 
 STREAM = 0x5EED
 
@@ -55,6 +55,31 @@ def test_front_call(lib, gate, packed):
     assert name == "airjax_magdet" and args[-1] == STREAM
     assert args[3] == det.data_ptr() and args[4] == out.data_ptr()
     assert args[6:8] == (int(packed), magdet.GATES[gate])
+
+
+@pytest.mark.parametrize("gate", ["df17", "preamble"])
+def test_bits_front_call(lib, gate):
+    det_words, words, counts = magdet._bits_cuda(_iq(), 2500, gate)
+    (name, args), = lib.calls
+    assert name == "airjax_magdet_bits" and args[-1] == STREAM
+    assert args[1:3] == (3000, 2500)
+    assert args[3:8] == (det_words.data_ptr(), words.data_ptr(), words.numel(), counts.data_ptr(),
+                         magdet.GATES[gate])
+    assert (det_words.numel(), counts.numel()) == (magdet.n_det_words(2500), magdet.n_tiles(2500))
+
+
+@pytest.mark.parametrize("capacity", [0, 64])
+def test_compact_call(lib, capacity):
+    n_off = 20000
+    det_words = torch.zeros(magdet.n_det_words(n_off), dtype=torch.int32)
+    counts = torch.zeros(magdet.n_tiles(n_off), dtype=torch.int32)
+    offsets, valid, n_det, gather = compact._compact_cuda(det_words, counts, n_off, capacity)
+    (name, args), = lib.calls
+    assert name == "airjax_compact" and args[-1] == STREAM
+    assert args[:4] == (det_words.data_ptr(), counts.data_ptr(), n_off, capacity)
+    assert args[5:9] == (offsets.data_ptr(), valid.data_ptr(), gather.data_ptr(), n_det.data_ptr())
+    assert offsets.shape == valid.shape == gather.shape == (capacity,) and n_det.shape == ()
+    assert (offsets.dtype, valid.dtype, gather.dtype, n_det.dtype) == (torch.int32, torch.bool, torch.int32, torch.int32)
 
 
 @pytest.mark.parametrize("variant", list(stencil3.VARIANTS))

@@ -16,10 +16,11 @@ import pytest
 import torch
 
 from airjax_torch import pipeline
-from airjax_torch.dsp.demod import pack_cmp_words
+from airjax_torch.dsp.demod import pack_cmp_words, pack_msb_words
 from airjax_torch.dsp.magnitude import magnitude_u16
 from airjax_torch.io import synth
 from airjax_torch.kernels import candidate as candidate_mod
+from airjax_torch.kernels import compact as compact_mod
 from airjax_torch.kernels import magdet as magdet_mod
 from airjax_torch.kernels import stencil3 as stencil3_mod
 from torch_parity import assert_same_dict, cuda_device  # noqa: F401
@@ -75,6 +76,12 @@ def _traffic(n: int, seed: int, spacing: int = 3001) -> tuple[np.ndarray, list[b
     return synth.modulate(sent, offsets, n, seed=seed), clean
 
 
+def _counts() -> tuple[int, int, int, int]:
+    """Launches of the bit-emitting front, the compaction, the candidate
+    kernel, and the old front (which the block decodes no longer run)."""
+    return magdet_mod.bits_launches, compact_mod.launches, candidate_mod.launches, magdet_mod.launches
+
+
 @pytest.mark.parametrize("n", [265, 20239, 65536 + 777, (1 << 20) + 1024])
 @pytest.mark.parametrize("packed", [True, False])
 def test_front_kernel_matches_plain(cuda_device, n, packed):  # noqa: F811
@@ -114,9 +121,9 @@ def test_block_kernel_path_matches_plain_path(cuda_device):  # noqa: F811
     iq, clean = _traffic(n, 6)
     iq_dev = torch.as_tensor(iq).to(cuda_device)
     n_off = (1 << 20) - 240
-    m0, c0 = magdet_mod.launches, candidate_mod.launches
+    before = _counts()
     got = pipeline.to_host(pipeline.decode_iq_block(iq_dev, n_off, 512))
-    assert magdet_mod.launches == m0 + 1 and candidate_mod.launches == c0 + 1
+    assert _counts() == tuple(n + 1 for n in before[:3]) + before[3:]
     want = pipeline.to_host(pipeline.decode_mags_block(magnitude_u16(iq_dev), n_off, 512))
     assert_same_dict(want, got)
     cpu = pipeline.to_host(pipeline.decode_iq_block(torch.as_tensor(iq), n_off, 512))
@@ -130,9 +137,9 @@ def test_capture_decodes_on_card_equal_cpu(cuda_device):  # noqa: F811
     (parity's chunked detection count included) equal the CPU port."""
     iq, _ = _traffic(5 * 20000 + 1234, 8, spacing=4999)
     for decode in (pipeline.decode_capture_overlap, pipeline.decode_capture_parity):
-        m0 = magdet_mod.launches
+        m0, c0 = magdet_mod.bits_launches, compact_mod.launches
         assert decode(iq, device=cuda_device) == decode(iq, device="cpu")
-        assert magdet_mod.launches > m0
+        assert magdet_mod.bits_launches > m0 and compact_mod.launches > c0
 
 
 @pytest.mark.parametrize("n", [265, 20239, 65536 + 777, (1 << 20) + 1024])
@@ -188,11 +195,63 @@ def test_extended_block_kernel_path_matches_plain_path(cuda_device):  # noqa: F8
     n = (1 << 20) + 1024
     iq_dev = torch.as_tensor(_mixed(n, 10)).to(cuda_device)
     n_off = (1 << 20) - 240
-    m0, c0 = magdet_mod.launches, candidate_mod.launches
+    before = _counts()
     got = pipeline.to_host(pipeline.decode_iq_block_extended(iq_dev, n_off, 1 << 14))
-    assert magdet_mod.launches == m0 + 1 and candidate_mod.launches == c0 + 1
+    assert _counts() == tuple(n + 1 for n in before[:3]) + before[3:]
     assert not got["overflow"]
     want = pipeline.to_host(pipeline.decode_mags_block_extended(magnitude_u16(iq_dev), n_off, 1 << 14))
     assert_same_dict(want, got)
     cpu = pipeline.to_host(pipeline.decode_iq_block_extended(iq_dev.cpu(), n_off, 1 << 14))
     assert_same_dict(cpu, got)
+
+
+@pytest.mark.parametrize("n", [265, 20239, 65536 + 777, (1 << 20) + 1024])
+@pytest.mark.parametrize("kind", ["random", "small", "frames"])
+@pytest.mark.parametrize("gate", ["df17", "preamble"])
+@pytest.mark.parametrize("skip", [0, 1, 2, 3])
+def test_bits_front_matches_plain_and_old_front(cuda_device, skip, gate, kind, n):  # noqa: F811
+    """The bit-emitting front against its plain version and against the old
+    front's mask packed, from a base `skip` samples (4 bytes each) past a
+    16-byte boundary."""
+    iq = torch.as_tensor(_iq(n + skip, n, kind)).to(cuda_device)[skip:]
+    assert iq.data_ptr() % 16 == 4 * skip
+    n_off = n - 240
+    before = magdet_mod.bits_launches
+    got = magdet_mod.magdet_bits(iq, n_off, gate)
+    assert magdet_mod.bits_launches == before + 1
+    want = magdet_mod.magdet_bits_plain(iq, n_off, gate)
+    det, words = magdet_mod.magdet(iq, n_off, gate=gate)
+    old = (pack_msb_words(det, magdet_mod.n_det_words(n_off)), words, magdet_mod.tile_counts(det))
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, old):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def _compaction_input(case: str, device) -> tuple[torch.Tensor, int]:
+    """(mask, capacity K) for each input chip_smoke.py holds the kernel to."""
+    rng = np.random.default_rng(len(case))
+    if case == "traffic block":
+        iq = torch.as_tensor(_traffic((1 << 20) + 1024, 12, spacing=1999)[0]).to(device)
+        return magdet_mod.magdet(iq, 1 << 20)[0].bool(), 1024
+    n_off, p, k = {
+        "empty": (100_000, 0.0, 2048), "dense, K < total": ((1 << 20) + 77, 0.3, 100_000),
+        "dense, K = n_off": ((1 << 20) + 77, 0.3, (1 << 20) + 77), "ragged": (3 * 8192 + 1007, 0.5, 64),
+        "all set": (50_000, 1.0, 50_000), "no offsets": (0, 0.0, 16), "capacity 0": (20_000, 0.5, 0),
+    }[case]
+    return torch.as_tensor(rng.random(n_off) < p).to(device), k
+
+
+@pytest.mark.parametrize("case", ["traffic block", "empty", "dense, K < total", "dense, K = n_off",
+                                  "ragged", "all set", "no offsets", "capacity 0"])
+def test_compaction_kernel_matches_plain(cuda_device, case):  # noqa: F811
+    det, k = _compaction_input(case, cuda_device)
+    n_off = det.shape[0]
+    det_words = pack_msb_words(det, magdet_mod.n_det_words(n_off))
+    counts = magdet_mod.tile_counts(det)
+    before = compact_mod.launches
+    got = compact_mod.compact_bits(det_words, counts, n_off, k)
+    assert compact_mod.launches == before + 1
+    want = compact_mod.compact_bits_plain(det_words, counts, n_off, k)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
