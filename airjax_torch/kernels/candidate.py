@@ -118,6 +118,17 @@ def decode_candidates_extended(
     return decode_candidates_extended_plain(words, offsets, valid)
 
 
+def load_syndromes(lib) -> None:
+    """Upload the 88 single-bit syndromes into every kernel's __constant__
+    copy (csrc/candidate.cuh: the candidate and block-decode kernels) on
+    the current CUDA device, once per device."""
+    index = torch.cuda.current_device()
+    if index not in _syndromes_loaded:
+        syn = np.ascontiguousarray(crc._tables()[1], dtype=np.uint32)
+        check_launch(lib.airjax_load_syndromes(syn.ctypes.data), "syndrome upload")
+        _syndromes_loaded.add(index)
+
+
 def _candidates_cuda(
     words: torch.Tensor, offsets: torch.Tensor, valid: torch.Tensor | None = None
 ):
@@ -144,11 +155,7 @@ def _candidates_cuda(
         classes = empty(len(CLASSES), k)
         args = (None, None, valid, frames_raw, df, icao_ap_long, icao_ap_short, classes)
     with torch.cuda.device(device):
-        index = torch.cuda.current_device()
-        if index not in _syndromes_loaded:
-            syn = np.ascontiguousarray(crc._tables()[1], dtype=np.uint32)
-            check_launch(lib.airjax_load_syndromes(syn.ctypes.data), "syndrome upload")
-            _syndromes_loaded.add(index)
+        load_syndromes(lib)
         rc = lib.airjax_candidates(
             words.data_ptr(), words.numel(), offsets.data_ptr(), k, frames.data_ptr(),
             *(None if t is None else t.data_ptr() for t in args),

@@ -7,18 +7,22 @@
 
 `decode_iq_block` runs that chain through the kernel wrappers: on CUDA the
 front kernel (csrc/front.cu: detection bits, packed compares, detections
-per tile), the compaction kernel (csrc/compact.cu), then the candidate
-kernel (csrc/candidate.cu) — the dataflow of airjax's
-`decode_iq_block_kernel` (:140-171) with the dense word layout. On the CPU
-the same wrappers run their plain versions. `decode_mags_block` is the
-plain torch chain from magnitudes on either device, the counterpart of
-airjax's XLA path (:59-108).
+per tile), then the block-decode kernel (csrc/block_decode.cu: the ordered
+compaction, the candidate decode and the dict in one launch) — the dataflow
+of airjax's `decode_iq_block_kernel` (:140-171) with the dense word layout.
+On the CPU the same wrappers run their plain versions. `decode_mags_block`
+is the plain torch chain from magnitudes on either device, the counterpart
+of airjax's XLA path (:59-108).
 
 `decode_iq_block_extended` is the extended decode of every Mode S
 downlink format (airjax/pipeline.py:174-284, recover2=False): the front
-kernel with the preamble-only gate, the same compaction kernel, then the
-candidate kernel in its extended mode; `decode_mags_block_extended` is
-its plain chain from magnitudes.
+kernel with the preamble-only gate, then the block-decode kernel in its
+extended mode; `decode_mags_block_extended` is its plain chain from
+magnitudes.
+
+`decode_iq_block_staged` keeps the staged chain the block-decode kernel
+replaced (front -> compaction kernel -> candidate kernel -> torch dict
+ops): the A/B baseline and a second oracle on the card.
 
 Both block decompositions of airjax are kept: parity (reference playback
 chunking, applied as an offset filter over one whole-stream scan) and
@@ -44,6 +48,11 @@ from airjax_torch.dsp.demod import (
     detect_preamble_only,
     pack_cmp_words,
 )
+from airjax_torch.kernels.block_decode import (
+    candidate_dict,
+    candidate_dict_extended,
+    decode_block_bits,
+)
 from airjax_torch.kernels.candidate import (
     decode_candidates,
     decode_candidates_extended,
@@ -56,24 +65,6 @@ from airjax_torch.kernels.magdet import magdet, magdet_bits
 Hit = tuple[int, int, bytes, bool]
 
 
-def _decode_candidates(compacted, words, capacity, candidates) -> dict[str, torch.Tensor]:
-    """`candidates` (the kernel wrapper or its plain version) on the
-    compacted offsets; invalid slots decode at offset 0."""
-    offsets, valid, n_det, gather = compacted
-    frames, crc_ok, recovered = candidates(words, gather)
-    good = crc_ok & valid
-    return {
-        "offsets": offsets,
-        "valid": valid,
-        "good": good,
-        "recovered": recovered & valid,
-        "frames": frames,
-        "n_detections": n_det,
-        "n_good": good.sum(dtype=torch.int32),
-        "overflow": n_det > capacity,
-    }
-
-
 def _check_block(n_samples: int, n_off: int) -> None:
     if n_off < 0 or n_off + WINDOW - 1 > n_samples:
         raise ValueError(f"n_off={n_off} needs {n_off + WINDOW - 1} samples, got {n_samples}")
@@ -83,33 +74,32 @@ def decode_mags_block(mags: torch.Tensor, n_off: int, capacity: int) -> dict[str
     """(L,) int32 magnitudes, L >= n_off + WINDOW - 1 -> candidate dict,
     in plain torch on either device (airjax/pipeline.py:59-108)."""
     _check_block(mags.shape[0], n_off)
-    return _decode_candidates(
+    return candidate_dict(
         compact_mask(detect(mags, n_off), capacity), pack_cmp_words(mags), capacity,
         decode_candidates_plain,
     )
 
 
 def decode_iq_block(iq: torch.Tensor, n_off: int, capacity: int) -> dict[str, torch.Tensor]:
-    """(L, 2) int16 IQ -> candidate dict, through the front, compaction
-    and candidate kernels on CUDA (airjax/pipeline.py:111-116, :140-171)."""
+    """(L, 2) int16 IQ -> candidate dict, through the front and block-decode
+    kernels on CUDA (airjax/pipeline.py:111-116, :140-171)."""
     _check_block(iq.shape[0], n_off)
     det_words, words, counts = magdet_bits(iq, n_off)
+    return decode_block_bits(det_words, words, counts, n_off, capacity)
+
+
+def decode_iq_block_staged(
+    iq: torch.Tensor, n_off: int, capacity: int, *, extended: bool = False
+) -> dict[str, torch.Tensor]:
+    """decode_iq_block (or, with extended=True, decode_iq_block_extended)
+    through the staged chain: the front, compaction and candidate kernels,
+    then the dict's torch ops. The same dict."""
+    _check_block(iq.shape[0], n_off)
+    det_words, words, counts = magdet_bits(iq, n_off, gate="preamble" if extended else "df17")
     compacted = compact_bits(det_words, counts, n_off, capacity)
-    return _decode_candidates(compacted, words, capacity, decode_candidates)
-
-
-def _decode_candidates_extended(compacted, words, capacity, candidates) -> dict[str, torch.Tensor]:
-    """`candidates` (the extended kernel wrapper or its plain version) on
-    the compacted offsets: airjax's extended dict (airjax/pipeline.py:
-    254-270; its AP residuals are uint32, int32 here, all < 2^24)."""
-    offsets, valid, n_det, gather = compacted
-    return {
-        "offsets": offsets,
-        "valid": valid,
-        **candidates(words, gather, valid),
-        "n_detections": n_det,
-        "overflow": n_det > capacity,
-    }
+    if extended:
+        return candidate_dict_extended(compacted, words, capacity, decode_candidates_extended)
+    return candidate_dict(compacted, words, capacity, decode_candidates)
 
 
 def decode_mags_block_extended(
@@ -118,7 +108,7 @@ def decode_mags_block_extended(
     """(L,) int32 magnitudes -> the extended candidate dict, in plain torch
     on either device (airjax/pipeline.py:174-273, recover2=False)."""
     _check_block(mags.shape[0], n_off)
-    return _decode_candidates_extended(
+    return candidate_dict_extended(
         compact_mask(detect_preamble_only(mags, n_off), capacity), pack_cmp_words(mags), capacity,
         decode_candidates_extended_plain,
     )
@@ -126,12 +116,11 @@ def decode_mags_block_extended(
 
 def decode_iq_block_extended(iq: torch.Tensor, n_off: int, capacity: int) -> dict[str, torch.Tensor]:
     """(L, 2) int16 IQ -> the extended candidate dict, through the front
-    kernel (preamble gate), the compaction kernel and the candidate
-    kernel's extended mode on CUDA (airjax/pipeline.py:276-284)."""
+    kernel (preamble gate) and the block-decode kernel's extended mode on
+    CUDA (airjax/pipeline.py:276-284)."""
     _check_block(iq.shape[0], n_off)
     det_words, words, counts = magdet_bits(iq, n_off, gate="preamble")
-    compacted = compact_bits(det_words, counts, n_off, capacity)
-    return _decode_candidates_extended(compacted, words, capacity, decode_candidates_extended)
+    return decode_block_bits(det_words, words, counts, n_off, capacity, extended=True)
 
 
 def to_host(out: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:

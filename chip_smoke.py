@@ -21,25 +21,29 @@ Phases; any failure raises and the exit code is nonzero:
      total and with K = n_off, and a ragged n_off; the candidate kernel in
      both modes (DF17 frames, and every downlink format, with 1-bit flips
      in the data bits and the CRC field, plus random offsets and the
-     blocks' own candidates); each kernel timed at the main paths' shapes
-     (CUDA events, and the profiler's device time) against its plain
-     version, its bound and, for the compaction, torch.nonzero_static;
+     blocks' own candidates); the block-decode kernel (csrc/block_decode.cu)
+     in both modes against its plain version and the staged chain
+     (compaction and candidate kernels, then the dict ops) on the
+     compaction's six inputs and the candidate inputs' IQ; each kernel
+     timed at the main paths' shapes (CUDA events, and the profiler's
+     device time) against its plain version, its bound and, for the
+     compaction, torch.nonzero_static;
   4. one block at bench.py's shape (2^24 + 1024 samples, n_off = 2^24 - 240,
      capacity 2048, 1024 DF17 frames at multiples of 300, noise 60):
-     every frame decoded, the front, compaction and candidate kernels
-     launched once each; kernel path and plain path timed (median of
+     every frame decoded, the front and block-decode kernels launched once
+     each and no other kernel; kernel path and plain path timed (median of
      CUDA-event passes), then profiled (torch.profiler, 10 passes each,
-     counted by the compaction kernel's scan): device time per kernel and
-     per pass, the busy time against this run's CUDA-event pass time, the
-     front kernel's bytes moved per second, and no plain-compaction kernel
-     (searchsorted, cumsum, the u8 -> int32 copy) on the kernel path;
-  5. two A/Bs in turns, in one run: the block pass with the old front
-     (u8 mask) and the plain compaction against the bit-emitting front and
-     the compaction kernel, for the DF17 and the extended block (pass
-     time, device busy time, idle share); and the front-stencil A/B
-     (airjax's tools/bench_stencil3.py, the path the stencil variants
-     serve): tree32, tree16 and flat16 against the flat front in mode
-     planes on the 2^24-sample block;
+     counted by the block-decode kernel): device time per kernel and per
+     pass, the busy time against this run's CUDA-event pass time, the
+     front kernel's bytes moved per second, and a kernel-path pass that
+     runs those two kernels, at most one memset and nothing else;
+  5. two A/Bs in turns, in one run: the block pass through the staged
+     chain (front, compaction and candidate kernels, dict ops) against the
+     front and the block-decode kernel, for the DF17 and the extended
+     block (pass time, device busy time, idle share); and the
+     front-stencil A/B (airjax's tools/bench_stencil3.py, the path the
+     stencil variants serve): tree32, tree16 and flat16 against the flat
+     front in mode planes on the 2^24-sample block;
   6. a 20 M-sample (10 s at 2 MS/s) capture with ~600 frames, some
      straddling the 20,000-sample chunk edges and some corrupted, replayed
      through the CLI (`adsb --playback FILE --fast`): overlap mode emits
@@ -49,8 +53,8 @@ Phases; any failure raises and the exit code is nonzero:
      block (1024 aircraft, each a DF17 before its DF0/4/5/11/16/20/21/24
      replies, noise 60; capacity from the plain path's detection count):
      every embedded frame in its class, the dict equal to the plain
-     path's, the three kernels launched once each, both paths timed and
-     profiled as in phase 4;
+     path's, the front and block-decode kernels launched once each, both
+     paths timed and profiled as in phase 4;
   8. a 4 M-sample mixed-format capture through
      `adsb --playback FILE --fast --extended`: its packet text equals the
      plain path's assembly on the card (`Processed Time` masked), every
@@ -272,11 +276,13 @@ def library_call():
     return "torch.nonzero", lambda det, k, n_off: torch.nonzero(det)
 
 
-def check_fronts(cases: list[torch.Tensor]) -> tuple[dict, dict, dict]:
+def check_fronts(cases: list[torch.Tensor]) -> tuple[dict, dict, dict, dict]:
     """The old front (both modes, both gates), the bit-emitting front (both
     gates; against its plain version and against the old front's mask
-    packed) and the stencil variants, on every case -> max abs errors."""
+    packed) and the stencil variants, on every case -> max abs errors, and
+    the old front's launches by gate."""
     from airjax_torch.dsp.demod import pack_msb_words
+    from airjax_torch.kernels import magdet as magdet_mod
     from airjax_torch.kernels.magdet import (
         GATES, magdet, magdet_bits, magdet_bits_plain, magdet_plain, n_det_words, tile_counts)
     from airjax_torch.kernels.stencil3 import magdet_tree, magdet_tree_plain
@@ -284,9 +290,11 @@ def check_fronts(cases: list[torch.Tensor]) -> tuple[dict, dict, dict]:
     front_err = dict.fromkeys(GATES, 0)
     bits_err = dict.fromkeys(GATES, 0)
     tree_err = dict.fromkeys(VARIANTS, 0)
+    front_launches = dict.fromkeys(GATES, 0)
     for iq in cases:
         n_off = iq.shape[0] - 240
         for gate in GATES:
+            before = magdet_mod.launches
             for packed in (True, False):
                 got = magdet(iq, n_off, packed=packed, gate=gate)
                 want = magdet_plain(iq, n_off, packed=packed, gate=gate)
@@ -296,6 +304,7 @@ def check_fronts(cases: list[torch.Tensor]) -> tuple[dict, dict, dict]:
             got = magdet_bits(iq, n_off, gate)
             err = max(max_abs_err(zip(got, magdet_bits_plain(iq, n_off, gate))), max_abs_err(zip(got, old)))
             bits_err[gate] = max(bits_err[gate], err)
+            front_launches[gate] += magdet_mod.launches - before
         flat = magdet(iq, n_off, packed=False)
         for v in VARIANTS:
             got = magdet_tree(iq, n_off, v)
@@ -309,29 +318,38 @@ def check_fronts(cases: list[torch.Tensor]) -> tuple[dict, dict, dict]:
     print(f"front kernel == plain on {len(cases)} inputs ({misaligned} at a 4-byte but not 16-byte aligned base), "
           f"both modes, both gates; the bit-emitting front == its plain version == the front's mask packed, "
           f"both gates; tree32, tree16, flat16 == plain == flat front on the same inputs")
-    return front_err, bits_err, tree_err
+    return front_err, bits_err, tree_err, front_launches
 
 
-def check_compaction(blocks: list[tuple[torch.Tensor, int, int, str]], rng) -> int:
-    """The compaction kernel against compact_bits_plain on the blocks'
-    bits, an empty mask, a dense random mask with K below the total and
-    with K = n_off, and ragged n_off -> max abs error."""
-    from airjax_torch.dsp.demod import pack_msb_words
-    from airjax_torch.kernels.compact import compact_bits, compact_bits_plain
+def compaction_inputs(blocks: list[tuple[torch.Tensor, int, int, str]], rng) -> list[tuple]:
+    """The compaction's six inputs: the blocks' bits, an empty mask, a dense
+    random mask with K below the total and with K = n_off, and a ragged
+    n_off -> [(name, det_words, tile_counts, n_off, K, compare words)]; the
+    random masks get random compare words."""
+    from airjax_torch.dsp.demod import n_words, pack_msb_words
     from airjax_torch.kernels.magdet import magdet_bits, n_det_words, tile_counts
 
     dev = blocks[0][0].device
     inputs = []
     for iq, n_off, k, gate in blocks:
-        det_words, _, counts = magdet_bits(iq, n_off, gate)
-        inputs.append((f"{gate} block", det_words, counts, n_off, k))
+        det_words, words, counts = magdet_bits(iq, n_off, gate)
+        inputs.append((f"{gate} block", det_words, counts, n_off, k, words))
     for name, n_off, p, k in (("empty", 100_000, 0.0, CAPACITY), ("dense, K < total", (1 << 20) + 77, 0.3, 100_000),
                               ("dense, K = n_off", (1 << 20) + 77, 0.3, (1 << 20) + 77),
                               ("ragged", 3 * 8192 + 1007, 0.5, 64)):
         det = torch.as_tensor(rng.random(n_off) < p).to(dev)
-        inputs.append((name, pack_msb_words(det, n_det_words(n_off)), tile_counts(det), n_off, k))
+        words = torch.as_tensor(rng.integers(-(1 << 31), 1 << 31, n_words(n_off + 240), dtype=np.int32)).to(dev)
+        inputs.append((name, pack_msb_words(det, n_det_words(n_off)), tile_counts(det), n_off, k, words))
+    return inputs
+
+
+def check_compaction(inputs: list[tuple]) -> int:
+    """The compaction kernel against compact_bits_plain on its six inputs
+    -> max abs error."""
+    from airjax_torch.kernels.compact import compact_bits, compact_bits_plain
+
     err = 0
-    for name, det_words, counts, n_off, k in inputs:
+    for name, det_words, counts, n_off, k, _ in inputs:
         got = compact_bits(det_words, counts, n_off, k)
         want = compact_bits_plain(det_words, counts, n_off, k)
         e = max_abs_err(zip(got, want))
@@ -343,11 +361,52 @@ def check_compaction(blocks: list[tuple[torch.Tensor, int, int, str]], rng) -> i
     return err
 
 
+def check_block_decode(inputs: list[tuple]) -> dict[str, int]:
+    """The block-decode kernel, both modes, against its plain version and
+    against the staged chain (the compaction and candidate kernels, then
+    the dict ops) on each input -> max abs error by mode."""
+    from airjax_torch.kernels.block_decode import (
+        candidate_dict, candidate_dict_extended, decode_block_bits, decode_block_bits_plain)
+    from airjax_torch.kernels.candidate import decode_candidates, decode_candidates_extended
+    from airjax_torch.kernels.compact import compact_bits
+
+    err = {"df17": 0, "extended": 0}
+    for name, det_words, counts, n_off, k, words in inputs:
+        for mode, extended in (("df17", False), ("extended", True)):
+            got = decode_block_bits(det_words, words, counts, n_off, k, extended=extended)
+            want = decode_block_bits_plain(det_words, words, counts, n_off, k, extended=extended)
+            compacted = compact_bits(det_words, counts, n_off, k)
+            staged = (candidate_dict_extended(compacted, words, k, decode_candidates_extended) if extended
+                      else candidate_dict(compacted, words, k, decode_candidates))
+            check(sorted(got) == sorted(want) == sorted(staged), f"block decode keys differ on {name}")
+            e = max(max_abs_err((got[key], want[key]) for key in want),
+                    max_abs_err((got[key], staged[key]) for key in want))
+            check(e == 0, f"block-decode kernel ({mode}) disagrees on {name} (max abs err {e})")
+            err[mode] = max(err[mode], e)
+        print(f"  block decode == plain == staged chain, both modes: {name}, n_off {n_off}, K {k}, "
+              f"{int(got['n_detections'])} detections" + (" (overflow)" if bool(got["overflow"]) else ""))
+    torch.cuda.synchronize()
+    return err
+
+
+def block_decode_work(n_off: int, k: int, extended: bool) -> tuple[int, int]:
+    """Bytes of the block-decode kernel (det bits and tile counts in, 32 B of
+    compares gathered per slot; out per slot the offset, valid, the frame
+    and the flags, 21 B, or 51 B with the extended fields, and the counts)
+    and its operations (a popcount per word, an add per tile, a CRC step
+    per bit and the 88 syndrome compares per slot)."""
+    from airjax_torch.kernels.magdet import n_det_words, n_tiles
+
+    n_in = 4 * n_det_words(n_off) + 4 * n_tiles(n_off) + 32 * k
+    n_out = k * (4 + 1 + 14 + 4 + 4 + 4 + 14 + 6) + 5 if extended else k * (4 + 1 + 14 + 1 + 1) + 9
+    return n_in + n_out, n_det_words(n_off) + n_tiles(n_off) + k * (112 + 88)
+
+
 def phase_kernels(
     block_dev: torch.Tensor, ext_block_dev: torch.Tensor, capacity_ext: int
-) -> tuple[list[dict], dict[str, int]]:
-    """Phase 3 -> the kernel table's entries of the decode paths, and the
-    stencil variants' max abs errors."""
+) -> tuple[list[dict], dict[str, int], dict[str, int]]:
+    """Phase 3 -> the kernel table's entries of the decode paths, the
+    stencil variants' max abs errors, and the old front's launches by gate."""
     from airjax_torch.dsp.demod import n_words, unpack_msb_words
     from airjax_torch.io import synth
     from airjax_torch.kernels.candidate import (
@@ -356,6 +415,7 @@ def phase_kernels(
         decode_candidates_extended_plain,
         decode_candidates_plain,
     )
+    from airjax_torch.kernels.block_decode import decode_block_bits, decode_block_bits_plain
     from airjax_torch.kernels.compact import compact_bits, compact_bits_plain
     from airjax_torch.kernels.magdet import magdet, magdet_bits, magdet_bits_plain, magdet_plain
 
@@ -374,10 +434,11 @@ def phase_kernels(
     cases.append(torch.as_tensor(rng.integers(-2, 3, size=((1 << 20) + 99, 2), dtype=np.int16)).to(dev))
     cases.append(block_dev)
     cases += [cases[1][1:], cases[3][1:], block_dev[1:]]
-    front_err, bits_err, tree_err = check_fronts(cases)
+    front_err, bits_err, tree_err, front_launches = check_fronts(cases)
     n_off = BLOCK - 240
-    compact_err = check_compaction(
+    block_inputs = compaction_inputs(
         [(block_dev, n_off, CAPACITY, "df17"), (ext_block_dev, n_off, capacity_ext, "preamble")], rng)
+    compact_err = check_compaction(block_inputs)
     print("compaction kernel == plain on 6 inputs")
 
     # Candidate kernel: frames with 1-bit flips in the data bits and in the
@@ -431,6 +492,16 @@ def phase_kernels(
     check(ext_err == 0, f"extended candidate kernel disagrees with plain (max abs err {ext_err})")
     print(f"candidate kernel, mode extended == plain on {len(ext_inputs)} inputs")
 
+    # Block-decode kernel: the compaction's six inputs and the candidate
+    # inputs' IQ (DF17 frames with flips, every format with flips), both
+    # modes, against its plain version and the staged chain.
+    for name, x, gate, k in (("DF17 frames with flips", iq, "df17", 1024),
+                             ("every format with flips", iq_m, "preamble", 4096)):
+        det_words_c, words_c, counts_c = magdet_bits(x, x.shape[0] - 240, gate)
+        block_inputs.append((name, det_words_c, counts_c, x.shape[0] - 240, k, words_c))
+    block_err = check_block_decode(block_inputs)
+    print(f"block-decode kernel == plain == staged chain on {len(block_inputs)} inputs, both modes")
+
     # Times at the main paths' shapes: the 2^24-sample blocks, K = CAPACITY
     # (DF17) and K = capacity_ext (extended); the DF17 front also from a
     # base 4 bytes past a 16-byte boundary. ms and plain_ms: CUDA events
@@ -473,6 +544,13 @@ def phase_kernels(
         "candidate_extended": (lambda: decode_candidates_extended(w_e, o_e, v_e),
                                lambda: decode_candidates_extended_plain(w_e, o_e, v_e), None,
                                ("candidate_kernel",), candidate_work(o_e.shape[0], extended=True)),
+        "block_decode": (lambda: decode_block_bits(det_words_b, words_b, counts_b, n_off, CAPACITY),
+                         lambda: decode_block_bits_plain(det_words_b, words_b, counts_b, n_off, CAPACITY), None,
+                         ("block_decode_kernel",), block_decode_work(n_off, CAPACITY, extended=False)),
+        "block_decode_extended": (
+            lambda: decode_block_bits(det_words_e, words_e, counts_e, n_off, capacity_ext, extended=True),
+            lambda: decode_block_bits_plain(det_words_e, words_e, counts_e, n_off, capacity_ext, extended=True),
+            None, ("block_decode_kernel",), block_decode_work(n_off, capacity_ext, extended=True)),
     }
     rows = {}
     for name, (kernel, plain, library, names, work) in timed.items():
@@ -502,8 +580,10 @@ def phase_kernels(
               front_err["preamble"]),
         entry("candidate_crc", "airjax_torch/csrc/candidate.cu", "airjax/dsp/demod.py:285", cand_err),
         entry("candidate_extended", "airjax_torch/csrc/candidate.cu", "airjax/pipeline.py:204", ext_err),
+        entry("block_decode", "airjax_torch/csrc/block_decode.cu", "airjax/pipeline.py:83",
+              max(block_err.values()), extended_path=rows["block_decode_extended"]),
     ]
-    return entries, tree_err
+    return entries, tree_err, front_launches
 
 
 def candidate_work(k: int, extended: bool) -> tuple[int, int]:
@@ -522,8 +602,8 @@ def phase_block(block_dev: torch.Tensor, frames: list[bytes], offsets: np.ndarra
     n_off = BLOCK - 240
     with counted() as launches:
         out = pipeline.to_host(pipeline.decode_iq_block(block_dev, n_off, CAPACITY))
-    check(launches == {"magdet_bits": 1, "compact_bits": 1, "candidate": 1, "magdet_front": 0},
-          f"the block did not run the front, compaction and candidate kernels once each: {launches}")
+    check(launches == {"magdet_bits": 1, "block_decode": 1, "compact_bits": 0, "candidate": 0, "magdet_front": 0},
+          f"the block did not run the front and block-decode kernels once each, and nothing else: {launches}")
     good = out["good"]
     check(not bool(out["overflow"]), "capacity overflow")
     check(int(out["n_good"]) == len(frames), f"n_good {int(out['n_good'])} != {len(frames)} embedded")
@@ -545,21 +625,22 @@ def phase_block(block_dev: torch.Tensor, frames: list[bytes], offsets: np.ndarra
 def counted():
     """Every kernel wrapper's launch count set to 0 on entry; on exit the
     dict holds the launches made inside."""
-    from airjax_torch.kernels import candidate, compact, magdet
+    from airjax_torch.kernels import block_decode, candidate, compact, magdet
 
-    magdet.launches = magdet.bits_launches = compact.launches = candidate.launches = 0
+    magdet.launches = magdet.bits_launches = block_decode.launches = compact.launches = candidate.launches = 0
     got: dict[str, int] = {}
     yield got
-    got.update(magdet_bits=magdet.bits_launches, compact_bits=compact.launches,
-               candidate=candidate.launches, magdet_front=magdet.launches)
+    got.update(magdet_bits=magdet.bits_launches, block_decode=block_decode.launches,
+               compact_bits=compact.launches, candidate=candidate.launches, magdet_front=magdet.launches)
 
 
-def device_profile(fn, marker: str, passes: int = 10) -> tuple[dict[str, float], float, int]:
+def device_profile(fn, marker: str, passes: int = 10) -> tuple[dict[str, float], float, int, dict[str, float]]:
     """torch.profiler over `passes` calls of fn: device µs per pass by
     kernel name, the device's busy µs per pass (union of the device
-    intervals), and the passes it recorded: the count of the kernel named
-    by `marker`, which fn launches once (the profiler can lose whole
-    passes); ({}, 0.0, 0) if it recorded no device activity."""
+    intervals), the passes it recorded: the count of the kernel named by
+    `marker`, which fn launches once (the profiler can lose whole passes),
+    and the launches per pass by kernel name; ({}, 0.0, 0, {}) if it
+    recorded no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -569,30 +650,35 @@ def device_profile(fn, marker: str, passes: int = 10) -> tuple[dict[str, float],
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     seen = sum(marker in e.name for e in events)
     if not seen:
-        return {}, 0.0, 0
+        return {}, 0.0, 0, {}
     per_kernel: dict[str, float] = {}
+    per_pass: dict[str, float] = {}
     for e in events:
         per_kernel[e.name] = per_kernel.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / seen
+        per_pass[e.name] = per_pass.get(e.name, 0.0) + 1 / seen
     busy, end = 0.0, float("-inf")
     for t0, t1 in sorted((e.time_range.start, e.time_range.end) for e in events):
         busy += max(0.0, t1 - max(t0, end))
         end = max(end, t1)
-    return per_kernel, busy / seen, seen
+    return per_kernel, busy / seen, seen, per_pass
 
 
 # The kernel once a pass by which the profiler's passes are counted: the
-# compaction kernel's scan on the kernel path, the plain compaction's
-# searchsorted on the plain path.
-KERNEL_MARKER = "compact_scan_kernel"
+# block-decode kernel on the kernel path, the compaction kernel's scan on
+# the staged chain, the plain compaction's searchsorted on the plain path.
+KERNEL_MARKER = "block_decode_kernel"
+STAGED_MARKER = "compact_scan_kernel"
 PLAIN_MARKER = "searchsorted"
+PASS_KERNELS = ("magdet_bits_kernel", "block_decode_kernel")  # a kernel-path pass, one launch each
 
 
 def profile_pass(name: str, fn, pass_us: float, n_samples: int, n_off: int, kernel_path: bool) -> None:
     """Where one block decode's device time goes: device time per kernel
     and the busy time per pass under torch.profiler, against the pass time
     that CUDA events measured just before without it. On the kernel path,
-    also that no plain-compaction kernel ran."""
-    per_kernel, busy, seen = device_profile(fn, KERNEL_MARKER if kernel_path else PLAIN_MARKER)
+    also that the pass ran the front and block-decode kernels once each, at
+    most one memset, and nothing else."""
+    per_kernel, busy, seen, per_pass = device_profile(fn, KERNEL_MARKER if kernel_path else PLAIN_MARKER)
     if not per_kernel:
         print(f"profile, {name}: the profiler recorded no device activity (not measured)")
         return
@@ -602,11 +688,13 @@ def profile_pass(name: str, fn, pass_us: float, n_samples: int, n_off: int, kern
     for k, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  {us:9.2f} us/pass  {k[:100]}")
     if kernel_path:
-        plain = [k for k in per_kernel if any(m in k for m in ("searchsorted", "cumsum", "DeviceScan"))]
-        check(not plain, f"{name}: the plain compaction ran: {plain}")
-        # The old path widened the u8 mask to int32 (33.78 us, PERF.md).
-        copies = sum(us for k, us in per_kernel.items() if "copy" in k)
-        check(copies < 10.0, f"{name}: {copies:.2f} us/pass of copies")
+        memsets = round(sum(n for k, n in per_pass.items() if "memset" in k.lower()), 6)
+        other = [k for k in per_pass if "memset" not in k.lower() and not any(m in k for m in PASS_KERNELS)]
+        once = all(round(sum(n for k, n in per_pass.items() if m in k), 6) == 1 for m in PASS_KERNELS)
+        check(once and memsets <= 1 and not other,
+              f"{name}: a pass should run {PASS_KERNELS} once each, at most one memset, and nothing else: "
+              f"{json.dumps(per_pass)}")
+        print(f"  kernels per pass: {json.dumps({k[:60]: round(n, 3) for k, n in per_pass.items()})}")
     from airjax_torch.dsp.demod import n_words
 
     for marker, moved in (("magdet_bits_kernel", bits_bytes(n_samples, n_off)),
@@ -619,55 +707,48 @@ def profile_pass(name: str, fn, pass_us: float, n_samples: int, n_off: int, kern
 
 def phase_block_ab(block_dev: torch.Tensor, ext_block_dev: torch.Tensor,
                    capacity_ext: int) -> dict[str, int]:
-    """The block pass, old pair against new, in turns (old, new, new, old)
-    for the DF17 and the extended block: the old front (u8 mask) and the
-    plain compaction against the bit-emitting front and the compaction
-    kernel; the candidate stage the same. Per pass the CUDA-event time,
-    the device busy time and the idle share. Returns the old fronts'
-    launches in it, by gate."""
+    """The block pass, the staged chain against the fused one, in turns
+    (staged, fused, fused, staged) for the DF17 and the extended block:
+    the front, compaction and candidate kernels and the dict's torch ops
+    (decode_iq_block_staged) against the front and the block-decode kernel
+    (decode_iq_block(_extended)). Per pass the CUDA-event time, the device
+    busy time and the idle share. Returns the staged kernels' launches in
+    it."""
     from airjax_torch import pipeline
-    from airjax_torch.kernels import magdet as magdet_mod
-    from airjax_torch.kernels.candidate import decode_candidates, decode_candidates_extended
-    from airjax_torch.kernels.compact import compact_mask
+    from airjax_torch.kernels import candidate as candidate_mod
+    from airjax_torch.kernels import compact as compact_mod
 
     n_off = BLOCK - 240
-
-    def old_df17():
-        det, words = magdet_mod.magdet(block_dev, n_off)
-        return pipeline._decode_candidates(compact_mask(det, CAPACITY), words, CAPACITY, decode_candidates)
-
-    def old_ext():
-        det, words = magdet_mod.magdet(ext_block_dev, n_off, gate="preamble")
-        return pipeline._decode_candidates_extended(
-            compact_mask(det, capacity_ext), words, capacity_ext, decode_candidates_extended)
-
     pairs = {
-        "DF17": {"old": old_df17, "new": lambda: pipeline.decode_iq_block(block_dev, n_off, CAPACITY)},
-        "extended": {"old": old_ext,
-                     "new": lambda: pipeline.decode_iq_block_extended(ext_block_dev, n_off, capacity_ext)},
+        "DF17": {"staged": lambda: pipeline.decode_iq_block_staged(block_dev, n_off, CAPACITY),
+                 "fused": lambda: pipeline.decode_iq_block(block_dev, n_off, CAPACITY)},
+        "extended": {"staged": lambda: pipeline.decode_iq_block_staged(ext_block_dev, n_off, capacity_ext,
+                                                                       extended=True),
+                     "fused": lambda: pipeline.decode_iq_block_extended(ext_block_dev, n_off, capacity_ext)},
     }
     for path, fns in pairs.items():
-        old, new = pipeline.to_host(fns["old"]()), pipeline.to_host(fns["new"]())
-        check(sorted(old) == sorted(new) and all(np.array_equal(old[k], new[k]) for k in old),
-              f"block A/B, {path}: the pairs' dicts differ")
+        staged, fused = pipeline.to_host(fns["staged"]()), pipeline.to_host(fns["fused"]())
+        check(sorted(staged) == sorted(fused) and all(np.array_equal(staged[k], fused[k]) for k in staged),
+              f"block A/B, {path}: the chains' dicts differ")
     launches = {}
-    for (path, fns), front in zip(pairs.items(), ("magdet_front", "magdet_front_preamble")):
-        magdet_mod.launches = 0
-        runs: dict[str, list[tuple[float, float]]] = {"old": [], "new": []}
-        for key in ("old", "new", "new", "old"):
+    for path, fns in pairs.items():
+        compact_mod.launches = candidate_mod.launches = 0
+        runs: dict[str, list[tuple[float, float]]] = {"staged": [], "fused": []}
+        for key in ("staged", "fused", "fused", "staged"):
             ms = cuda_ms(fns[key], reps=15)
-            per_kernel, busy, seen = device_profile(fns[key], PLAIN_MARKER if key == "old" else KERNEL_MARKER)
+            per_kernel, busy, seen, _ = device_profile(fns[key], STAGED_MARKER if key == "staged" else KERNEL_MARKER)
             runs[key].append((ms * 1e3, busy))
-            print(f"block A/B, {path}, {key} pair: {ms * 1e3:.1f} us/pass by CUDA events, device busy "
+            print(f"block A/B, {path}, {key} chain: {ms * 1e3:.1f} us/pass by CUDA events, device busy "
                   f"{busy:.1f} us/pass ({seen} of 10 passes), idle share {1 - busy / (ms * 1e3):.3f}")
             if len(runs[key]) == 1:
-                for k, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]:
+                for k, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]:
                     print(f"  {us:9.2f} us/pass  {k[:100]}")
         means = {k: tuple(statistics.mean(x) for x in zip(*v)) for k, v in runs.items()}
-        print(f"block A/B, {path}: old pair {means['old'][0]:.1f} us/pass, busy {means['old'][1]:.1f} us "
-              f"(idle {1 - means['old'][1] / means['old'][0]:.3f}); new pair {means['new'][0]:.1f} us/pass, busy "
-              f"{means['new'][1]:.1f} us (idle {1 - means['new'][1] / means['new'][0]:.3f})")
-        launches[front] = magdet_mod.launches
+        print(f"block A/B, {path}: staged chain {means['staged'][0]:.1f} us/pass, busy {means['staged'][1]:.1f} us "
+              f"(idle {1 - means['staged'][1] / means['staged'][0]:.3f}); fused {means['fused'][0]:.1f} us/pass, "
+              f"busy {means['fused'][1]:.1f} us (idle {1 - means['fused'][1] / means['fused'][0]:.3f})")
+        launches["compact_bits"] = launches.get("compact_bits", 0) + compact_mod.launches
+        launches["candidate_crc" if path == "DF17" else "candidate_extended"] = candidate_mod.launches
     return launches
 
 
@@ -702,7 +783,7 @@ def phase_stencil_ab(block_dev: torch.Tensor) -> dict[str, tuple[float, float, i
         fn = (lambda: magdet(block_dev, n_off, packed=False)) if name == "flat" else (
             lambda: stencil3.magdet_tree(block_dev, n_off, name))
         before = stencil3.launches
-        per_kernel, _, _ = device_profile(fn, "magdet")
+        per_kernel, _, _, _ = device_profile(fn, "magdet")
         if name != "flat":
             launches[name] += stencil3.launches - before
         device[name] = max(per_kernel.values(), default=float("nan"))
@@ -744,8 +825,8 @@ def phase_extended_block(block_dev: torch.Tensor, capacity: int, frames: list[by
     n_off = BLOCK - 240
     with counted() as launches:
         out = pipeline.to_host(pipeline.decode_iq_block_extended(block_dev, n_off, capacity))
-    check(launches == {"magdet_bits": 1, "compact_bits": 1, "candidate": 1, "magdet_front": 0},
-          f"the extended block did not run the front, compaction and candidate kernels once each: {launches}")
+    check(launches == {"magdet_bits": 1, "block_decode": 1, "compact_bits": 0, "candidate": 0, "magdet_front": 0},
+          f"the extended block did not run the front and block-decode kernels once each: {launches}")
     check(not bool(out["overflow"]), "extended capacity overflow")
     plain = pipeline.to_host(pipeline.decode_mags_block_extended(magnitude_u16(block_dev), n_off, capacity))
     check(sorted(plain) == sorted(out), "extended dict keys differ")
@@ -826,10 +907,10 @@ def phase_extended_stream(dev: torch.device) -> dict[str, int]:
         save_c16(iq, path)
         with counted() as n:
             text, stats, wall = run_cli(["adsb", "--playback", path, "--fast", "--extended"])
-    check(min(n["magdet_bits"], n["compact_bits"], n["candidate"]) > 0 and n["magdet_front"] == 0,
-          f"the extended stream did not run the front, compaction and candidate kernels: {n}")
-    launches = {"magdet_bits_preamble": n["magdet_bits"], "compact_bits": n["compact_bits"],
-                "candidate_extended": n["candidate"]}
+    check(min(n["magdet_bits"], n["block_decode"]) > 0
+          and n["compact_bits"] == n["candidate"] == n["magdet_front"] == 0,
+          f"the extended stream did not run the front and block-decode kernels alone: {n}")
+    launches = {"magdet_bits_preamble": n["magdet_bits"], "block_decode": n["block_decode"]}
     check(masked(text[: text.rindex("\nstats: ")]) == masked(want.getvalue()),
           "extended stream text differs from the plain path's assembly")
     check(stats["recovered"] == len(flipped), f"recovered {stats['recovered']} != {len(flipped)}")
@@ -912,10 +993,10 @@ def phase_stream(dev: torch.device) -> dict[str, int]:
         with counted() as n:
             text, stats, wall = run_cli(["adsb", "--playback", path, "--fast"])
         got = hexes(text)
-        check(min(n["magdet_bits"], n["compact_bits"], n["candidate"]) > 0 and n["magdet_front"] == 0,
-              f"the stream did not run the front, compaction and candidate kernels: {n}")
-        launches = {"magdet_bits": n["magdet_bits"], "compact_bits": n["compact_bits"],
-                    "candidate_crc": n["candidate"]}
+        check(min(n["magdet_bits"], n["block_decode"]) > 0
+              and n["compact_bits"] == n["candidate"] == n["magdet_front"] == 0,
+              f"the stream did not run the front and block-decode kernels alone: {n}")
+        launches = {"magdet_bits": n["magdet_bits"], "block_decode": n["block_decode"]}
         check(got == [f.hex() for _, f in plain], "overlap stream differs from the plain path")
         check(stats["recovered"] == len(corrupt), f"recovered {stats['recovered']} != {len(corrupt)}")
         check(stats["blocks"] == n_chunks and stats["overflow_blocks"] == 0, f"stats {stats}")
@@ -960,18 +1041,21 @@ def main() -> int:
     print(f"blocks: {BLOCK + HALO} samples, {len(frames)} DF17 frames; {len(ext_frames)} frames of "
           f"every format, extended capacity {capacity}; made in {time.perf_counter() - t0:.2f} s")
 
-    kernels, tree_err = phase_kernels(block_dev, ext_block_dev, capacity)
+    kernels, tree_err, front_launches = phase_kernels(block_dev, ext_block_dev, capacity)
     phase_block(block_dev, frames, offsets)
     launches = phase_block_ab(block_dev, ext_block_dev, capacity)
     ab = phase_stencil_ab(block_dev)
     df17 = phase_stream(dev)
     phase_extended_block(ext_block_dev, capacity, ext_frames, ext_offsets)
     ext = phase_extended_stream(dev)
-    launches.update({**df17, **ext, "compact_bits": df17["compact_bits"] + ext["compact_bits"]})
-    paths = {"magdet_bits": "adsb stream", "candidate_crc": "adsb stream",
-             "magdet_bits_preamble": "adsb --extended stream", "candidate_extended": "adsb --extended stream",
-             "compact_bits": "adsb stream + adsb --extended stream",
-             "magdet_front": "block A/B, old pair (DF17)", "magdet_front_preamble": "block A/B, old pair (extended)"}
+    launches.update({**df17, **ext, "block_decode": df17["block_decode"] + ext["block_decode"],
+                     "magdet_front": front_launches["df17"], "magdet_front_preamble": front_launches["preamble"]})
+    paths = {"magdet_bits": "adsb stream", "magdet_bits_preamble": "adsb --extended stream",
+             "block_decode": "adsb stream + adsb --extended stream",
+             "compact_bits": "block A/B, staged chain (DF17 + extended)",
+             "candidate_crc": "block A/B, staged chain (DF17)", "candidate_extended": "block A/B, staged chain (extended)",
+             "magdet_front": "phase 3 oracle checks (DF17 gate)",
+             "magdet_front_preamble": "phase 3 oracle checks (preamble gate)"}
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["path"] = paths[k["name"]]

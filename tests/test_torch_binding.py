@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from airjax_torch import _build
-from airjax_torch.kernels import candidate, compact, magdet, stencil3
+from airjax_torch.kernels import block_decode, candidate, compact, magdet, stencil3
 
 STREAM = 0x5EED
 
@@ -106,3 +106,37 @@ def test_candidate_call(lib, extended):
     assert name == "airjax_candidates" and args[-1] == STREAM
     nulls = [a is None for a in args[5:13]]
     assert nulls == ([True, True] + [False] * 6 if extended else [False, False] + [True] * 6)
+
+
+@pytest.mark.parametrize("capacity", [0, 64])
+@pytest.mark.parametrize("extended", [False, True])
+def test_block_decode_call(lib, extended, capacity):
+    n_off = 20000
+    det_words = torch.zeros(magdet.n_det_words(n_off), dtype=torch.int32)
+    words = torch.zeros(700, dtype=torch.int32)
+    counts = torch.zeros(magdet.n_tiles(n_off), dtype=torch.int32)
+    out = block_decode._block_decode_cuda(det_words, words, counts, n_off, capacity, extended)
+    (name, args), = lib.calls
+    assert name == "airjax_block_decode" and args[-1] == STREAM and args[-2] == int(extended)
+    assert args[:6] == (det_words.data_ptr(), words.data_ptr(), 700, counts.data_ptr(), n_off, capacity)
+    common = ("offsets", "valid", "frames", "n_detections", "overflow")
+    assert args[6:11] == tuple(out[key].data_ptr() for key in common)
+    if extended:
+        keys = ("frames_raw", "df", "icao_ap_long", "icao_ap_short")
+        assert args[11:14] == (None,) * 3 and args[14:18] == tuple(out[key].data_ptr() for key in keys)
+        assert args[18] == out[block_decode.CLASSES[0]].data_ptr()
+        assert sorted(out) == sorted(["offsets", "valid", "df", "frames", "frames_raw", "icao_ap_short",
+                                      "icao_ap_long", "n_detections", "overflow", *candidate.CLASSES])
+    else:
+        assert args[11:14] == tuple(out[key].data_ptr() for key in ("good", "recovered", "n_good"))
+        assert args[14:19] == (None,) * 5
+        assert list(out) == ["offsets", "valid", "good", "recovered", "frames", "n_detections", "n_good",
+                             "overflow"]
+    ints = ("offsets", "df", "icao_ap_long", "icao_ap_short", "n_detections", "n_good")
+    for key, t in out.items():
+        scalar = key in ("n_detections", "n_good", "overflow")
+        assert tuple(t.shape) == ((capacity, 14) if key.startswith("frames") else () if scalar else (capacity,)), key
+        assert t.dtype == (torch.uint8 if key.startswith("frames") else torch.int32 if key in ints else torch.bool), key
+    # The outputs are disjoint slices of two buffers.
+    spans = sorted((t.data_ptr(), t.data_ptr() + t.numel() * t.element_size()) for t in out.values() if t.numel())
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))

@@ -143,24 +143,30 @@ def test_pack_and_unpack_are_inverse():
 @pytest.mark.parametrize("extended", [False, True])
 def test_block_decode_runs_the_bits_front_and_compaction(monkeypatch, extended):
     """decode_iq_block(_extended) on the CPU goes through magdet_bits and
-    compact_bits, and its dict equals airjax's."""
+    decode_block_bits (the compaction and candidate stage in one kernel),
+    decode_iq_block_staged through magdet_bits and compact_bits, and both
+    dicts equal airjax's."""
     calls = []
-    for mod, name in ((pipeline, "magdet_bits"), (pipeline, "compact_bits")):
-        fn = getattr(mod, name)
-        monkeypatch.setattr(mod, name, lambda *a, _fn=fn, _name=name, **k: calls.append(_name) or _fn(*a, **k))
+    for name in ("magdet_bits", "compact_bits", "decode_block_bits"):
+        fn = getattr(pipeline, name)
+        monkeypatch.setattr(pipeline, name, lambda *a, _fn=fn, _name=name, **k: calls.append(_name) or _fn(*a, **k))
     n = 2 * TILE + 3000
     n_off = n - 240
     if extended:
-        iq = _mixed_iq(n, 6)
-        want = jax.device_get(jax_decode_iq_block_extended(jnp.asarray(iq), n_off, 512))
-        got = pipeline.decode_iq_block_extended(torch.as_tensor(iq), n_off, 512)
+        iq, k = _mixed_iq(n, 6), 512
+        want = jax.device_get(jax_decode_iq_block_extended(jnp.asarray(iq), n_off, k))
+        got = pipeline.decode_iq_block_extended(torch.as_tensor(iq), n_off, k)
     else:
-        iq = _iq(n, 7, "frames")
-        want = jax.device_get(jax_decode_iq_block(jnp.asarray(iq), n_off, 16))
-        got = pipeline.decode_iq_block(torch.as_tensor(iq), n_off, 16)
-    assert calls == ["magdet_bits", "compact_bits"]
+        iq, k = _iq(n, 7, "frames"), 16
+        want = jax.device_get(jax_decode_iq_block(jnp.asarray(iq), n_off, k))
+        got = pipeline.decode_iq_block(torch.as_tensor(iq), n_off, k)
+    assert calls == ["magdet_bits", "decode_block_bits"]
     assert_same_dict(want, pipeline.to_host(got))
     assert int(got["n_detections"]) > 0
+    calls.clear()
+    staged = pipeline.decode_iq_block_staged(torch.as_tensor(iq), n_off, k, extended=extended)
+    assert calls == ["magdet_bits", "compact_bits"]
+    assert_same_dict(want, pipeline.to_host(staged))
 
 
 def test_tile_equals_the_kernels_constant():

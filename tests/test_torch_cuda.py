@@ -19,6 +19,7 @@ from airjax_torch import pipeline
 from airjax_torch.dsp.demod import pack_cmp_words, pack_msb_words
 from airjax_torch.dsp.magnitude import magnitude_u16
 from airjax_torch.io import synth
+from airjax_torch.kernels import block_decode as block_decode_mod
 from airjax_torch.kernels import candidate as candidate_mod
 from airjax_torch.kernels import compact as compact_mod
 from airjax_torch.kernels import magdet as magdet_mod
@@ -76,10 +77,12 @@ def _traffic(n: int, seed: int, spacing: int = 3001) -> tuple[np.ndarray, list[b
     return synth.modulate(sent, offsets, n, seed=seed), clean
 
 
-def _counts() -> tuple[int, int, int, int]:
-    """Launches of the bit-emitting front, the compaction, the candidate
-    kernel, and the old front (which the block decodes no longer run)."""
-    return magdet_mod.bits_launches, compact_mod.launches, candidate_mod.launches, magdet_mod.launches
+def _counts() -> tuple[int, int, int, int, int]:
+    """Launches of the bit-emitting front, the block-decode kernel, and the
+    compaction, candidate and old front kernels (which the block decodes no
+    longer run)."""
+    return (magdet_mod.bits_launches, block_decode_mod.launches, compact_mod.launches,
+            candidate_mod.launches, magdet_mod.launches)
 
 
 @pytest.mark.parametrize("n", [265, 20239, 65536 + 777, (1 << 20) + 1024])
@@ -123,7 +126,7 @@ def test_block_kernel_path_matches_plain_path(cuda_device):  # noqa: F811
     n_off = (1 << 20) - 240
     before = _counts()
     got = pipeline.to_host(pipeline.decode_iq_block(iq_dev, n_off, 512))
-    assert _counts() == tuple(n + 1 for n in before[:3]) + before[3:]
+    assert _counts() == tuple(n + 1 for n in before[:2]) + before[2:]
     want = pipeline.to_host(pipeline.decode_mags_block(magnitude_u16(iq_dev), n_off, 512))
     assert_same_dict(want, got)
     cpu = pipeline.to_host(pipeline.decode_iq_block(torch.as_tensor(iq), n_off, 512))
@@ -137,9 +140,9 @@ def test_capture_decodes_on_card_equal_cpu(cuda_device):  # noqa: F811
     (parity's chunked detection count included) equal the CPU port."""
     iq, _ = _traffic(5 * 20000 + 1234, 8, spacing=4999)
     for decode in (pipeline.decode_capture_overlap, pipeline.decode_capture_parity):
-        m0, c0 = magdet_mod.bits_launches, compact_mod.launches
+        m0, b0 = magdet_mod.bits_launches, block_decode_mod.launches
         assert decode(iq, device=cuda_device) == decode(iq, device="cpu")
-        assert magdet_mod.bits_launches > m0 and compact_mod.launches > c0
+        assert magdet_mod.bits_launches > m0 and block_decode_mod.launches > b0
 
 
 @pytest.mark.parametrize("n", [265, 20239, 65536 + 777, (1 << 20) + 1024])
@@ -197,7 +200,7 @@ def test_extended_block_kernel_path_matches_plain_path(cuda_device):  # noqa: F8
     n_off = (1 << 20) - 240
     before = _counts()
     got = pipeline.to_host(pipeline.decode_iq_block_extended(iq_dev, n_off, 1 << 14))
-    assert _counts() == tuple(n + 1 for n in before[:3]) + before[3:]
+    assert _counts() == tuple(n + 1 for n in before[:2]) + before[2:]
     assert not got["overflow"]
     want = pipeline.to_host(pipeline.decode_mags_block_extended(magnitude_u16(iq_dev), n_off, 1 << 14))
     assert_same_dict(want, got)
@@ -255,3 +258,104 @@ def test_compaction_kernel_matches_plain(cuda_device, case):  # noqa: F811
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _block_case(name: str, n: int) -> tuple[np.ndarray, int, int]:
+    """(IQ, n_off, capacity K) for each input tests/test_torch_block_decode.py
+    holds the plain version to, at n samples."""
+    if name == "df17 frames":
+        return _traffic(n, 21, spacing=1999)[0], n - 240, 1024
+    if name == "flips":
+        return _traffic(n, 22, spacing=997)[0], n - 240, 2048
+    if name == "mixed":
+        return _mixed(n, 23), n - 240, 1 << 14
+    if name == "empty":
+        return pipeline.pad_iq_non_detecting(np.zeros((0, 2), np.int16), n), n - 240, 2048
+    # Dense: constant magnitudes pass both gates at every offset (whole
+    # tiles of 8192 detections), then small-range noise (ties).
+    dense = np.random.default_rng(24).integers(-2, 3, size=(n, 2), dtype=np.int16)
+    dense[: 3 * 8192 + 3000] = (7, -3)
+    if name == "dense, K < total":
+        return dense, n - 240, 10_000
+    if name == "dense, K = n_off":
+        return dense, n - 240, n - 240
+    if name == "K = 0":
+        return _traffic(n, 25)[0], n - 240, 0
+    if name == "ragged":  # n_off a multiple of neither 32 nor TILE
+        return _traffic(n, 26)[0], n - 240 - 7, 64
+    raise KeyError(name)
+
+
+BLOCK_CASES = ["df17 frames", "flips", "mixed", "empty", "dense, K < total", "dense, K = n_off", "K = 0",
+               "ragged"]
+
+
+def _check_block_decode(iq: torch.Tensor, n_off: int, k: int, extended: bool) -> dict:
+    """The block-decode kernel on the front's bits against its plain version
+    and the staged chain (compaction and candidate kernels, then the dict
+    ops), bit for bit; one launch. Returns the kernel's dict on the host."""
+    det_words, words, counts = magdet_mod.magdet_bits(iq, n_off, "preamble" if extended else "df17")
+    before = block_decode_mod.launches
+    got = block_decode_mod.decode_block_bits(det_words, words, counts, n_off, k, extended=extended)
+    assert block_decode_mod.launches == before + 1
+    want = block_decode_mod.decode_block_bits_plain(det_words, words, counts, n_off, k, extended=extended)
+    staged = pipeline.decode_iq_block_staged(iq, n_off, k, extended=extended)
+    got = pipeline.to_host(got)
+    assert_same_dict(pipeline.to_host(want), got)
+    assert_same_dict(pipeline.to_host(staged), got)
+    assert int(got["n_detections"]) == int(counts.sum())
+    return got
+
+
+@pytest.mark.parametrize("skip", [0, 1, 2, 3])
+@pytest.mark.parametrize("extended", [False, True])
+@pytest.mark.parametrize("case", BLOCK_CASES)
+def test_block_decode_kernel_matches_plain_and_staged(cuda_device, case, extended, skip):  # noqa: F811
+    """From a base `skip` samples (4 bytes each) past a 16-byte boundary."""
+    iq, n_off, k = _block_case(case, (1 << 17) + 1024)
+    iq = torch.as_tensor(np.concatenate([np.zeros((skip, 2), np.int16), iq])).to(cuda_device)[skip:]
+    assert iq.data_ptr() % 16 == 4 * skip
+    got = _check_block_decode(iq, n_off, k, extended)
+    if case in ("df17 frames", "flips") and not extended:
+        assert got["n_good"] > 0 and (case == "df17 frames" or got["recovered"].any())
+
+
+@pytest.mark.parametrize("k", [0, 64, 100_000, (1 << 20) + 77])
+def test_block_decode_kernel_on_random_bits(cuda_device, k):  # noqa: F811
+    """A random mask (a detection at 3 in 10 offsets) over random compare
+    words: random frames at random offsets, in both modes."""
+    rng = np.random.default_rng(k)
+    n_off = (1 << 20) + 77
+    det = torch.as_tensor(rng.random(n_off) < 0.3).to(cuda_device)
+    det_words = pack_msb_words(det, magdet_mod.n_det_words(n_off))
+    counts = magdet_mod.tile_counts(det)
+    words = torch.as_tensor(rng.integers(-(1 << 31), 1 << 31, n_off // 32 + 16, dtype=np.int32)).to(cuda_device)
+    for extended in (False, True):
+        got = block_decode_mod.decode_block_bits(det_words, words, counts, n_off, k, extended=extended)
+        want = block_decode_mod.decode_block_bits_plain(det_words, words, counts, n_off, k, extended=extended)
+        assert_same_dict(pipeline.to_host(want), pipeline.to_host(got))
+
+
+@pytest.mark.parametrize("extended", [False, True])
+def test_block_decode_kernel_at_2_24(cuda_device, extended):  # noqa: F811
+    """The 2^24-offset block of chip_smoke.py, K = 2048 (DF17) or the
+    detections rounded up to 1024 (extended), through
+    decode_iq_block(_extended): two launches."""
+    n = (1 << 24) + 1024
+    n_off = (1 << 24) - 240
+    if extended:
+        frames = synth.make_mixed_frames(1024, 27)
+        iq = synth.modulate(frames, [300 + 1600 * i for i in range(len(frames))], n, seed=27)
+    else:
+        iq = _traffic(n, 28, spacing=16001)[0]
+    iq_dev = torch.as_tensor(iq).to(cuda_device)
+    # The capacity that holds the plain path's detections, rounded up to
+    # 1024, as chip_smoke.py sizes it (21,504 there in the extended mode).
+    detect = magdet_mod.magdet_plain(iq_dev, n_off, gate="preamble" if extended else "df17")[0]
+    k = -(-int(detect.sum()) // 1024) * 1024 if extended else 2048
+    got = _check_block_decode(iq_dev, n_off, k, extended)
+    assert not got["overflow"] and got["n_detections"] > 0
+    before = _counts()
+    fused = pipeline.decode_iq_block_extended if extended else pipeline.decode_iq_block
+    assert_same_dict(got, pipeline.to_host(fused(iq_dev, n_off, k)))
+    assert _counts() == tuple(n + 1 for n in before[:2]) + before[2:]

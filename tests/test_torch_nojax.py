@@ -33,6 +33,7 @@ import importlib, pkgutil
 
 import airjax_torch
 names = sorted(m.name for m in pkgutil.walk_packages(airjax_torch.__path__, "airjax_torch."))
+assert "airjax_torch.kernels.block_decode" in names, names
 for name in names:
     importlib.import_module(name)
 
