@@ -47,7 +47,9 @@ _SIGNATURES = {
     "airjax_magdet_stencil": (ctypes.c_int, [_P, _I64, _I64, _P, _P, ctypes.c_int, _P]),
     "airjax_candidates": (ctypes.c_int, [_P, _I64, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]),
     "airjax_load_syndromes": (ctypes.c_int, [_P]),
-    "airjax_block_decode": (ctypes.c_int, [_P, _P, _I64, _P, _I64, _I64, *[_P] * 13, ctypes.c_int, _P]),
+    "airjax_block_decode": (
+        ctypes.c_int, [_P, _P, _I64, _P, _I64, _I64, *[_P] * 15, ctypes.c_int, ctypes.c_int, _P]),
+    "airjax_fields": (ctypes.c_int, [_P, _P, _I64, _P, _P, _P]),
     "airjax_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 

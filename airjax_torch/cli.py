@@ -1,35 +1,42 @@
-"""The port's command line, stream mode only (airjax/cli.py:92-190, :345-357):
+"""The port's command line (airjax/cli.py:81-421, the `adsb` command):
 
   python -m airjax_torch.cli adsb [--playback FILE | --synthetic N] [--fast]
+                                  [-m {stream,interactive,web}] [--port N]
                                   [--no-overlap] [--max-blocks N]
-                                  [--extended] [--jsonl PATH]
+                                  [--extended] [--recover2] [--batched]
+                                  [--jsonl PATH] [--state FILE]
+                                  [--ref-lat LAT --ref-lon LON]
+                                  [--evict-after SECONDS]
                                   [--device cuda|cpu]
 
-Prints the reference's Display of every decoded packet (a DF17 packet
-opens with `== <hex> ==`) and a final `stats:` line; `--jsonl` also
-appends each packet as a JSON line; `--extended` decodes every Mode S
-downlink format, not just DF17.
+Stream mode (the default) prints the reference's Display of every decoded
+packet (a DF17 packet opens with `== <hex> ==`) and a final `stats:` line;
+`--jsonl` also appends each packet as a JSON line. `-m interactive` is
+the curses aircraft table, `-m web` the web map (HTTP on --port, a
+WebSocket broadcast at /ws, /api/aircraft); both track aircraft, per
+packet or, with `--batched`, a block at a time through the batched
+tracker, and `--state` restores and saves their table. `--extended`
+decodes every Mode S downlink format; `--recover2` also accepts frames
+that a unique 2-bit repair validated, gated on an ICAO already seen.
 `--device` defaults to cuda; without a card that raises — the port never
-falls back to the CPU on its own.
+falls back to the CPU on its own. Not ported: live SDR input, `list`,
+`receive`, `--devices`, `--trace`, `--plot-dir`, `--dump-preamble`.
 """
 
 from __future__ import annotations
 
 import argparse
 import itertools
+import os
 import sys
+import threading
+import time
 
 import torch
 
 
-def _cmd_adsb(args) -> int:
-    from airjax_torch.runner import run_stream
-    from airjax_torch.ui.stream import jsonl_writer, stream_printer, tee
-
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is available (pass --device cpu)")
-
+def _source(args):
+    """The block source, or an exit code after an error message."""
     if args.playback:
         from airjax_torch.io.source import playback_blocks
 
@@ -50,13 +57,115 @@ def _cmd_adsb(args) -> int:
         return 1
     if args.max_blocks is not None:
         source = itertools.islice(source, args.max_blocks)
+    return source
 
-    sink = stream_printer()
-    if args.jsonl:
-        sink = tee(sink, jsonl_writer(args.jsonl))
-    stats = run_stream(
-        source, sink, overlap=not args.no_overlap, extended=args.extended, device=device
-    )
+
+def _cmd_adsb(args) -> int:
+    from airjax_torch.config import DEFAULT_CONFIG
+    from airjax_torch.runner import StreamStats, run_stream
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device is available (pass --device cpu)")
+    source = _source(args)
+    if isinstance(source, int):
+        return source
+
+    def _run(source, sink, stats=None):
+        return run_stream(source, sink, overlap=not args.no_overlap, extended=args.extended, device=device,
+                          stats=stats, recover2=args.recover2)
+
+    ref_position = None
+    if (args.ref_lat is None) != (args.ref_lon is None):
+        print("error: --ref-lat and --ref-lon must be given together", file=sys.stderr)
+        return 2
+    if args.ref_lat is not None:
+        ref_position = (args.ref_lat, args.ref_lon)
+    if args.batched and args.mode == "stream":
+        print("warning: --batched has no effect in stream mode (its contract is one printed dump per packet)",
+              file=sys.stderr)
+
+    # --- tracker checkpoint and resume (airjax/cli.py:217-243) ---
+    restored = None
+    if args.state:
+        if args.mode == "stream":
+            print("warning: --state has no effect in stream mode (no tracker)", file=sys.stderr)
+        elif os.path.exists(args.state):
+            from airjax_torch.track.state import load_state
+
+            try:
+                restored = load_state(args.state)
+                print(f"restored {len(restored)} aircraft from {args.state}")
+            except (ValueError, KeyError, TypeError) as e:
+                # ValueError covers json.JSONDecodeError too.
+                print(f"error: bad state file {args.state}: {e}", file=sys.stderr)
+                return 1
+
+    def _save_state(aircrafts) -> None:
+        if args.state and args.mode != "stream":
+            from airjax_torch.track.state import save_state
+
+            save_state(aircrafts, args.state)
+            print(f"saved {len(aircrafts)} aircraft to {args.state}")
+
+    if args.mode == "stream":
+        from airjax_torch.ui.stream import jsonl_writer, stream_printer, tee
+
+        sink = stream_printer()
+        if args.jsonl:
+            sink = tee(sink, jsonl_writer(args.jsonl))
+        stats = _run(source, sink)
+    elif args.mode == "interactive":
+        from airjax_torch.ui.tui import TuiApp, interactive_display
+
+        app = TuiApp(ref_position=ref_position, evict_after_s=args.evict_after)
+        if restored:
+            app.aircrafts.update(restored)
+        sink = app.batched_sink(extended=args.extended) if args.batched else app.on_packet
+        stop = threading.Event()
+
+        def until_stopped(blocks):
+            for block in blocks:
+                if stop.is_set():
+                    return
+                yield block
+
+        decode_thread = threading.Thread(
+            target=_run, args=(until_stopped(source), sink), kwargs={"stats": StreamStats()}, daemon=True
+        )
+        decode_thread.start()
+        interactive_display(app)
+        # Quit: the source ends at the next block and the decode thread
+        # finishes what it holds. An interpreter that exits while a thread
+        # is inside a torch op can abort ("terminate called without an
+        # active exception").
+        stop.set()
+        decode_thread.join()
+        with app._lock:
+            _save_state(app.aircrafts)
+        return 0
+    else:  # web
+        from airjax_torch.ui.web import WebDisplay
+
+        display = WebDisplay(
+            DEFAULT_CONFIG.web_host, port=args.port, quiet=False, extended_schema=args.extended,
+            ref_position=ref_position, evict_after_s=args.evict_after,
+        )
+        display.start_background()
+        if restored:
+            display.aircrafts.update(restored)
+        sink = display.batched_sink(extended=args.extended) if args.batched else display.on_packet
+        try:
+            _run(source, sink)
+            print("source exhausted; web server still running (Ctrl-C to quit)")
+            while True:
+                time.sleep(1)
+        except KeyboardInterrupt:
+            return 0
+        finally:
+            with display._lock:
+                _save_state(display.aircrafts)
+
     print(f"\nstats: {stats.as_dict()}")
     return 0
 
@@ -66,17 +175,39 @@ def build_parser() -> argparse.ArgumentParser:
         prog="airjax_torch", description="ADS-B / Mode S decode on PyTorch/CUDA"
     )
     sub = parser.add_subparsers(dest="command", required=True)
-    adsb = sub.add_parser("adsb", help="decode and print ADS-B packets")
+    adsb = sub.add_parser("adsb", help="decode and display ADS-B traffic")
+    adsb.add_argument("-m", "--mode", choices=["web", "interactive", "stream"], default="stream")
     src = adsb.add_mutually_exclusive_group()
     src.add_argument("-p", "--playback", default=None, help=".c16 capture to replay")
     src.add_argument("--synthetic", type=int, default=None, metavar="N")
     adsb.add_argument("--max-blocks", type=int, default=None, metavar="N")
     adsb.add_argument("--no-overlap", action="store_true", help="reference chunking: boundary frames lost")
     adsb.add_argument("--fast", action="store_true", help="replay without the 2x-real-time sleep")
+    adsb.add_argument("--port", type=int, default=8080, help="web mode: the HTTP port")
     adsb.add_argument("--jsonl", default=None, help="append decoded packets as JSON lines")
     adsb.add_argument(
         "--extended", action="store_true",
         help="decode all Mode S downlink formats (DF0/4/5/11/16/20/21/24), not just DF17",
+    )
+    adsb.add_argument(
+        "--batched", action="store_true",
+        help="web/interactive modes: the batched tracker sink, a block at a time (fields from the card); "
+        "web also coalesces the WS broadcast to one summary per touched aircraft per block",
+    )
+    adsb.add_argument(
+        "--state", default=None, metavar="FILE",
+        help="tracker checkpoint: restore at start, save on exit (web/interactive modes)",
+    )
+    adsb.add_argument("--ref-lat", type=float, default=None, help="receiver latitude (enables surface-position decode)")
+    adsb.add_argument("--ref-lon", type=float, default=None, help="receiver longitude (enables surface-position decode)")
+    adsb.add_argument(
+        "--recover2", action="store_true",
+        help="also accept frames repaired by a unique DOUBLE bit-flip, gated on an already-validated ICAO "
+        "(the stream's seen-set, or the acceptance cache with --extended); composes with --extended and --batched",
+    )
+    adsb.add_argument(
+        "--evict-after", type=float, default=None, metavar="SECONDS",
+        help="drop aircraft unheard for SECONDS (web/interactive modes; default: never)",
     )
     adsb.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return parser

@@ -1,6 +1,6 @@
 """The port's pipeline configuration: the fields of airjax/config.py's
-`PipelineConfig` that the DF17 path reads (:28-35), with the same
-defaults. Redefined here so that the port loads no module of airjax."""
+`PipelineConfig` that the decode paths and the web display read, with the
+same defaults. Redefined here so that the port loads no module of airjax."""
 
 from __future__ import annotations
 
@@ -15,6 +15,8 @@ class PipelineConfig:
     # Fixed per-block candidate capacity; detections past it set `overflow`
     # and the stream regrows the capacity.
     max_candidates: int = 256
+    # Web display bind address (`adsb -m web`).
+    web_host: str = "127.0.0.1"
 
 
 DEFAULT_CONFIG = PipelineConfig()

@@ -7,7 +7,9 @@
 // No Pallas ancestor: on the TPU, XLA fuses airjax/dsp/demod.py::
 // compact_detections (:87-126) with the candidate stage of
 // airjax/pipeline.py::_decode_mags_common (:82-105, Mode::kDf17) or of
-// decode_mags_block_extended (:200-270, Mode::kExtended, recover2=False).
+// decode_mags_block_extended (:200-270, Mode::kExtended); the template flag
+// R2 is their recover2=True, crc_check_and_recover2 in place of
+// crc_check_and_recover (airjax/protocol/crc.py:159-189), in either mode.
 // Its plain torch version is airjax_torch/kernels/block_decode.py::
 // decode_block_bits_plain: compact_bits_plain, decode_candidates(_extended)
 // _plain, then the dict ops. The staged chain compact.cu -> candidate.cu
@@ -25,11 +27,19 @@
 //   DF17: good = CRC ok && valid, recovered = repaired && valid;
 //   extended: frames_raw, df, the long and short AP residuals, the six
 //   classes (candidate.cuh).
-//   An empty slot (s >= min(total, K)) carries the decode at offset 0, with
-//   valid and every flag false, as airjax slices an invalid slot at offset
-//   0 and leaves its frame unmasked.
+//   R2: frames also carry the 2-bit repair (repair2, candidate.cuh), in the
+//   extended mode for any DF (airjax repairs every candidate); good /
+//   good_long include it; recovered2 = the pair repaired && valid (DF17) or
+//   && good_long (extended); recovered stays the single-bit repair.
+//   An empty slot (s >= min(total, K)) carries the decode at offset 0 (with
+//   its repairs, the pair one under R2), with valid and every flag false,
+//   as airjax slices an invalid slot at offset 0 and leaves its frame
+//   unmasked.
 // Per call: n_detections = the true total, overflow = total > K, and in
 // the DF17 mode n_good.
+//
+// R2 = false compiles to the kernel without recover2: pair stays -1 and
+// folds away.
 //
 // One block of 256 threads per 8 tiles (65,536 offsets), each thread owning
 // 8 consecutive det words: 256 blocks at 2^24 offsets, one wave. The kernel
@@ -60,7 +70,9 @@
 //
 // Bound: memory traffic, one bit per offset and the counts in, 32 B of
 // compares gathered per slot, and the dict out (21 B per slot in the DF17
-// mode, 51 B extended): 2.2 MB, 0.66 us at 2^24 offsets and K = 2048. The
+// mode, 51 B extended): 2.2 MB, 0.66 us at 2^24 offsets and K = 2048
+// (on an H100 SXM's 3.35 TB/s). R2 adds recovered2, 1 B a slot, and the
+// 30.6 KB pair table, read from L1/L2 by the slots that fail. The
 // sum of all counts in every block costs 8 KB of L2 reads a block at 2^24
 // offsets; it grows with n_off squared, and stays cheap to ~2^25 offsets.
 
@@ -100,6 +112,9 @@ struct Out {
   int32_t* icao_long;     // (K,)
   int32_t* icao_short;    // (K,)
   bool* classes;          // (kClasses, K)
+  // R2
+  bool* recovered2;       // (K,)
+  const uint32_t* pairs;  // (2 * kPairs,): the sorted pair syndromes, then i | j << 8 of each
 };
 
 __device__ unsigned g_ticket = 0;  // blocks of the running launch that are done
@@ -135,19 +150,29 @@ __device__ __forceinline__ int3 block_sum3(int x, int y, int z) {
   return s;
 }
 
+template <bool R2>
+__device__ __forceinline__ void repair_mode(Candidate& c, const uint32_t* __restrict__ pairs) {
+  if constexpr (R2) {
+    repair2(c, pairs);
+  } else {
+    repair(c);
+  }
+}
+
 // Writes candidate c, sliced at `offset`, into slot s, repairing it first
 // unless `repaired`; returns whether it is good (the DF17 mode's count).
-template <Mode M>
+template <Mode M, bool R2>
 __device__ __forceinline__ bool store_slot(Candidate c, bool repaired, int offset, bool valid, long long s,
                                            long long n_off, long long capacity, const Out& out) {
   if constexpr (M == Mode::kDf17) {
-    if (!repaired) repair(c);
+    if (!repaired) repair_mode<R2>(c, out.pairs);
     out.offsets[s] = valid ? offset : static_cast<int32_t>(n_off);
     out.valid[s] = valid;
-    store_frame(out.frames + s * kFrameBytes, c.h, c.flip);
+    store_frame(out.frames + s * kFrameBytes, c.h, c.flip, c.pair);
     const bool good = crc_ok(c) && valid;
     out.good[s] = good;
     out.recovered[s] = c.flip >= 0 && valid;
+    if constexpr (R2) out.recovered2[s] = c.pair >= 0 && valid;
     return good;
   } else {
     out.offsets[s] = valid ? offset : static_cast<int32_t>(n_off);
@@ -158,14 +183,18 @@ __device__ __forceinline__ bool store_slot(Candidate c, bool repaired, int offse
     out.icao_long[s] = static_cast<int32_t>(c.delta);
     const uint32_t icao_short = short_residual(c);
     out.icao_short[s] = static_cast<int32_t>(icao_short);
-    if (!repaired) repair(c);
-    store_frame(out.frames + s * kFrameBytes, c.h, c.flip);
+    if (!repaired) repair_mode<R2>(c, out.pairs);
+    store_frame(out.frames + s * kFrameBytes, c.h, c.flip, c.pair);
     store_classes(out.classes, capacity, s, c, df, icao_short, valid);
+    if constexpr (R2) {
+      const bool is_long_ap = df == 16 || df == 20 || df == 21 || df >= 24;
+      out.recovered2[s] = c.pair >= 0 && df >= 16 && valid && !is_long_ap;  // && good_long
+    }
     return false;
   }
 }
 
-template <Mode M>
+template <Mode M, bool R2>
 __global__ void __launch_bounds__(kThreads, 2)
 block_decode_kernel(const uint32_t* __restrict__ det_words, const uint32_t* __restrict__ words,
                     long long n_words, const int* __restrict__ counts, long long n_off,
@@ -248,8 +277,8 @@ block_decode_kernel(const uint32_t* __restrict__ det_words, const uint32_t* __re
       __syncthreads();
       for (int i = threadIdx.x; i < r_end - r0; i += kThreads) {
         const int o = staged[i];
-        good += store_slot<M>(slice_candidate(words, n_words, o), false, o, true, before + r0 + i, n_off, capacity,
-                              out);
+        good += store_slot<M, R2>(slice_candidate(words, n_words, o), false, o, true, before + r0 + i, n_off,
+                                  capacity, out);
       }
       __syncthreads();  // staged is rewritten next round
     }
@@ -262,8 +291,8 @@ block_decode_kernel(const uint32_t* __restrict__ det_words, const uint32_t* __re
   long long s = first_empty + b * kThreads + threadIdx.x;
   if (s < capacity) {
     Candidate c0 = slice_candidate(words, n_words, 0);
-    repair(c0);
-    for (; s < capacity; s += stride) store_slot<M>(c0, true, 0, false, s, n_off, capacity, out);
+    repair_mode<R2>(c0, out.pairs);
+    for (; s < capacity; s += stride) store_slot<M, R2>(c0, true, 0, false, s, n_off, capacity, out);
   }
   if (b == 0 && threadIdx.x == 0) {
     *out.n_detections = total;
@@ -295,12 +324,15 @@ int load_block_decode_syndromes(const void* host) { return load_syndromes(host);
 // (K,) bool, n_good () i32, and the extended outputs null; mode 1
 // (extended): frames_raw (K, 14) u8, df, icao_long, icao_short (K,) i32,
 // classes (6, K) bool (enum Class), and good, recovered, n_good null.
+// r2 = 1 (recover2): recovered2 (K,) bool, and pairs the (2 * 3828,) u32
+// sorted pair table (kernels/block_decode.py::pair_table); else both null.
 extern "C" int airjax_block_decode(const void* det_words, const void* words, long long n_words,
                                    const void* tile_counts, long long n_off, long long capacity,
                                    void* offsets, void* valid, void* frames, void* n_detections,
                                    void* overflow, void* good, void* recovered, void* n_good,
                                    void* frames_raw, void* df, void* icao_long, void* icao_short,
-                                   void* classes, int mode, void* stream) {
+                                   void* classes, void* recovered2, const void* pairs, int mode, int r2,
+                                   void* stream) {
   const long long n_tiles = (n_off + kTile - 1) / kTile;
   long long blocks = (n_tiles + kTilesPerBlock - 1) / kTilesPerBlock;
   if (blocks == 0) blocks = 1;  // block 0 writes n_detections and overflow
@@ -313,11 +345,17 @@ extern "C" int airjax_block_decode(const void* det_words, const void* words, lon
                 static_cast<int32_t*>(n_detections), static_cast<bool*>(overflow), static_cast<bool*>(good),
                 static_cast<bool*>(recovered), static_cast<int32_t*>(n_good), static_cast<uint8_t*>(frames_raw),
                 static_cast<int32_t*>(df), static_cast<int32_t*>(icao_long), static_cast<int32_t*>(icao_short),
-                static_cast<bool*>(classes)};
-  if (mode == static_cast<int>(Mode::kExtended)) {
-    block_decode_kernel<Mode::kExtended><<<grid, kThreads, 0, s>>>(d, w, n_words, t, n_off, capacity, out);
+                static_cast<bool*>(classes), static_cast<bool*>(recovered2),
+                static_cast<const uint32_t*>(pairs)};
+  const bool ext = mode == static_cast<int>(Mode::kExtended);
+  if (ext && r2) {
+    block_decode_kernel<Mode::kExtended, true><<<grid, kThreads, 0, s>>>(d, w, n_words, t, n_off, capacity, out);
+  } else if (ext) {
+    block_decode_kernel<Mode::kExtended, false><<<grid, kThreads, 0, s>>>(d, w, n_words, t, n_off, capacity, out);
+  } else if (r2) {
+    block_decode_kernel<Mode::kDf17, true><<<grid, kThreads, 0, s>>>(d, w, n_words, t, n_off, capacity, out);
   } else {
-    block_decode_kernel<Mode::kDf17><<<grid, kThreads, 0, s>>>(d, w, n_words, t, n_off, capacity, out);
+    block_decode_kernel<Mode::kDf17, false><<<grid, kThreads, 0, s>>>(d, w, n_words, t, n_off, capacity, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -80,11 +80,13 @@ candidate_kernel(const uint32_t* __restrict__ words, long long n_words,
 }  // namespace
 
 // Copies the 88 syndromes (uint32, host memory) into every copy of
-// c_syndromes on the current device: this file's and block_decode.cu's.
+// c_syndromes on the current device: this file's, block_decode.cu's and
+// fields.cu's.
 // Called once per device before the first launch of either kernel.
 extern "C" int airjax_load_syndromes(const void* host) {
-  const int rc = load_syndromes(host);
-  return rc != 0 ? rc : load_block_decode_syndromes(host);
+  int rc = load_syndromes(host);
+  if (rc == 0) rc = load_block_decode_syndromes(host);
+  return rc != 0 ? rc : load_fields_syndromes(host);
 }
 
 // words: (n_words,) u32 packed compares; offsets: (n_cand,) int32, invalid

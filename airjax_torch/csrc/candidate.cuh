@@ -12,6 +12,13 @@
 // data bits (CRC-24 is linear over GF(2)); a nonzero delta equal to the
 // syndrome of data bit j (j < 88; syndromes are pairwise distinct, so the
 // match is unique) flips bit j. A flip in the CRC field never validates.
+// The recover2 repair (repair2) then looks a delta that matched no single
+// syndrome up among the 3828 pair syndromes S_i ^ S_j (i < j < 88): unique,
+// disjoint from the single ones and never 0 (airjax/protocol/crc.py:
+// 138-156), so any search finds airjax's argmax. The table lies in device
+// memory, sorted, with i | j << 8 beside each syndrome, and is found by a
+// 12-probe binary search through __ldg: a linear scan of __constant__
+// memory would serialize on divergent reads.
 //
 // c_syndromes is __constant__ in an anonymous namespace: every translation
 // unit that includes this header has its own copy, which its own
@@ -53,9 +60,10 @@ struct Candidate {
   uint32_t h[7];   // h[q] = frame bits 16q .. 16q+15, MSB first (two frame bytes)
   uint32_t delta;  // crc24(data bits) ^ CRC field: 0 when valid as sent; the long AP residual
   int flip;        // the data bit whose syndrome is delta (the repair), -1 if none
+  int pair;        // i | j << 8 of the 2-bit repair (repair2), -1 if none
 };
 
-__device__ __forceinline__ bool crc_ok(const Candidate& c) { return c.delta == 0 || c.flip >= 0; }
+__device__ __forceinline__ bool crc_ok(const Candidate& c) { return c.delta == 0 || c.flip >= 0 || c.pair >= 0; }
 __device__ __forceinline__ int frame_df(const Candidate& c) { return static_cast<int>(c.h[0] >> 11); }
 
 // The candidate at `offset`: the 8-word gather with its index clamped to
@@ -84,6 +92,7 @@ __device__ __forceinline__ Candidate slice_candidate(const uint32_t* __restrict_
   }
   c.delta = calced ^ (((c.h[5] & 0xFFu) << 16) | c.h[6]);
   c.flip = -1;
+  c.pair = -1;
   return c;
 }
 
@@ -96,6 +105,29 @@ __device__ __forceinline__ void repair(Candidate& c) {
       if (c_syndromes[j] == c.delta) c.flip = j;
     }
   }
+}
+
+constexpr int kPairs = kDataBits * (kDataBits - 1) / 2;  // 3828
+
+// The recover2 repair: the single-bit repair, then, if delta is nonzero and
+// matched no single syndrome, the pair whose syndrome it is. `pairs` holds
+// the kPairs syndromes ascending, then i | j << 8 of each. The search is a
+// call, not inlined: inlined at the block-decode kernel's 128 registers it
+// spilled 48-68 bytes, as a call nothing (the same device time, PERF.md).
+__device__ __noinline__ int pair_of(uint32_t delta, const uint32_t* __restrict__ pairs) {
+  int base = 0;
+#pragma unroll
+  for (int len = kPairs; len > 1;) {  // 12 probes
+    const int half = len >> 1;
+    if (__ldg(pairs + base + half) <= delta) base += half;
+    len -= half;
+  }
+  return __ldg(pairs + base) == delta ? static_cast<int>(__ldg(pairs + kPairs + base)) : -1;
+}
+
+__device__ __forceinline__ void repair2(Candidate& c, const uint32_t* __restrict__ pairs) {
+  repair(c);
+  if (c.delta != 0 && c.flip < 0) c.pair = pair_of(c.delta, pairs);
 }
 
 // The short AP residual: the CRC of data bits 0-31 ^ PI = bits 32-55. The
@@ -111,11 +143,17 @@ __device__ __forceinline__ uint32_t short_residual(const Candidate& c) {
   return crc ^ ((c.h[2] << 8) | (c.h[3] >> 8));
 }
 
-// The 14 frame bytes, with data bit `flip` flipped (none if flip < 0).
-__device__ __forceinline__ void store_frame(uint8_t* f, const uint32_t* h, int flip) {
+__device__ __forceinline__ uint32_t bit_mask(int bit, int q) {
+  return (bit >> 4) == q ? 1u << (15 - (bit & 15)) : 0u;
+}
+
+// The 14 frame bytes, with data bit `flip` flipped (none if flip < 0) and
+// the two bits of `pair` (none if pair < 0).
+__device__ __forceinline__ void store_frame(uint8_t* f, const uint32_t* h, int flip, int pair = -1) {
 #pragma unroll
   for (int q = 0; q < 7; ++q) {
-    const uint32_t x = flip >= 0 && (flip >> 4) == q ? h[q] ^ (1u << (15 - (flip & 15))) : h[q];
+    uint32_t x = flip >= 0 && (flip >> 4) == q ? h[q] ^ (1u << (15 - (flip & 15))) : h[q];
+    if (pair >= 0) x ^= bit_mask(pair & 0xFF, q) ^ bit_mask(pair >> 8, q);
     f[2 * q] = static_cast<uint8_t>(x >> 8);
     f[2 * q + 1] = static_cast<uint8_t>(x & 0xFFu);
   }
@@ -140,6 +178,7 @@ __device__ __forceinline__ void store_classes(bool* classes, long long stride, l
 
 }  // namespace
 
-// Loads block_decode.cu's copy of the syndromes (defined there);
-// airjax_load_syndromes calls it after loading candidate.cu's.
+// Load block_decode.cu's and fields.cu's copies of the syndromes (defined
+// there); airjax_load_syndromes calls them after loading candidate.cu's.
 int load_block_decode_syndromes(const void* host);
+int load_fields_syndromes(const void* host);

@@ -31,12 +31,18 @@ _syndromes_loaded: set[int] = set()  # CUDA device indices
 
 
 def decode_candidates_plain(
-    words: torch.Tensor, offsets: torch.Tensor
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    words: torch.Tensor, offsets: torch.Tensor, recover2: bool = False
+) -> tuple[torch.Tensor, ...]:
     """Plain torch version: slice_bits_packed -> crc_check_and_recover ->
-    bits_to_bytes."""
+    bits_to_bytes. With recover2, crc_check_and_recover2: crc_ok includes
+    the 2-flip repairs, and a fourth tensor marks them (the block-decode
+    kernel's recover2 mode; the candidate kernel has none)."""
     bits = slice_bits_packed(words, offsets)
-    bits, crc_ok, recovered = crc.crc_check_and_recover(bits, crc.tables(words.device))
+    tab = crc.tables(words.device)
+    if recover2:
+        bits, crc_ok, recovered, recovered2 = crc.crc_check_and_recover2(bits, tab)
+        return crc.bits_to_bytes(bits), crc_ok, recovered, recovered2
+    bits, crc_ok, recovered = crc.crc_check_and_recover(bits, tab)
     return crc.bits_to_bytes(bits), crc_ok, recovered
 
 
@@ -46,13 +52,19 @@ CLASSES = ("good_long", "recovered", "good_df11", "cand_df11_ic", "cand_short_ap
 
 
 def decode_candidates_extended_plain(
-    words: torch.Tensor, offsets: torch.Tensor, valid: torch.Tensor
+    words: torch.Tensor, offsets: torch.Tensor, valid: torch.Tensor, recover2: bool = False
 ) -> dict[str, torch.Tensor]:
     """Plain torch version of the extended mode: airjax/pipeline.py:204-253
-    from the slice on, with its expressions."""
+    from the slice on, with its expressions. With recover2 the long-frame
+    repair is crc_check_and_recover2 on every candidate (its pair flip
+    lands in `frames` whatever the DF) and `recovered2` is added."""
     bits = slice_bits_packed(words, offsets)
     tab = crc.tables(words.device)
-    long_bits, long_ok, long_rec = crc.crc_check_and_recover(bits, tab)
+    long_rec2 = None
+    if recover2:
+        long_bits, long_ok, long_rec, long_rec2 = crc.crc_check_and_recover2(bits, tab)
+    else:
+        long_bits, long_ok, long_rec = crc.crc_check_and_recover(bits, tab)
     df = crc.pack_bits_msbfirst(bits[..., :5], 5)
     is_long = df >= 16
     # AP-addressed long frames: DF16 ACAS, DF20/21 Comm-B, DF24+ Comm-D ELM.
@@ -62,7 +74,7 @@ def decode_candidates_extended_plain(
     icao_ap_long = crc.crc24_batch(bits[..., : crc.DATA_BITS], tab) ^ pcrc_long
     pi = crc.pack_bits_msbfirst(bits[..., SHORT_DATA_BITS:SHORT_BITS], crc.CRC_BITS)
     icao_ap_short = crc24_short_batch(bits[..., :SHORT_DATA_BITS]) ^ pi
-    return {
+    out = {
         "df": df,
         "frames": crc.bits_to_bytes(long_bits),
         "frames_raw": crc.bits_to_bytes(bits),
@@ -76,6 +88,9 @@ def decode_candidates_extended_plain(
         "icao_ap_short": icao_ap_short,
         "icao_ap_long": icao_ap_long,
     }
+    if long_rec2 is not None:
+        out["recovered2"] = long_rec2 & good_long
+    return out
 
 
 def _check(words: torch.Tensor, offsets: torch.Tensor) -> None:

@@ -1,0 +1,101 @@
+"""Fields kernel wrapper: a block's frames -> every protocol field of every
+slot, in one launch.
+
+No Pallas ancestor: on the TPU, XLA fuses airjax/protocol/fields.py::
+extract_fields (:36-143) into the batched decode program
+(airjax/pipeline.py:287-304), and the extended one also
+airjax/protocol/shortframe.py::extract_short_fields_from_raw (:337-349) of
+the raw frames (:307-328). Here both are csrc/fields.cu, one thread per
+slot over all K slots (airjax computes the fields of invalid slots too),
+run after the block-decode kernel: a batched pass is three launches.
+
+`block_fields` launches the kernel for CUDA tensors and runs
+`block_fields_plain` (the plain torch extract_fields and
+extract_short_fields_from_raw) for CPU tensors. The kernel writes one
+int32 (rows, K) buffer and one byte buffer; the dicts hold views of them
+under airjax's keys and dtypes (airjax's uint32 CRC fields as int32).
+`launches` counts kernel launches, both modes together.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from airjax_torch._dispatch import check_launch, check_tensor, use_kernel
+from airjax_torch.kernels import candidate
+from airjax_torch.protocol.crc import FRAME_BYTES
+from airjax_torch.protocol.fields import extract_fields
+from airjax_torch.protocol.shortframe import extract_short_fields_from_raw
+
+launches = 0
+
+# The int32 rows of the kernel's buffer, in its order (csrc/fields.cu).
+LONG_ROWS = (
+    "df", "subformat", "capability", "icao", "msg_type", "msg_class", "altitude_ft",
+    "surveillance_status", "nic_supplement", "cpr_time", "cpr_odd", "cpr_lat", "cpr_lon",
+    "msg_class_ext", "vel_subtype", "vel_sign_a", "vel_val_a", "vel_sign_b", "vel_val_b",
+    "vel_vr_source_baro", "vel_vr_sign", "vel_vr_val", "vel_gbd_sign", "vel_gbd_val",
+)
+SHORT_ROWS = (
+    "df", "fs", "dr", "um", "vs", "cc", "sl", "ri", "capability", "icao_aa", "crc_calc",
+    "parity_field", "icao_ap", "altitude_ft", "squawk",
+)
+
+
+def block_fields_plain(
+    frames: torch.Tensor, frames_raw: torch.Tensor | None = None
+) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor] | None]:
+    """Plain torch version: extract_fields(frames), and with frames_raw
+    extract_short_fields_from_raw(frames_raw)."""
+    short = None if frames_raw is None else extract_short_fields_from_raw(frames_raw)
+    return extract_fields(frames), short
+
+
+def block_fields(
+    frames: torch.Tensor, frames_raw: torch.Tensor | None = None
+) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor] | None]:
+    """(K, 14) uint8 frames (and, for the extended decode, (K, 14) uint8
+    raw frames) -> (airjax's extract_fields dict, airjax's
+    extract_short_fields_from_raw dict or None)."""
+    check_tensor(frames, "frames", torch.uint8, 2)
+    if frames.shape[1] != FRAME_BYTES:
+        raise ValueError(f"frames: expected (K, {FRAME_BYTES}), got {tuple(frames.shape)}")
+    tensors = (frames,)
+    if frames_raw is not None:
+        check_tensor(frames_raw, "frames_raw", torch.uint8, 2)
+        if frames_raw.shape != frames.shape:
+            raise ValueError(f"frames_raw: expected {tuple(frames.shape)}, got {tuple(frames_raw.shape)}")
+        tensors += (frames_raw,)
+    if use_kernel(*tensors):
+        return _fields_cuda(frames, frames_raw)
+    return block_fields_plain(frames, frames_raw)
+
+
+def _fields_cuda(frames: torch.Tensor, frames_raw: torch.Tensor | None):
+    global launches
+    from airjax_torch._build import library
+
+    lib = library()
+    device = frames.device
+    k = frames.shape[0]
+    n_rows = len(LONG_ROWS) + (0 if frames_raw is None else len(SHORT_ROWS))
+    ints = torch.empty(n_rows * k, dtype=torch.int32, device=device)
+    byts = torch.empty((9 if frames_raw is None else 10) * k, dtype=torch.uint8, device=device)
+    with torch.cuda.device(device):
+        candidate.load_syndromes(lib)  # fields.cu's copy: the short CRC
+        rc = lib.airjax_fields(
+            frames.data_ptr(), None if frames_raw is None else frames_raw.data_ptr(), k,
+            ints.data_ptr(), byts.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    check_launch(rc, "fields kernel")
+    if k:
+        launches += 1
+    rows = ints.view(n_rows, k)
+    fields = dict(zip(LONG_ROWS, rows[: len(LONG_ROWS)].unbind(0)))
+    fields["alt_mode_25"] = byts[8 * k : 9 * k].view(torch.bool)
+    fields["callsign_codes"] = byts[: 8 * k].view(k, 8)
+    if frames_raw is None:
+        return fields, None
+    short = dict(zip(SHORT_ROWS, rows[len(LONG_ROWS) :].unbind(0)))
+    short["altitude_valid"] = byts[9 * k :].view(torch.bool)
+    return fields, short

@@ -15,10 +15,19 @@ is the plain torch chain from magnitudes on either device, the counterpart
 of airjax's XLA path (:59-108).
 
 `decode_iq_block_extended` is the extended decode of every Mode S
-downlink format (airjax/pipeline.py:174-284, recover2=False): the front
-kernel with the preamble-only gate, then the block-decode kernel in its
-extended mode; `decode_mags_block_extended` is its plain chain from
-magnitudes.
+downlink format (airjax/pipeline.py:174-284): the front kernel with the
+preamble-only gate, then the block-decode kernel in its extended mode;
+`decode_mags_block_extended` is its plain chain from magnitudes.
+
+recover2 (airjax's opt-in 2-bit repair, `decode_iq_block_r2` and the
+recover2 argument of the extended decodes) is the block-decode kernel's
+R2 flag: the dict gains `recovered2`, and `good` / `good_long` include
+the 2-flip repairs, which callers must gate (runner, extended assembly).
+
+The `_with_fields` decodes (airjax/pipeline.py:287-328) add the batched
+protocol fields of every slot, `fields` (and for the extended decode
+`short_fields`), through a third launch, the fields kernel
+(csrc/fields.cu): what the batched tracker sinks consume.
 
 `decode_iq_block_staged` keeps the staged chain the block-decode kernel
 replaced (front -> compaction kernel -> candidate kernel -> torch dict
@@ -37,6 +46,7 @@ airjax (:86), so whole dicts compare equal.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -60,6 +70,7 @@ from airjax_torch.kernels.candidate import (
     decode_candidates_plain,
 )
 from airjax_torch.kernels.compact import compact_bits, compact_mask
+from airjax_torch.kernels.fields import block_fields
 from airjax_torch.kernels.magdet import magdet, magdet_bits
 
 Hit = tuple[int, int, bytes, bool]
@@ -70,22 +81,34 @@ def _check_block(n_samples: int, n_off: int) -> None:
         raise ValueError(f"n_off={n_off} needs {n_off + WINDOW - 1} samples, got {n_samples}")
 
 
-def decode_mags_block(mags: torch.Tensor, n_off: int, capacity: int) -> dict[str, torch.Tensor]:
+def decode_mags_block(
+    mags: torch.Tensor, n_off: int, capacity: int, recover2: bool = False
+) -> dict[str, torch.Tensor]:
     """(L,) int32 magnitudes, L >= n_off + WINDOW - 1 -> candidate dict,
-    in plain torch on either device (airjax/pipeline.py:59-108)."""
+    in plain torch on either device (airjax/pipeline.py:59-108); recover2
+    adds the 2-bit repair and `recovered2`."""
     _check_block(mags.shape[0], n_off)
     return candidate_dict(
         compact_mask(detect(mags, n_off), capacity), pack_cmp_words(mags), capacity,
-        decode_candidates_plain,
+        functools.partial(decode_candidates_plain, recover2=recover2),
     )
 
 
-def decode_iq_block(iq: torch.Tensor, n_off: int, capacity: int) -> dict[str, torch.Tensor]:
+def decode_iq_block(
+    iq: torch.Tensor, n_off: int, capacity: int, *, recover2: bool = False
+) -> dict[str, torch.Tensor]:
     """(L, 2) int16 IQ -> candidate dict, through the front and block-decode
     kernels on CUDA (airjax/pipeline.py:111-116, :140-171)."""
     _check_block(iq.shape[0], n_off)
     det_words, words, counts = magdet_bits(iq, n_off)
-    return decode_block_bits(det_words, words, counts, n_off, capacity)
+    return decode_block_bits(det_words, words, counts, n_off, capacity, recover2=recover2)
+
+
+def decode_iq_block_r2(iq: torch.Tensor, n_off: int, capacity: int) -> dict[str, torch.Tensor]:
+    """decode_iq_block with the 2-bit repair (airjax/pipeline.py:119-137):
+    `good` includes the frames a unique double flip validated, marked in
+    `recovered2`; callers gate them."""
+    return decode_iq_block(iq, n_off, capacity, recover2=True)
 
 
 def decode_iq_block_staged(
@@ -103,28 +126,52 @@ def decode_iq_block_staged(
 
 
 def decode_mags_block_extended(
-    mags: torch.Tensor, n_off: int, capacity: int
+    mags: torch.Tensor, n_off: int, capacity: int, recover2: bool = False
 ) -> dict[str, torch.Tensor]:
     """(L,) int32 magnitudes -> the extended candidate dict, in plain torch
-    on either device (airjax/pipeline.py:174-273, recover2=False)."""
+    on either device (airjax/pipeline.py:174-273)."""
     _check_block(mags.shape[0], n_off)
     return candidate_dict_extended(
         compact_mask(detect_preamble_only(mags, n_off), capacity), pack_cmp_words(mags), capacity,
-        decode_candidates_extended_plain,
+        functools.partial(decode_candidates_extended_plain, recover2=recover2),
     )
 
 
-def decode_iq_block_extended(iq: torch.Tensor, n_off: int, capacity: int) -> dict[str, torch.Tensor]:
+def decode_iq_block_extended(
+    iq: torch.Tensor, n_off: int, capacity: int, recover2: bool = False
+) -> dict[str, torch.Tensor]:
     """(L, 2) int16 IQ -> the extended candidate dict, through the front
     kernel (preamble gate) and the block-decode kernel's extended mode on
     CUDA (airjax/pipeline.py:276-284)."""
     _check_block(iq.shape[0], n_off)
     det_words, words, counts = magdet_bits(iq, n_off, gate="preamble")
-    return decode_block_bits(det_words, words, counts, n_off, capacity, extended=True)
+    return decode_block_bits(det_words, words, counts, n_off, capacity, extended=True, recover2=recover2)
 
 
-def to_host(out: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
-    return {k: v.cpu().numpy() for k, v in out.items()}
+def decode_iq_block_with_fields(
+    iq: torch.Tensor, n_off: int, capacity: int, recover2: bool = False
+) -> dict[str, torch.Tensor]:
+    """decode_iq_block(_r2) plus `fields`, the protocol fields of every
+    slot (airjax/pipeline.py:287-304): meaningful only where `good`."""
+    out = decode_iq_block(iq, n_off, capacity, recover2=recover2)
+    out["fields"], _ = block_fields(out["frames"])
+    return out
+
+
+def decode_iq_block_extended_with_fields(
+    iq: torch.Tensor, n_off: int, capacity: int, recover2: bool = False
+) -> dict[str, torch.Tensor]:
+    """decode_iq_block_extended plus `fields` of the repaired frames
+    (meaningful where `good_long`) and `short_fields` of the raw ones (where
+    a cand_* class is set), airjax/pipeline.py:307-328."""
+    out = decode_iq_block_extended(iq, n_off, capacity, recover2=recover2)
+    out["fields"], out["short_fields"] = block_fields(out["frames"], out["frames_raw"])
+    return out
+
+
+def to_host(out: dict) -> dict:
+    """A decode's dict (nested field dicts included) as numpy arrays."""
+    return {k: to_host(v) if isinstance(v, dict) else v.cpu().numpy() for k, v in out.items()}
 
 
 def decode_iq_block_adaptive(

@@ -1,5 +1,5 @@
-"""Mode S CRC-24 with single-bit syndrome repair, in numpy and plain torch
-(airjax/protocol/crc.py:38-135, :200-204).
+"""Mode S CRC-24 with single-bit syndrome repair, and the opt-in 2-bit
+repair (recover2), in numpy and plain torch (airjax/protocol/crc.py).
 
 CRC-24 is linear over GF(2): crc(bits) = XOR of crc(e_i) over the set
 data bits i, so a batch of frames is one (N, 88) @ (88, 24) product and a
@@ -126,3 +126,67 @@ def bits_to_bytes(bits: torch.Tensor) -> torch.Tensor:
         7, -1, -1, dtype=torch.int32, device=bits.device
     )
     return (shaped * weights).sum(dim=-1, dtype=torch.int32).to(torch.uint8)
+
+
+@functools.cache
+def _pair_tables() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The pairwise-flip syndromes of 2-bit recovery
+    (airjax/protocol/crc.py:138-156): S_i ^ S_j for data bits i < j < 88,
+    (3828,) uint32, and the (i, j) index arrays.
+
+    A collision between two pairs, or between a pair and a single bit,
+    would need a codeword of weight 4 or 3; the Mode S CRC-24 has minimum
+    distance 6 at 112 bits, so the table is unique, disjoint from the
+    single-bit table and holds no 0 — asserted here."""
+    s = _tables()[1].astype(np.uint32)
+    i, j = np.triu_indices(DATA_BITS, k=1)
+    pair = s[i] ^ s[j]
+    assert len(np.unique(pair)) == len(pair), "pair syndrome collision"
+    assert not np.intersect1d(pair, s).size, "pair/single syndrome overlap"
+    assert not np.any(pair == 0)
+    return pair, i.astype(np.int32), j.astype(np.int32)
+
+
+def crc_check_and_recover2(
+    bits112: torch.Tensor, tab: CrcTables
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(N, 112) {0,1} bits -> (corrected bits, good (N,) bool: direct,
+    1-flip or 2-flip, recovered (N,) bool: 1-flip, recovered2 (N,) bool:
+    2-flip), as airjax/protocol/crc.py:159-189.
+
+    A >= 3-bit error can sit within distance 2 of a different codeword,
+    so callers gate `recovered2` frames on an ICAO already validated
+    without it (runner, extended assembly)."""
+    corrected, good, recovered = crc_check_and_recover(bits112, tab)
+    calced = crc24_batch(bits112[..., :DATA_BITS], tab)
+    packet_crc = pack_bits_msbfirst(bits112[..., DATA_BITS:], CRC_BITS)
+    delta = calced ^ packet_crc
+    pair, pi, pj = _pair_tables()
+    device = bits112.device
+    match = delta[..., None] == torch.as_tensor(pair.astype(np.int32), device=device)  # (N, 3828)
+    found2 = match.any(dim=-1) & ~good
+    idx = match.to(torch.uint8).argmax(dim=-1)
+    fi = torch.as_tensor(pi, device=device)[idx]
+    fj = torch.as_tensor(pj, device=device)[idx]
+    pos = torch.arange(FRAME_BITS, device=device)
+    flip = (pos == fi[..., None]) | (pos == fj[..., None])
+    corrected = torch.where(found2[..., None], bits112 ^ flip.to(bits112.dtype), corrected)
+    return corrected, good | found2, recovered, found2
+
+
+def try_crc_recovery2_scalar(frame: bytes) -> bytes | None:
+    """Scalar 2-bit-flip repair from the same pair table
+    (airjax/protocol/crc.py:207-224): the repaired 14-byte frame, or None
+    when the delta matches no data-bit pair. Callers gate it as the
+    batched consumers do."""
+    packet_crc = (frame[-3] << 16) | (frame[-2] << 8) | frame[-1]
+    delta = crc24(frame[:11]) ^ packet_crc
+    pair, pi, pj = _pair_tables()
+    hit = np.nonzero(pair == delta)[0]
+    if not hit.size:
+        return None
+    i, j = int(pi[hit[0]]), int(pj[hit[0]])
+    buf = bytearray(frame)
+    buf[i // 8] ^= 1 << (7 - i % 8)
+    buf[j // 8] ^= 1 << (7 - j % 8)
+    return bytes(buf)

@@ -14,8 +14,9 @@ message has the syndrome of data bit j + 56 of an 88-bit one (both are
 x^(55 - j) mod G), so `_short_tables` equals the tail of the long table
 (tests/test_torch_extended.py checks it; csrc/candidate.cu relies on it).
 
-`extract_short_fields(_from_raw)` (batched short-frame fields) is not
-ported yet: it feeds the batched sinks.
+`extract_short_fields(_from_raw)` decode the short-frame fields of a
+batch in plain torch; the batched extended decode runs them on the card
+as csrc/fields.cu (airjax_torch/kernels/fields.py).
 """
 
 from __future__ import annotations
@@ -56,6 +57,87 @@ def crc24_short_batch(bits32: torch.Tensor) -> torch.Tensor:
     matrix = torch.as_tensor(_short_tables()[0], dtype=torch.float32, device=bits32.device)
     sums = torch.matmul(bits32.to(torch.float32), matrix).to(torch.int32)
     return pack_bits_msbfirst(sums & 1, CRC_BITS)
+
+
+def extract_short_fields(bits56: torch.Tensor) -> dict[str, torch.Tensor]:
+    """(..., 56) {0,1} bits -> the short-frame fields
+    (airjax/protocol/shortframe.py:67-175), (...)-shaped int32 tensors
+    (crc_calc, parity_field and icao_ap are airjax's uint32, < 2^24) and
+    `altitude_valid` bool. Which are meaningful depends on `df`:
+      df, fs, dr, um          header fields (DF4/5)
+      vs, cc, sl, ri          DF0/16 ACAS header fields
+      capability, icao_aa     the CA and AA fields (DF11)
+      crc_calc, parity_field  the CRC over the 32 data bits, the PI/AP field
+      icao_ap                 crc_calc ^ parity_field: the address of an
+                              AP-addressed DF4/5, the interrogator of a DF11
+      altitude_ft / altitude_valid   the AC13 decode (Q=1 binary, Q=0
+                              Gillham; M=1 metric unsupported)
+      squawk                  ID13 -> the 4-digit octal identity code
+    """
+    b = bits56.to(torch.int32)
+
+    def field(lo: int, width: int) -> torch.Tensor:
+        return pack_bits_msbfirst(b[..., lo : lo + width], width)
+
+    crc_calc = crc24_short_batch(b[..., :SHORT_DATA_BITS])
+    parity_field = pack_bits_msbfirst(b[..., SHORT_DATA_BITS:SHORT_BITS], CRC_BITS)
+
+    # AC13 (bits 19..31), transmitted C1 A1 C2 A2 C4 A4 M B1 Q B2 D2 B4 D4.
+    ac13 = b[..., 19:32]
+    m_bit, q_bit = ac13[..., 6], ac13[..., 8]
+    n11 = torch.cat([ac13[..., 0:6], ac13[..., 7:8], ac13[..., 9:13]], dim=-1)
+    alt_q1 = pack_bits_msbfirst(n11, 11) * 25 - 1000
+
+    # Gillham (Q=0): the 3-bit reflected gray C1 C2 C4 counts 100s within a
+    # 500 ft band; the 8-bit gray D2 D4 A1 A2 A4 B1 B2 B4 counts 500s.
+    def gray2bin(g: torch.Tensor) -> torch.Tensor:
+        g = g ^ (g >> 4)
+        g = g ^ (g >> 2)
+        return g ^ (g >> 1)
+
+    c1, a1, c2, a2, c4, a4 = (ac13[..., i] for i in range(6))
+    b1, b2, d2, b4, d4 = (ac13[..., i] for i in (7, 9, 10, 11, 12))
+    c_gray = (c1 << 2) | (c2 << 1) | c4
+    f_gray = (d2 << 7) | (d4 << 6) | (a1 << 5) | (a2 << 4) | (a4 << 3) | (b1 << 2) | (b2 << 1) | b4
+    ones = gray2bin(c_gray)
+    ones = torch.where((ones & 5) == 5, ones ^ 2, ones)  # 7 <-> 5 remap
+    fives = gray2bin(f_gray)
+    gillham_ok = (c_gray != 0) & (ones >= 1) & (ones <= 5)
+    ones = torch.where((fives & 1) == 1, 6 - ones, ones)  # reflection
+    alt_q0 = fives * 500 + ones * 100 - 1300
+
+    # ID13 (the same bit positions): C1 A1 C2 A2 C4 A4 X B1 D1 B2 D2 B4 D4.
+    d1 = ac13[..., 8]
+    squawk = (((a4 << 2) | (a2 << 1) | a1) * 1000 + ((b4 << 2) | (b2 << 1) | b1) * 100
+              + ((c4 << 2) | (c2 << 1) | c1) * 10 + ((d4 << 2) | (d2 << 1) | d1))
+
+    return {
+        "df": field(0, 5),
+        "fs": field(5, 3),
+        "dr": field(8, 5),
+        "um": field(13, 6),
+        "vs": field(5, 1),  # vertical status (1 = on ground)
+        "cc": field(6, 1),  # crosslink capability (DF0)
+        "sl": field(8, 3),  # ACAS sensitivity level
+        "ri": field(13, 4),  # reply information
+        "capability": field(5, 3),  # DF11: CA occupies the FS bits
+        "icao_aa": field(8, 24),  # DF11: AA address
+        "crc_calc": crc_calc,
+        "parity_field": parity_field,
+        "icao_ap": crc_calc ^ parity_field,
+        "altitude_ft": torch.where(q_bit == 1, alt_q1, alt_q0),
+        "altitude_valid": (m_bit == 0) & ((q_bit == 1) | gillham_ok),
+        "squawk": squawk,
+    }
+
+
+def extract_short_fields_from_raw(frames_raw: torch.Tensor) -> dict[str, torch.Tensor]:
+    """extract_short_fields of the first 7 bytes of raw frames (..., >= 7)
+    uint8 (airjax/protocol/shortframe.py:337-349)."""
+    raw7 = frames_raw[..., :7].to(torch.int32)
+    shifts = torch.arange(7, -1, -1, dtype=torch.int32, device=frames_raw.device)
+    bits56 = ((raw7[..., None] >> shifts) & 1).reshape(*raw7.shape[:-1], SHORT_BITS)
+    return extract_short_fields(bits56)
 
 
 # ---------------------------------------------------------------------------

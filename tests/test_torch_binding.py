@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from airjax_torch import _build
-from airjax_torch.kernels import block_decode, candidate, compact, magdet, stencil3
+from airjax_torch.kernels import block_decode, candidate, compact, fields, magdet, stencil3
 
 STREAM = 0x5EED
 
@@ -108,16 +108,23 @@ def test_candidate_call(lib, extended):
     assert nulls == ([True, True] + [False] * 6 if extended else [False, False] + [True] * 6)
 
 
+@pytest.mark.parametrize("recover2", [False, True])
 @pytest.mark.parametrize("capacity", [0, 64])
 @pytest.mark.parametrize("extended", [False, True])
-def test_block_decode_call(lib, extended, capacity):
+def test_block_decode_call(lib, extended, capacity, recover2):
     n_off = 20000
     det_words = torch.zeros(magdet.n_det_words(n_off), dtype=torch.int32)
     words = torch.zeros(700, dtype=torch.int32)
     counts = torch.zeros(magdet.n_tiles(n_off), dtype=torch.int32)
-    out = block_decode._block_decode_cuda(det_words, words, counts, n_off, capacity, extended)
+    out = block_decode._block_decode_cuda(det_words, words, counts, n_off, capacity, extended, recover2)
     (name, args), = lib.calls
-    assert name == "airjax_block_decode" and args[-1] == STREAM and args[-2] == int(extended)
+    assert name == "airjax_block_decode" and args[-1] == STREAM and args[-3:-1] == (int(extended), int(recover2))
+    if recover2:
+        pairs = block_decode._pairs(det_words.device)
+        assert args[19:21] == (out.pop("recovered2").data_ptr(), pairs.data_ptr())
+        assert np.array_equal(pairs.numpy().view(np.uint32), block_decode.pair_table())
+    else:
+        assert args[19:21] == (None, None) and "recovered2" not in out
     assert args[:6] == (det_words.data_ptr(), words.data_ptr(), 700, counts.data_ptr(), n_off, capacity)
     common = ("offsets", "valid", "frames", "n_detections", "overflow")
     assert args[6:11] == tuple(out[key].data_ptr() for key in common)
@@ -140,3 +147,27 @@ def test_block_decode_call(lib, extended, capacity):
     # The outputs are disjoint slices of two buffers.
     spans = sorted((t.data_ptr(), t.data_ptr() + t.numel() * t.element_size()) for t in out.values() if t.numel())
     assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+
+
+@pytest.mark.parametrize("k", [0, 5, 64])
+@pytest.mark.parametrize("extended", [False, True])
+def test_fields_call(lib, extended, k):
+    frames = torch.zeros((k, 14), dtype=torch.uint8)
+    raw = torch.zeros((k, 14), dtype=torch.uint8) if extended else None
+    long, short = fields._fields_cuda(frames, raw)
+    (name, args), = lib.calls
+    assert name == "airjax_fields" and args[-1] == STREAM
+    assert args[:3] == (frames.data_ptr(), raw.data_ptr() if extended else None, k)
+    assert sorted(long) == sorted(fields.extract_fields(frames))
+    assert (sorted(short) == sorted(fields.extract_short_fields_from_raw(raw))) if extended else short is None
+    for key, t in {**long, **(short or {})}.items():
+        want = (torch.uint8, (k, 8)) if key == "callsign_codes" else (
+            (torch.bool, (k,)) if key in ("alt_mode_25", "altitude_valid") else (torch.int32, (k,)))
+        assert (t.dtype, tuple(t.shape)) == want, key
+    if k:
+        # Views of one int32 and one byte buffer, the callsign codes first
+        # (their 4-byte stores need the buffer's alignment).
+        assert long["callsign_codes"].data_ptr() == args[4]
+        spans = sorted((t.data_ptr(), t.data_ptr() + t.numel() * t.element_size())
+                       for t in {**long, **(short or {})}.values())
+        assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))

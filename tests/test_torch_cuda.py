@@ -359,3 +359,136 @@ def test_block_decode_kernel_at_2_24(cuda_device, extended):  # noqa: F811
     fused = pipeline.decode_iq_block_extended if extended else pipeline.decode_iq_block
     assert_same_dict(got, pipeline.to_host(fused(iq_dev, n_off, k)))
     assert _counts() == tuple(n + 1 for n in before[:2]) + before[2:]
+
+
+def _pair_flips(n: int, seed: int, extended: bool) -> np.ndarray:
+    """2-bit flips (bits 5-87 for DF17; anywhere, the DF field included, for
+    every format, and bits 5-87 of every second DF17, which the extended
+    decode then counts in good_long), 1-bit flips, 3-bit bursts and
+    CRC-field flips."""
+    rng = np.random.default_rng(seed)
+    if extended:
+        frames = synth.make_mixed_frames(max(1, (n - 600) // 3000), seed)
+    else:
+        frames = [synth.make_df17(int(rng.integers(1, 1 << 24)), synth.make_id_me(f"R2{i % 1000:03d}"))
+                  for i in range((n - 600) // 300)]
+    for i, f in enumerate(frames):
+        lo, nbits = (0 if extended else 5), 8 * len(f)
+        kind = i % 5
+        if extended and i % 20 == 0:
+            frames[i] = _flip(f, rng.choice(np.arange(5, 88), 2, replace=False))
+        elif kind == 1:
+            frames[i] = _flip(f, rng.choice(np.arange(lo, nbits - 24), 2, replace=False))
+        elif kind == 2:
+            frames[i] = _flip(f, [int(rng.integers(lo, nbits - 24))])
+        elif kind == 3:
+            frames[i] = _flip(f, rng.choice(np.arange(lo, nbits), 3, replace=False))
+        elif kind == 4:
+            frames[i] = _flip(f, rng.choice(np.arange(nbits - 24, nbits), 2, replace=False))
+    offsets = [300 + 300 * i for i in range(len(frames))]
+    return synth.modulate(frames, offsets, n, seed=seed)
+
+
+def _flip(frame: bytes, bits) -> bytes:
+    for b in bits:
+        frame = synth.flip_bit(frame, int(b))
+    return frame
+
+
+R2_CASES = BLOCK_CASES + ["pair flips"]
+
+
+@pytest.mark.parametrize("extended", [False, True])
+@pytest.mark.parametrize("case", R2_CASES)
+def test_block_decode_r2_matches_plain(cuda_device, case, extended):  # noqa: F811
+    """The R2 instantiations against their plain version (crc_check_and_
+    recover2); where no pair repair applies, the dict without recovered2
+    equals the mode without R2."""
+    n = (1 << 17) + 1024
+    if case == "pair flips":
+        iq, n_off, k = _pair_flips(n, 29, extended), n - 240, 1 << 14
+    else:
+        iq, n_off, k = _block_case(case, n)
+    iq = torch.as_tensor(iq).to(cuda_device)
+    det_words, words, counts = magdet_mod.magdet_bits(iq, n_off, "preamble" if extended else "df17")
+    before = block_decode_mod.launches
+    got = block_decode_mod.decode_block_bits(det_words, words, counts, n_off, k, extended=extended, recover2=True)
+    assert block_decode_mod.launches == before + 1
+    want = block_decode_mod.decode_block_bits_plain(det_words, words, counts, n_off, k, extended=extended,
+                                                    recover2=True)
+    got = pipeline.to_host(got)
+    assert_same_dict(pipeline.to_host(want), got)
+    base = pipeline.to_host(block_decode_mod.decode_block_bits(det_words, words, counts, n_off, k, extended=extended))
+    rec2 = got.pop("recovered2")
+    # A pair repair changes its slot's frame; every slot it did not change
+    # reads as without R2, and so does the whole dict where none did.
+    same = np.all(got["frames"] == base["frames"], axis=1)
+    assert not rec2[same].any()
+    assert sorted(base) == sorted(got)
+    for key, v in base.items():
+        if v.ndim and v.shape[0] == k:
+            np.testing.assert_array_equal(v[same], got[key][same], err_msg=key)
+    if same.all():
+        assert_same_dict(base, got)
+    if case == "pair flips":
+        assert rec2.sum() > 0 and not same.all()
+
+
+@pytest.mark.parametrize("k", [0, 64, 100_000])
+def test_block_decode_r2_on_random_bits(cuda_device, k):  # noqa: F811
+    """Random frames at random offsets: many deltas, a few in the pair table."""
+    rng = np.random.default_rng(k + 1)
+    n_off = (1 << 20) + 77
+    det = torch.as_tensor(rng.random(n_off) < 0.3).to(cuda_device)
+    det_words = pack_msb_words(det, magdet_mod.n_det_words(n_off))
+    counts = magdet_mod.tile_counts(det)
+    words = torch.as_tensor(rng.integers(-(1 << 31), 1 << 31, n_off // 32 + 16, dtype=np.int32)).to(cuda_device)
+    for extended in (False, True):
+        got = block_decode_mod.decode_block_bits(det_words, words, counts, n_off, k, extended=extended, recover2=True)
+        want = block_decode_mod.decode_block_bits_plain(det_words, words, counts, n_off, k, extended=extended,
+                                                        recover2=True)
+        assert_same_dict(pipeline.to_host(want), pipeline.to_host(got))
+
+
+@pytest.mark.parametrize("extended", [False, True])
+@pytest.mark.parametrize("k", [0, 1, 777, 21_504])
+def test_fields_kernel_matches_plain(cuda_device, extended, k):  # noqa: F811
+    """Random 14-byte rows that take every byte value in every column."""
+    from airjax_torch.kernels import fields as fields_mod
+
+    rng = np.random.default_rng(k)
+    rows = rng.integers(0, 256, (k, 14), dtype=np.uint8)
+    rows[: min(k, 256)] = np.arange(min(k, 256), dtype=np.uint8)[:, None]
+    frames = torch.as_tensor(rows).to(cuda_device)
+    raw = torch.as_tensor(rows[::-1].copy()).to(cuda_device) if extended else None
+    before = fields_mod.launches
+    got = fields_mod.block_fields(frames, raw)
+    assert fields_mod.launches == before + (k > 0)
+    want = fields_mod.block_fields_plain(frames, raw)
+    assert_same_dict(pipeline.to_host(want[0]), pipeline.to_host(got[0]))
+    if extended:
+        assert_same_dict(pipeline.to_host(want[1]), pipeline.to_host(got[1]))
+    else:
+        assert got[1] is None
+
+
+@pytest.mark.parametrize("recover2", [False, True])
+@pytest.mark.parametrize("extended", [False, True])
+def test_with_fields_path_matches_plain(cuda_device, extended, recover2):  # noqa: F811
+    """decode_iq_block(_extended)_with_fields on the card: three launches,
+    the whole dict equal to the CPU's."""
+    from airjax_torch.kernels import fields as fields_mod
+
+    n = (1 << 17) + 1024
+    iq = _pair_flips(n, 30, extended)
+    fn = pipeline.decode_iq_block_extended_with_fields if extended else pipeline.decode_iq_block_with_fields
+    k = 1 << 14 if extended else 1024
+    before = _counts() + (fields_mod.launches,)
+    got = pipeline.to_host(fn(torch.as_tensor(iq).to(cuda_device), n - 240, k, recover2))
+    after = _counts() + (fields_mod.launches,)
+    assert after == (before[0] + 1, before[1] + 1) + before[2:5] + (before[5] + 1,)
+    want = pipeline.to_host(fn(torch.as_tensor(iq), n - 240, k, recover2))
+    for key in ("fields", "short_fields"):
+        if key in want:
+            assert_same_dict(want.pop(key), got.pop(key))
+    assert_same_dict(want, got)

@@ -33,7 +33,9 @@ import importlib, pkgutil
 
 import airjax_torch
 names = sorted(m.name for m in pkgutil.walk_packages(airjax_torch.__path__, "airjax_torch."))
-assert "airjax_torch.kernels.block_decode" in names, names
+for name in ("airjax_torch.kernels.block_decode", "airjax_torch.kernels.fields", "airjax_torch.track.batch",
+             "airjax_torch.track.state", "airjax_torch.ui.tui", "airjax_torch.ui.web"):
+    assert name in names, names
 for name in names:
     importlib.import_module(name)
 
@@ -54,6 +56,12 @@ iq = synth.modulate(mixed, [300 * (i + 1) for i in range(len(mixed))], 5000, see
 got = []
 runner.run_stream(iter([iq]), got.append, extended=True, device="cpu")
 assert len(got) == len(mixed), got
+from airjax_torch.track.batch import ExtendedBatchTracker
+from airjax_torch.ui import web
+tracker = ExtendedBatchTracker()
+stats = runner.run_stream(iter([iq]), tracker, extended=True, device="cpu", recover2=True)
+assert tracker.n_messages == len(mixed) and len(tracker.aircrafts) == 1, stats.as_dict()
+assert (web._STATIC_DIR / "index.html").is_file() and "airjax_torch" in str(web._STATIC_DIR)
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "airjax")]
 print("modules", len(names))
 """

@@ -7,6 +7,9 @@ output is an integer or a bit, so the tolerance is exact equality.
 
 from __future__ import annotations
 
+import dataclasses
+import enum
+
 import numpy as np
 import pytest
 import torch
@@ -39,6 +42,16 @@ def assert_same_dict(expected: dict, got: dict) -> None:
         if not (a.dtype == np.uint32 and b.dtype == np.int32):
             assert a.dtype == b.dtype, f"{key}: dtype {a.dtype} != {b.dtype}"
         assert_same(a, b, key)
+
+
+def packet_fields(packet) -> tuple:
+    """A packet of either package as (class name, dataclass fields), enums
+    by name, so that airjax's packets and the port's compare."""
+
+    def factory(items):
+        return {k: (v.name if isinstance(v, enum.Enum) else v) for k, v in items}
+
+    return type(packet).__name__, dataclasses.asdict(packet, dict_factory=factory)
 
 
 @pytest.fixture
