@@ -48,7 +48,7 @@ _SIGNATURES = {
     "airjax_candidates": (ctypes.c_int, [_P, _I64, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]),
     "airjax_load_syndromes": (ctypes.c_int, [_P]),
     "airjax_block_decode": (
-        ctypes.c_int, [_P, _P, _I64, _P, _I64, _I64, *[_P] * 15, ctypes.c_int, ctypes.c_int, _P]),
+        ctypes.c_int, [_P, _P, _I64, _P, _I64, _I64, *[_P] * 17, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]),
     "airjax_fields": (ctypes.c_int, [_P, _P, _I64, _P, _P, _P]),
     "airjax_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }

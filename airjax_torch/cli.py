@@ -7,7 +7,7 @@
                                   [--jsonl PATH] [--state FILE]
                                   [--ref-lat LAT --ref-lon LON]
                                   [--evict-after SECONDS]
-                                  [--device cuda|cpu]
+                                  [-d/--device N] [--torch-device cuda|cpu]
 
 Stream mode (the default) prints the reference's Display of every decoded
 packet (a DF17 packet opens with `== <hex> ==`) and a final `stats:` line;
@@ -18,9 +18,11 @@ packet or, with `--batched`, a block at a time through the batched
 tracker, and `--state` restores and saves their table. `--extended`
 decodes every Mode S downlink format; `--recover2` also accepts frames
 that a unique 2-bit repair validated, gated on an ICAO already seen.
-`--device` defaults to cuda; without a card that raises — the port never
-falls back to the CPU on its own. Not ported: live SDR input, `list`,
-`receive`, `--devices`, `--trace`, `--plot-dir`, `--dump-preamble`.
+`--torch-device` (the port's own flag) defaults to cuda; without a card
+that raises — the port never falls back to the CPU on its own. `-d/--device`
+is airjax's SDR index, read only for live input, which is not ported yet;
+a playback wins over --synthetic, as in airjax. Not ported: live SDR input,
+`list`, `receive`, `--devices`, `--trace`, `--plot-dir`, `--dump-preamble`.
 """
 
 from __future__ import annotations
@@ -64,9 +66,9 @@ def _cmd_adsb(args) -> int:
     from airjax_torch.config import DEFAULT_CONFIG
     from airjax_torch.runner import StreamStats, run_stream
 
-    device = torch.device(args.device)
+    device = torch.device(args.torch_device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is available (pass --device cpu)")
+        raise RuntimeError("--torch-device cuda: no CUDA device is available (pass --torch-device cpu)")
     source = _source(args)
     if isinstance(source, int):
         return source
@@ -176,10 +178,10 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sub = parser.add_subparsers(dest="command", required=True)
     adsb = sub.add_parser("adsb", help="decode and display ADS-B traffic")
+    adsb.add_argument("-d", "--device", type=int, default=None, help="SDR device index (live input, not ported)")
     adsb.add_argument("-m", "--mode", choices=["web", "interactive", "stream"], default="stream")
-    src = adsb.add_mutually_exclusive_group()
-    src.add_argument("-p", "--playback", default=None, help=".c16 capture to replay")
-    src.add_argument("--synthetic", type=int, default=None, metavar="N")
+    adsb.add_argument("-p", "--playback", default=None, help=".c16 capture to replay (wins over --synthetic)")
+    adsb.add_argument("--synthetic", type=int, default=None, metavar="N")
     adsb.add_argument("--max-blocks", type=int, default=None, metavar="N")
     adsb.add_argument("--no-overlap", action="store_true", help="reference chunking: boundary frames lost")
     adsb.add_argument("--fast", action="store_true", help="replay without the 2x-real-time sleep")
@@ -209,7 +211,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--evict-after", type=float, default=None, metavar="SECONDS",
         help="drop aircraft unheard for SECONDS (web/interactive modes; default: never)",
     )
-    adsb.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    adsb.add_argument("--torch-device", choices=["cuda", "cpu"], default="cuda",
+                      help="where the decode runs (default cuda; raises without a card)")
     return parser
 
 

@@ -9,11 +9,16 @@
 // airjax/pipeline.py::_decode_mags_common (:82-105, Mode::kDf17) or of
 // decode_mags_block_extended (:200-270, Mode::kExtended); the template flag
 // R2 is their recover2=True, crc_check_and_recover2 in place of
-// crc_check_and_recover (airjax/protocol/crc.py:159-189), in either mode.
-// Its plain torch version is airjax_torch/kernels/block_decode.py::
-// decode_block_bits_plain: compact_bits_plain, decode_candidates(_extended)
-// _plain, then the dict ops. The staged chain compact.cu -> candidate.cu
-// stays as its A/B baseline and second oracle.
+// crc_check_and_recover (airjax/protocol/crc.py:159-189), in either mode;
+// the flag F adds the batched fields of decode_iq_block(_extended)
+// _with_fields (airjax/pipeline.py:287-328: airjax/protocol/fields.py::
+// extract_fields, and in the extended mode shortframe.py::
+// extract_short_fields_from_raw). Its plain torch version is
+// airjax_torch/kernels/block_decode.py::decode_block_bits_plain:
+// compact_bits_plain, decode_candidates(_extended)_plain, then the dict
+// ops, then under F kernels/fields.py::block_fields_plain. The staged chain
+// compact.cu -> candidate.cu stays as its A/B baseline and second oracle,
+// and so does fields.cu for F.
 //
 // Inputs: det_words[w] bit 31-k = detection at offset 32w+k; words, the
 // packed compares; tile_counts[t] = the set bits of det_words[256t ..
@@ -27,10 +32,20 @@
 //   DF17: good = CRC ok && valid, recovered = repaired && valid;
 //   extended: frames_raw, df, the long and short AP residuals, the six
 //   classes (candidate.cuh).
-//   R2: frames also carry the 2-bit repair (repair2, candidate.cuh), in the
-//   extended mode for any DF (airjax repairs every candidate); good /
-//   good_long include it; recovered2 = the pair repaired && valid (DF17) or
-//   && good_long (extended); recovered stays the single-bit repair.
+//   R2: frames also carry the 2-bit repair (repair2, candidate.cuh: one
+//   lookup in a hashed pair table, both buckets' loads in flight
+//   together), in the extended mode for any DF (airjax repairs every
+//   candidate); good / good_long include it; recovered2 = the pair
+//   repaired && valid (DF17) or && good_long (extended); recovered stays
+//   the single-bit repair.
+//   F: the slot's protocol fields (fields.cuh), from the words the thread
+//   holds: the long fields of the frame as repaired, in the extended mode
+//   the short ones of the raw frame; written to the (rows, K) int32 and the
+//   byte buffer of kernels/fields.py, coalesced (thread i writes slot
+//   base + i). An empty slot (below) gets the fields of the offset-0
+//   decode, as airjax extracts the fields of the invalid slots too; they
+//   are computed for each empty slot a thread writes, at most one a thread
+//   while K <= 256 x the grid.
 //   An empty slot (s >= min(total, K)) carries the decode at offset 0 (with
 //   its repairs, the pair one under R2), with valid and every flag false,
 //   as airjax slices an invalid slot at offset 0 and leaves its frame
@@ -39,7 +54,11 @@
 // the DF17 mode n_good.
 //
 // R2 = false compiles to the kernel without recover2: pair stays -1 and
-// folds away.
+// folds away; F = false to the kernel without fields. The pair lookup and
+// the field stores are calls (__noinline__), so that neither spills at the
+// 128-register cap. The table's pointer sits last in Out and F's outputs in
+// a parameter after it, so that the instantiations without either flag
+// compile to the same SASS.
 //
 // One block of 256 threads per 8 tiles (65,536 offsets), each thread owning
 // 8 consecutive det words: 256 blocks at 2^24 offsets, one wave. The kernel
@@ -72,7 +91,10 @@
 // compares gathered per slot, and the dict out (21 B per slot in the DF17
 // mode, 51 B extended): 2.2 MB, 0.66 us at 2^24 offsets and K = 2048
 // (on an H100 SXM's 3.35 TB/s). R2 adds recovered2, 1 B a slot, and the
-// 30.6 KB pair table, read from L1/L2 by the slots that fail. The
+// 32 KB pair table, read from L1/L2 by the slots that fail (64 B a
+// lookup). F adds the fields' 105 B a slot (DF17) or 166 B (extended):
+// 0.24 MB at K = 2048 and 3.6 MB at K = 21,504, so the extended mode's
+// bound rises from 1.16 to ~2.2 us; the frames are not re-read. The
 // sum of all counts in every block costs 8 KB of L2 reads a block at 2^24
 // offsets; it grows with n_off squared, and stays cheap to ~2^25 offsets.
 
@@ -80,6 +102,7 @@
 #include <stdint.h>
 
 #include "candidate.cuh"
+#include "fields.cuh"
 
 namespace {
 
@@ -114,7 +137,14 @@ struct Out {
   bool* classes;          // (kClasses, K)
   // R2
   bool* recovered2;       // (K,)
-  const uint32_t* pairs;  // (2 * kPairs,): the sorted pair syndromes, then i | j << 8 of each
+  const uint4* pairs;     // (2 * kPairBuckets,): the hashed pair table (candidate.cuh:pair_of)
+};
+
+// F's outputs, a kernel parameter after Out: Out grown by them changed the
+// register allocation of the instantiations without F.
+struct Fields {
+  int32_t* ints;   // (24, K), extended (24 + 15, K): the rows of kernels/fields.py
+  uint8_t* bytes;  // (9 or 10) * K: callsign codes (K, 8), alt_mode_25, altitude_valid
 };
 
 __device__ unsigned g_ticket = 0;  // blocks of the running launch that are done
@@ -151,7 +181,7 @@ __device__ __forceinline__ int3 block_sum3(int x, int y, int z) {
 }
 
 template <bool R2>
-__device__ __forceinline__ void repair_mode(Candidate& c, const uint32_t* __restrict__ pairs) {
+__device__ __forceinline__ void repair_mode(Candidate& c, const uint4* __restrict__ pairs) {
   if constexpr (R2) {
     repair2(c, pairs);
   } else {
@@ -159,11 +189,45 @@ __device__ __forceinline__ void repair_mode(Candidate& c, const uint32_t* __rest
   }
 }
 
+// The fields of slot s (fields.cuh) from a candidate's words: the long ones
+// from its data bits as repaired (d0, d1, d2: frame bytes 0-3, 4-7, 8-11),
+// in the extended mode also the short ones from its raw bits 0-31 (w) and
+// 32-55 (parity) and the short CRC. A call, not inlined, as pair_of: the
+// kernel runs at its 128-register cap.
+template <Mode M>
+__device__ __noinline__ void store_fields(int32_t* ints, uint8_t* bytes, long long K, long long s, uint32_t d0,
+                                          uint32_t d1, uint32_t d2, uint32_t w, uint32_t parity, uint32_t crc) {
+  const int b[11] = {static_cast<int>(d0 >> 24), static_cast<int>(d0 >> 16) & 0xFF,
+                     static_cast<int>(d0 >> 8) & 0xFF, static_cast<int>(d0) & 0xFF,
+                     static_cast<int>(d1 >> 24), static_cast<int>(d1 >> 16) & 0xFF,
+                     static_cast<int>(d1 >> 8) & 0xFF, static_cast<int>(d1) & 0xFF,
+                     static_cast<int>(d2 >> 24), static_cast<int>(d2 >> 16) & 0xFF,
+                     static_cast<int>(d2 >> 8) & 0xFF};
+  store_long_fields(ints, bytes, K, s, b);
+  if constexpr (M == Mode::kExtended) store_short_fields(ints, bytes, K, s, w, static_cast<int>(parity), crc);
+}
+
+// store_fields of candidate c, repaired; icao_short its short residual
+// (the short CRC ^ parity) in the extended mode.
+template <Mode M>
+__device__ __forceinline__ void slot_fields(const Candidate& c, uint32_t icao_short, long long s,
+                                            long long capacity, const Fields& fields) {
+  uint32_t x[6];
+#pragma unroll
+  for (int q = 0; q < 6; ++q) x[q] = repaired_word(c.h, q, c.flip, c.pair);
+  const bool ext = M == Mode::kExtended;
+  const uint32_t parity = ext ? (c.h[2] << 8) | (c.h[3] >> 8) : 0u;
+  store_fields<M>(fields.ints, fields.bytes, capacity, s, (x[0] << 16) | x[1], (x[2] << 16) | x[3],
+                  (x[4] << 16) | x[5], ext ? (c.h[0] << 16) | c.h[1] : 0u, parity, icao_short ^ parity);
+}
+
 // Writes candidate c, sliced at `offset`, into slot s, repairing it first
-// unless `repaired`; returns whether it is good (the DF17 mode's count).
-template <Mode M, bool R2>
+// unless `repaired`, and under F its fields; returns whether it is good
+// (the DF17 mode's count).
+template <Mode M, bool R2, bool F>
 __device__ __forceinline__ bool store_slot(Candidate c, bool repaired, int offset, bool valid, long long s,
-                                           long long n_off, long long capacity, const Out& out) {
+                                           long long n_off, long long capacity, const Out& out,
+                                           const Fields& fields) {
   if constexpr (M == Mode::kDf17) {
     if (!repaired) repair_mode<R2>(c, out.pairs);
     out.offsets[s] = valid ? offset : static_cast<int32_t>(n_off);
@@ -173,6 +237,7 @@ __device__ __forceinline__ bool store_slot(Candidate c, bool repaired, int offse
     out.good[s] = good;
     out.recovered[s] = c.flip >= 0 && valid;
     if constexpr (R2) out.recovered2[s] = c.pair >= 0 && valid;
+    if constexpr (F) slot_fields<M>(c, 0, s, capacity, fields);
     return good;
   } else {
     out.offsets[s] = valid ? offset : static_cast<int32_t>(n_off);
@@ -190,15 +255,16 @@ __device__ __forceinline__ bool store_slot(Candidate c, bool repaired, int offse
       const bool is_long_ap = df == 16 || df == 20 || df == 21 || df >= 24;
       out.recovered2[s] = c.pair >= 0 && df >= 16 && valid && !is_long_ap;  // && good_long
     }
+    if constexpr (F) slot_fields<M>(c, icao_short, s, capacity, fields);
     return false;
   }
 }
 
-template <Mode M, bool R2>
+template <Mode M, bool R2, bool F>
 __global__ void __launch_bounds__(kThreads, 2)
 block_decode_kernel(const uint32_t* __restrict__ det_words, const uint32_t* __restrict__ words,
                     long long n_words, const int* __restrict__ counts, long long n_off,
-                    long long capacity, Out out) {
+                    long long capacity, Out out, Fields fields) {
   __shared__ int staged[kStage];
   __shared__ int warp_incl[kWarps];
   const long long b = blockIdx.x;
@@ -277,8 +343,8 @@ block_decode_kernel(const uint32_t* __restrict__ det_words, const uint32_t* __re
       __syncthreads();
       for (int i = threadIdx.x; i < r_end - r0; i += kThreads) {
         const int o = staged[i];
-        good += store_slot<M, R2>(slice_candidate(words, n_words, o), false, o, true, before + r0 + i, n_off,
-                                  capacity, out);
+        good += store_slot<M, R2, F>(slice_candidate(words, n_words, o), false, o, true, before + r0 + i, n_off,
+                                  capacity, out, fields);
       }
       __syncthreads();  // staged is rewritten next round
     }
@@ -292,7 +358,7 @@ block_decode_kernel(const uint32_t* __restrict__ det_words, const uint32_t* __re
   if (s < capacity) {
     Candidate c0 = slice_candidate(words, n_words, 0);
     repair_mode<R2>(c0, out.pairs);
-    for (; s < capacity; s += stride) store_slot<M, R2>(c0, true, 0, false, s, n_off, capacity, out);
+    for (; s < capacity; s += stride) store_slot<M, R2, F>(c0, true, 0, false, s, n_off, capacity, out, fields);
   }
   if (b == 0 && threadIdx.x == 0) {
     *out.n_detections = total;
@@ -324,15 +390,18 @@ int load_block_decode_syndromes(const void* host) { return load_syndromes(host);
 // (K,) bool, n_good () i32, and the extended outputs null; mode 1
 // (extended): frames_raw (K, 14) u8, df, icao_long, icao_short (K,) i32,
 // classes (6, K) bool (enum Class), and good, recovered, n_good null.
-// r2 = 1 (recover2): recovered2 (K,) bool, and pairs the (2 * 3828,) u32
-// sorted pair table (kernels/block_decode.py::pair_table); else both null.
+// r2 = 1 (recover2): recovered2 (K,) bool, and pairs the (2 * kPairBuckets,)
+// uint4 hashed pair table, 16-byte aligned (kernels/block_decode.py::
+// pair_hash_table); else both null. f = 1 (fields): field_ints, the int32
+// (24, K) rows, (24 + 15, K) in mode 1, and field_bytes, (9 or 10) * K u8,
+// 4-byte aligned (kernels/fields.py's layout); else both null.
 extern "C" int airjax_block_decode(const void* det_words, const void* words, long long n_words,
                                    const void* tile_counts, long long n_off, long long capacity,
                                    void* offsets, void* valid, void* frames, void* n_detections,
                                    void* overflow, void* good, void* recovered, void* n_good,
                                    void* frames_raw, void* df, void* icao_long, void* icao_short,
-                                   void* classes, void* recovered2, const void* pairs, int mode, int r2,
-                                   void* stream) {
+                                   void* classes, void* recovered2, const void* pairs, void* field_ints,
+                                   void* field_bytes, int mode, int r2, int f, void* stream) {
   const long long n_tiles = (n_off + kTile - 1) / kTile;
   long long blocks = (n_tiles + kTilesPerBlock - 1) / kTilesPerBlock;
   if (blocks == 0) blocks = 1;  // block 0 writes n_detections and overflow
@@ -345,17 +414,22 @@ extern "C" int airjax_block_decode(const void* det_words, const void* words, lon
                 static_cast<int32_t*>(n_detections), static_cast<bool*>(overflow), static_cast<bool*>(good),
                 static_cast<bool*>(recovered), static_cast<int32_t*>(n_good), static_cast<uint8_t*>(frames_raw),
                 static_cast<int32_t*>(df), static_cast<int32_t*>(icao_long), static_cast<int32_t*>(icao_short),
-                static_cast<bool*>(classes), static_cast<bool*>(recovered2),
-                static_cast<const uint32_t*>(pairs)};
+                static_cast<bool*>(classes), static_cast<bool*>(recovered2), static_cast<const uint4*>(pairs)};
+  const Fields fields{static_cast<int32_t*>(field_ints), static_cast<uint8_t*>(field_bytes)};
+#define AIRJAX_LAUNCH(M, R2, F) \
+  block_decode_kernel<M, R2, F><<<grid, kThreads, 0, s>>>(d, w, n_words, t, n_off, capacity, out, fields)
   const bool ext = mode == static_cast<int>(Mode::kExtended);
-  if (ext && r2) {
-    block_decode_kernel<Mode::kExtended, true><<<grid, kThreads, 0, s>>>(d, w, n_words, t, n_off, capacity, out);
-  } else if (ext) {
-    block_decode_kernel<Mode::kExtended, false><<<grid, kThreads, 0, s>>>(d, w, n_words, t, n_off, capacity, out);
-  } else if (r2) {
-    block_decode_kernel<Mode::kDf17, true><<<grid, kThreads, 0, s>>>(d, w, n_words, t, n_off, capacity, out);
+  if (ext) {
+    if (r2 && f) AIRJAX_LAUNCH(Mode::kExtended, true, true);
+    else if (r2) AIRJAX_LAUNCH(Mode::kExtended, true, false);
+    else if (f) AIRJAX_LAUNCH(Mode::kExtended, false, true);
+    else AIRJAX_LAUNCH(Mode::kExtended, false, false);
   } else {
-    block_decode_kernel<Mode::kDf17, false><<<grid, kThreads, 0, s>>>(d, w, n_words, t, n_off, capacity, out);
+    if (r2 && f) AIRJAX_LAUNCH(Mode::kDf17, true, true);
+    else if (r2) AIRJAX_LAUNCH(Mode::kDf17, true, false);
+    else if (f) AIRJAX_LAUNCH(Mode::kDf17, false, true);
+    else AIRJAX_LAUNCH(Mode::kDf17, false, false);
   }
+#undef AIRJAX_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,10 +15,15 @@
 // The recover2 repair (repair2) then looks a delta that matched no single
 // syndrome up among the 3828 pair syndromes S_i ^ S_j (i < j < 88): unique,
 // disjoint from the single ones and never 0 (airjax/protocol/crc.py:
-// 138-156), so any search finds airjax's argmax. The table lies in device
-// memory, sorted, with i | j << 8 beside each syndrome, and is found by a
-// 12-probe binary search through __ldg: a linear scan of __constant__
-// memory would serialize on divergent reads.
+// 138-156), so any lookup that finds the key finds airjax's argmax. The
+// table (kernels/block_decode.py::pair_hash_table) is a two-choice bucketed
+// hash in device memory: kPairBuckets buckets of 4 entries {syndrome,
+// i | j << 8}, 32 B each (one sector), 32 KB in all at load 0.93; an empty
+// entry has the key 0. Each syndrome d sits in bucket h1(d) = (d * kHashM1
+// mod 2^32) >> kHashShift or h2(d) (kHashM2), placed by cuckoo displacement
+// on the host. The lookup issues the four 16-byte __ldg loads of both
+// buckets together and then compares 8 keys: one round trip to L1/L2,
+// where a binary search over the sorted table took 12 dependent ones.
 //
 // c_syndromes is __constant__ in an anonymous namespace: every translation
 // unit that includes this header has its own copy, which its own
@@ -107,25 +112,37 @@ __device__ __forceinline__ void repair(Candidate& c) {
   }
 }
 
-constexpr int kPairs = kDataBits * (kDataBits - 1) / 2;  // 3828
+// The pair table's hash (kernels/block_decode.py mirrors these): bucket
+// h(d) = (d * m mod 2^32) >> kHashShift, m = kHashM1 or kHashM2.
+constexpr int kPairBuckets = 1024;
+constexpr unsigned kHashShift = 22;  // 32 - log2(kPairBuckets)
+constexpr uint32_t kHashM1 = 0x9E3779B1u;
+constexpr uint32_t kHashM2 = 0x85EBCA77u;
+static_assert(kPairBuckets == 1 << (32 - kHashShift), "one bucket per hash value");
 
 // The recover2 repair: the single-bit repair, then, if delta is nonzero and
-// matched no single syndrome, the pair whose syndrome it is. `pairs` holds
-// the kPairs syndromes ascending, then i | j << 8 of each. The search is a
-// call, not inlined: inlined at the block-decode kernel's 128 registers it
-// spilled 48-68 bytes, as a call nothing (the same device time, PERF.md).
-__device__ __noinline__ int pair_of(uint32_t delta, const uint32_t* __restrict__ pairs) {
-  int base = 0;
-#pragma unroll
-  for (int len = kPairs; len > 1;) {  // 12 probes
-    const int half = len >> 1;
-    if (__ldg(pairs + base + half) <= delta) base += half;
-    len -= half;
-  }
-  return __ldg(pairs + base) == delta ? static_cast<int>(__ldg(pairs + kPairs + base)) : -1;
+// matched no single syndrome, the pair whose syndrome it is, or -1. `pairs`
+// is the hashed table: bucket b is pairs[2b], pairs[2b + 1], each two
+// entries {key, i | j << 8}. The lookup is a call, not inlined: inlined at
+// the block-decode kernel's 128 registers a pair search spilled 48-68
+// bytes, as a call nothing (PERF.md).
+__device__ __noinline__ int pair_of(uint32_t delta, const uint4* __restrict__ pairs) {
+  const uint4* b1 = pairs + 2 * ((delta * kHashM1) >> kHashShift);
+  const uint4* b2 = pairs + 2 * ((delta * kHashM2) >> kHashShift);
+  const uint4 e0 = __ldg(b1), e1 = __ldg(b1 + 1), e2 = __ldg(b2), e3 = __ldg(b2 + 1);
+  int ij = -1;  // keys are unique and delta != 0, so at most one matches
+  ij = e0.x == delta ? static_cast<int>(e0.y) : ij;
+  ij = e0.z == delta ? static_cast<int>(e0.w) : ij;
+  ij = e1.x == delta ? static_cast<int>(e1.y) : ij;
+  ij = e1.z == delta ? static_cast<int>(e1.w) : ij;
+  ij = e2.x == delta ? static_cast<int>(e2.y) : ij;
+  ij = e2.z == delta ? static_cast<int>(e2.w) : ij;
+  ij = e3.x == delta ? static_cast<int>(e3.y) : ij;
+  ij = e3.z == delta ? static_cast<int>(e3.w) : ij;
+  return ij;
 }
 
-__device__ __forceinline__ void repair2(Candidate& c, const uint32_t* __restrict__ pairs) {
+__device__ __forceinline__ void repair2(Candidate& c, const uint4* __restrict__ pairs) {
   repair(c);
   if (c.delta != 0 && c.flip < 0) c.pair = pair_of(c.delta, pairs);
 }
@@ -147,13 +164,19 @@ __device__ __forceinline__ uint32_t bit_mask(int bit, int q) {
   return (bit >> 4) == q ? 1u << (15 - (bit & 15)) : 0u;
 }
 
-// The 14 frame bytes, with data bit `flip` flipped (none if flip < 0) and
-// the two bits of `pair` (none if pair < 0).
+// Frame bits 16q .. 16q+15 with data bit `flip` flipped (none if flip < 0)
+// and the two bits of `pair` (none if pair < 0).
+__device__ __forceinline__ uint32_t repaired_word(const uint32_t* h, int q, int flip, int pair) {
+  uint32_t x = flip >= 0 && (flip >> 4) == q ? h[q] ^ (1u << (15 - (flip & 15))) : h[q];
+  if (pair >= 0) x ^= bit_mask(pair & 0xFF, q) ^ bit_mask(pair >> 8, q);
+  return x;
+}
+
+// The 14 frame bytes, repaired as repaired_word.
 __device__ __forceinline__ void store_frame(uint8_t* f, const uint32_t* h, int flip, int pair = -1) {
 #pragma unroll
   for (int q = 0; q < 7; ++q) {
-    uint32_t x = flip >= 0 && (flip >> 4) == q ? h[q] ^ (1u << (15 - (flip & 15))) : h[q];
-    if (pair >= 0) x ^= bit_mask(pair & 0xFF, q) ^ bit_mask(pair >> 8, q);
+    const uint32_t x = repaired_word(h, q, flip, pair);
     f[2 * q] = static_cast<uint8_t>(x >> 8);
     f[2 * q + 1] = static_cast<uint8_t>(x & 0xFFu);
   }

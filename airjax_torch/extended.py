@@ -171,7 +171,7 @@ def assemble_ap_candidates(
 
     When `out` carries `short_fields` (the
     airjax_torch.protocol.shortframe.extract_short_fields arrays of
-    decode_iq_block_extended_with_fields, from the fields kernel), the
+    decode_iq_block_extended_with_fields, from the block-decode kernel), the
     per-candidate field decode rides those; otherwise the independent
     scalar host decode (_short_fields_host) runs per frame."""
     offsets = np.asarray(out["offsets"])

@@ -5,16 +5,19 @@ No Pallas ancestor: on the TPU, XLA fuses airjax/protocol/fields.py::
 extract_fields (:36-143) into the batched decode program
 (airjax/pipeline.py:287-304), and the extended one also
 airjax/protocol/shortframe.py::extract_short_fields_from_raw (:337-349) of
-the raw frames (:307-328). Here both are csrc/fields.cu, one thread per
-slot over all K slots (airjax computes the fields of invalid slots too),
-run after the block-decode kernel: a batched pass is three launches.
+the raw frames (:307-328). Here both are csrc/fields.cuh, run by the
+block-decode kernel's F flag (kernels/block_decode.py::decode_block_bits
+(fields=True)), so a batched pass is two launches. csrc/fields.cu runs the
+same code as a kernel of its own, one thread per slot over all K slots
+(airjax computes the fields of invalid slots too): the F flag's A/B
+baseline and second oracle, launched by no decode path.
 
 `block_fields` launches the kernel for CUDA tensors and runs
 `block_fields_plain` (the plain torch extract_fields and
-extract_short_fields_from_raw) for CPU tensors. The kernel writes one
+extract_short_fields_from_raw) for CPU tensors. Both kernels write one
 int32 (rows, K) buffer and one byte buffer; the dicts hold views of them
-under airjax's keys and dtypes (airjax's uint32 CRC fields as int32).
-`launches` counts kernel launches, both modes together.
+(`field_views`) under airjax's keys and dtypes (airjax's uint32 CRC fields
+as int32). `launches` counts this kernel's launches, both modes together.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from airjax_torch.protocol.shortframe import extract_short_fields_from_raw
 
 launches = 0
 
-# The int32 rows of the kernel's buffer, in its order (csrc/fields.cu).
+# The int32 rows of the kernels' buffer, in their order (csrc/fields.cuh).
 LONG_ROWS = (
     "df", "subformat", "capability", "icao", "msg_type", "msg_class", "altitude_ft",
     "surveillance_status", "nic_supplement", "cpr_time", "cpr_odd", "cpr_lat", "cpr_lon",
@@ -40,6 +43,29 @@ SHORT_ROWS = (
     "df", "fs", "dr", "um", "vs", "cc", "sl", "ri", "capability", "icao_aa", "crc_calc",
     "parity_field", "icao_ap", "altitude_ft", "squawk",
 )
+
+
+def field_sizes(k: int, extended: bool) -> tuple[int, int]:
+    """The int32 and byte buffers' lengths for K = k slots."""
+    return (len(LONG_ROWS) + (len(SHORT_ROWS) if extended else 0)) * k, (10 if extended else 9) * k
+
+
+def field_views(
+    ints: torch.Tensor, byts: torch.Tensor, k: int, extended: bool
+) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor] | None]:
+    """The dicts of block_fields over the buffers the kernels write
+    (csrc/fields.cuh): ints, the int32 (rows, K) rows, LONG_ROWS then
+    SHORT_ROWS; byts, the callsign codes (K, 8), alt_mode_25 and, extended,
+    altitude_valid."""
+    rows = ints.view(len(LONG_ROWS) + (len(SHORT_ROWS) if extended else 0), k)
+    fields = dict(zip(LONG_ROWS, rows[: len(LONG_ROWS)].unbind(0)))
+    fields["alt_mode_25"] = byts[8 * k : 9 * k].view(torch.bool)
+    fields["callsign_codes"] = byts[: 8 * k].view(k, 8)
+    if not extended:
+        return fields, None
+    short = dict(zip(SHORT_ROWS, rows[len(LONG_ROWS) :].unbind(0)))
+    short["altitude_valid"] = byts[9 * k : 10 * k].view(torch.bool)
+    return fields, short
 
 
 def block_fields_plain(
@@ -78,9 +104,9 @@ def _fields_cuda(frames: torch.Tensor, frames_raw: torch.Tensor | None):
     lib = library()
     device = frames.device
     k = frames.shape[0]
-    n_rows = len(LONG_ROWS) + (0 if frames_raw is None else len(SHORT_ROWS))
-    ints = torch.empty(n_rows * k, dtype=torch.int32, device=device)
-    byts = torch.empty((9 if frames_raw is None else 10) * k, dtype=torch.uint8, device=device)
+    n_int, n_byte = field_sizes(k, frames_raw is not None)
+    ints = torch.empty(n_int, dtype=torch.int32, device=device)
+    byts = torch.empty(n_byte, dtype=torch.uint8, device=device)
     with torch.cuda.device(device):
         candidate.load_syndromes(lib)  # fields.cu's copy: the short CRC
         rc = lib.airjax_fields(
@@ -90,12 +116,4 @@ def _fields_cuda(frames: torch.Tensor, frames_raw: torch.Tensor | None):
     check_launch(rc, "fields kernel")
     if k:
         launches += 1
-    rows = ints.view(n_rows, k)
-    fields = dict(zip(LONG_ROWS, rows[: len(LONG_ROWS)].unbind(0)))
-    fields["alt_mode_25"] = byts[8 * k : 9 * k].view(torch.bool)
-    fields["callsign_codes"] = byts[: 8 * k].view(k, 8)
-    if frames_raw is None:
-        return fields, None
-    short = dict(zip(SHORT_ROWS, rows[len(LONG_ROWS) :].unbind(0)))
-    short["altitude_valid"] = byts[9 * k :].view(torch.bool)
-    return fields, short
+    return field_views(ints, byts, k, frames_raw is not None)

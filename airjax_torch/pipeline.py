@@ -26,8 +26,9 @@ the 2-flip repairs, which callers must gate (runner, extended assembly).
 
 The `_with_fields` decodes (airjax/pipeline.py:287-328) add the batched
 protocol fields of every slot, `fields` (and for the extended decode
-`short_fields`), through a third launch, the fields kernel
-(csrc/fields.cu): what the batched tracker sinks consume.
+`short_fields`): the block-decode kernel's F flag writes them in the same
+launch, so a batched pass is two launches too. They are what the batched
+tracker sinks consume.
 
 `decode_iq_block_staged` keeps the staged chain the block-decode kernel
 replaced (front -> compaction kernel -> candidate kernel -> torch dict
@@ -70,7 +71,6 @@ from airjax_torch.kernels.candidate import (
     decode_candidates_plain,
 )
 from airjax_torch.kernels.compact import compact_bits, compact_mask
-from airjax_torch.kernels.fields import block_fields
 from airjax_torch.kernels.magdet import magdet, magdet_bits
 
 Hit = tuple[int, int, bytes, bool]
@@ -153,9 +153,9 @@ def decode_iq_block_with_fields(
 ) -> dict[str, torch.Tensor]:
     """decode_iq_block(_r2) plus `fields`, the protocol fields of every
     slot (airjax/pipeline.py:287-304): meaningful only where `good`."""
-    out = decode_iq_block(iq, n_off, capacity, recover2=recover2)
-    out["fields"], _ = block_fields(out["frames"])
-    return out
+    _check_block(iq.shape[0], n_off)
+    det_words, words, counts = magdet_bits(iq, n_off)
+    return decode_block_bits(det_words, words, counts, n_off, capacity, recover2=recover2, fields=True)
 
 
 def decode_iq_block_extended_with_fields(
@@ -164,9 +164,10 @@ def decode_iq_block_extended_with_fields(
     """decode_iq_block_extended plus `fields` of the repaired frames
     (meaningful where `good_long`) and `short_fields` of the raw ones (where
     a cand_* class is set), airjax/pipeline.py:307-328."""
-    out = decode_iq_block_extended(iq, n_off, capacity, recover2=recover2)
-    out["fields"], out["short_fields"] = block_fields(out["frames"], out["frames_raw"])
-    return out
+    _check_block(iq.shape[0], n_off)
+    det_words, words, counts = magdet_bits(iq, n_off, gate="preamble")
+    return decode_block_bits(det_words, words, counts, n_off, capacity, extended=True, recover2=recover2,
+                             fields=True)
 
 
 def to_host(out: dict) -> dict:

@@ -19,7 +19,7 @@ included) before the packets at global offsets below 0 are skipped.
 A batched sink takes a block at a time instead of a packet at a time,
 as in airjax (:154-223): one with `on_fields` (track.batch.BatchTracker)
 gets the block's protocol fields from decode_iq_block_with_fields (the
-fields kernel after the decode), one with `on_extended_block`
+block-decode kernel's F flag), one with `on_extended_block`
 (ExtendedBatchTracker) the extended dict with its fields. recover2=True
 adds the 2-bit repair to every decode and gates its frames: in DF17 mode
 the repaired ICAO must have been seen in a clean or 1-flip frame earlier

@@ -8,13 +8,14 @@ Compiles each tree's airjax_torch/csrc/block_decode.cu with the build's
 flags (airjax_torch._build.NVCC_FLAGS) and `-Xptxas -v`, prints each
 instantiation's registers, stack and spills, then disassembles both with
 cuobjdump and compares each mode of OLD with the same mode of NEW without
-recover2 (R2 = false, where NEW has the flag): the instruction count, and
-whether the instructions are the same once addresses and constants are
-masked.
+recover2 and without fields (R2 = false and F = false, where a tree has
+the flags): the instruction count, and whether the instructions are the
+same once addresses and constants are masked.
 """
 
 from __future__ import annotations
 
+import difflib
 import os
 import re
 import subprocess
@@ -61,18 +62,20 @@ def main(old: str, new: str) -> int:
             print(f"== {tree}\n{compile_tree(tree, obj)}")
         a, b = functions(objs[0]), functions(objs[1])
     for mode in (0, 1):
-        fa, fb = mode_without_r2(a, mode), mode_without_r2(b, mode)
+        fa, fb = mode_without_flags(a, mode), mode_without_flags(b, mode)
         print(f"mode {mode}: {old} {len(fa)} instructions, {new} {len(fb)}; the same: {fa == fb}")
+        if fa != fb:  # the first differences, to see what moved
+            diff = [ln for ln in difflib.unified_diff(fa, fb, old, new, n=0, lineterm="") if ln[:1] in "+-"]
+            print("\n".join(f"  {ln}" for ln in diff[2:22]))
     return 0
 
 
-def mode_without_r2(funcs: dict[str, list[str]], mode: int) -> list[str]:
-    """The instantiation of `mode` (Mode::kDf17 = 0, kExtended = 1), with
-    R2 = false where the kernel has the flag (mangled `Lb0`)."""
+def mode_without_flags(funcs: dict[str, list[str]], mode: int) -> list[str]:
+    """The instantiation of `mode` (Mode::kDf17 = 0, kExtended = 1) with
+    every bool flag the kernel has (R2, then F; mangled `Lb0` each) false."""
     names = [k for k in funcs if "block_decode_kernel" in k and f"ModeE{mode}E" in k]
-    if any(f"ModeE{mode}ELb" in k for k in names):
-        names = [k for k in names if f"ModeE{mode}ELb0" in k]
-    (name,) = names
+    flags = max(len(re.findall(r"Lb[01]", k)) for k in names)
+    (name,) = [k for k in names if f"ModeE{mode}E" + "Lb0E" * flags in k]
     return funcs[name]
 
 

@@ -5,7 +5,7 @@ The per-packet host path (AdsbPacket.from_bytes + handle_aircraft_update
 per frame, the shape of the reference's thread-3 consumer,
 src/adsb.rs:149-167) parses every frame's bytes in Python. This sink
 takes the block's protocol fields instead, extracted on the card by the
-fields kernel (csrc/fields.cu, through
+block-decode kernel's F flag (csrc/fields.cuh, through
 airjax_torch.pipeline.decode_iq_block_with_fields), so the per-frame host
 work shrinks to a few dict and attribute operations, and all CPR pair
 decodes of a block run through the vectorized

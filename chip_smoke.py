@@ -32,7 +32,8 @@ Phases; any failure raises and the exit code is nonzero:
      capacity 2048, 1024 DF17 frames at multiples of 300, noise 60):
      every frame decoded, the front and block-decode kernels launched once
      each and no other kernel; kernel path, plain path and the batched
-     pass (decode_iq_block_with_fields: three launches) timed (median of
+     pass (decode_iq_block_with_fields: two launches, the block decode
+     with F, and no fields kernel) timed (median of
      CUDA-event passes), then profiled (torch.profiler, 10 passes each,
      counted by the block-decode kernel): device time per kernel and per
      pass, the busy time against this run's CUDA-event pass time, the
@@ -66,24 +67,33 @@ Phases; any failure raises and the exit code is nonzero:
      frames as made, == the plain path), decode_iq_block the 768 clean
      ones, decode_iq_block_extended(recover2=True) puts all 1024 in
      good_long; each a pass of the front and the block-decode kernel;
-     timed and profiled as phase 4;
+     timed and profiled as phase 4, and both batched passes with recover2
+     (two launches each, as phase 4's);
  10. the tracker stream: 300 aircraft over 30 s at 2 MS/s (60 M samples in
      20,000-sample blocks; positions at 2/s, velocities at 1/s, IDs every
      5 s, DF11/DF4/DF5/DF20 replies; 1% of the DF17s with a 1-bit and 1%
      with a 2-bit flip) through run_stream into a per-packet table,
      BatchTracker with and without --recover2, a per-packet extended table
-     and ExtendedBatchTracker with --recover2, and WebDisplay's batched
-     sink in-process (GET /api/aircraft read back, the server shut down):
-     the batched tables equal the per-packet ones, every aircraft has its
-     callsign, altitude and a position within CPR resolution of the truth,
-     recovered2 equals the gated 2-flip frames, each batched pass launched
-     the fields kernel once; MS/s, msgs/s and stages printed per run.
+     and ExtendedBatchTracker with --recover2, WebDisplay's batched sink
+     in-process (GET /api/aircraft read back, the server shut down), and
+     ExtendedBatchTracker without it: the batched tables equal the
+     per-packet ones, every aircraft has its callsign, altitude and a
+     position within CPR resolution of the truth, recovered2 equals the
+     gated 2-flip frames, each batched pass launched the block decode with
+     F once and the fields kernel never; MS/s, msgs/s and stages printed
+     per run.
 Phase 3 also holds the block-decode kernel's recover2 (R2) instantiations
 to their plain versions, and to the mode without R2 where no pair repair
 applied, on its inputs plus the recover2 block and every format with 2-bit
-flips anywhere, 3-bit bursts and CRC-field flips; and the fields kernel
-(csrc/fields.cu), both modes, to its plain version on the blocks' dicts and
-on random rows that take every byte value.
+flips anywhere, 3-bit bursts and CRC-field flips (the pair lookup is the
+hashed table of kernels/block_decode.py::pair_hash_table); the four F
+instantiations (both modes, with and without R2) to their plain versions
+and to the chain they replace (the block decode, then the fields kernel)
+on the same inputs, each timed against its bound (block_decode_work and
+fields_work, less the frames' re-read) and beside the chain's device time;
+and the fields kernel (csrc/fields.cu, the A/B baseline), both modes, to
+its plain version on the blocks' dicts and on random rows that take every
+byte value.
 
 Prints the kernel table as one JSON line (`launches` counted on the path
 named in `path`, with every count set to 0 just before it; `bound_ms` the
@@ -278,18 +288,26 @@ def compact_work(n_off: int, k: int) -> tuple[int, int]:
 
 def device_us(fn, names: tuple[str, ...] = (), calls: int = 10) -> float:
     """Device µs per call of fn under torch.profiler: the kernels whose name
-    holds one of `names` (every kernel if none), over `calls` calls."""
+    holds one of `names` (every kernel if none), over `calls` calls. fn
+    launches the kernels of each name the same number of times a call; the
+    profiler can drop single events of a window, so a window whose count
+    of a name is no multiple of `calls` is profiled again (three tries)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.time_range.end - e.time_range.start for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA and (not names or any(n in e.name for n in names)))
-    return total / calls
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                  and (not names or any(n in e.name for n in names))]
+        seen = [sum(n in e.name for e in events) for n in names]
+        if events and all(n and n % calls == 0 for n in seen):
+            return sum(e.time_range.end - e.time_range.start for e in events) / calls
+        print(f"device_us: the profiler dropped events ({dict(zip(names, seen))} in {calls} calls); again")
+    check(False, f"device_us: the profiler dropped events of {names} in three windows")
 
 
 def library_call():
@@ -447,6 +465,51 @@ def check_block_decode_r2(inputs: list[tuple]) -> dict[str, int]:
     return err
 
 
+def check_block_decode_fields(inputs: list[tuple]) -> tuple[dict[tuple[str, bool], int], dict[str, int]]:
+    """The block-decode kernel's F instantiations (both modes, with and
+    without R2) against their plain version (the plain dict, then
+    block_fields_plain) and against the chain they replace (the block
+    decode without F, then the fields kernel, csrc/fields.cu) on each input,
+    bit for bit -> max abs error by (mode, R2), and the fields kernel's
+    launches by mode."""
+    from airjax_torch.kernels import fields as fields_mod
+    from airjax_torch.kernels.block_decode import decode_block_bits, decode_block_bits_plain
+    from airjax_torch.kernels.fields import block_fields
+
+    chain_launches = {"df17": 0, "extended": 0}
+
+    def flat(out: dict) -> dict:
+        """The dict with its field dicts' entries as `fields.<key>`."""
+        res = {}
+        for key, v in out.items():
+            res.update({f"{key}.{k}": t for k, t in v.items()} if isinstance(v, dict) else {key: v})
+        return res
+
+    err = {(m, r2): 0 for m in ("df17", "extended") for r2 in (False, True)}
+    for name, det_words, counts, n_off, k, words in inputs:
+        for (mode, r2) in err:
+            extended = mode == "extended"
+            args = (det_words, words, counts, n_off, k)
+            got = flat(decode_block_bits(*args, extended=extended, recover2=r2, fields=True))
+            want = flat(decode_block_bits_plain(*args, extended=extended, recover2=r2, fields=True))
+            chain = decode_block_bits(*args, extended=extended, recover2=r2)
+            before = fields_mod.launches
+            chain["fields"], short = block_fields(chain["frames"], chain["frames_raw"] if extended else None)
+            chain_launches[mode] += fields_mod.launches - before
+            if extended:
+                chain["short_fields"] = short
+            chain = flat(chain)
+            check(sorted(got) == sorted(want) == sorted(chain), f"F block decode keys differ on {name}")
+            e = max(max_abs_err((got[key], want[key]) for key in want),
+                    max_abs_err((got[key], chain[key]) for key in want))
+            check(e == 0, f"block-decode kernel ({mode}, R2 {r2}, F) disagrees on {name} (max abs err {e})")
+            err[(mode, r2)] = max(err[(mode, r2)], e)
+        print(f"  block decode F == plain == block decode + fields kernel, both modes, with and without R2: "
+              f"{name}, K {k}")
+    torch.cuda.synchronize()
+    return err, chain_launches
+
+
 def pair_flip_iq(seed: int) -> torch.Tensor:
     """Every downlink format with 2-bit flips anywhere (the DF field
     included), 2-bit flips in bits 5-87 of half the DF17s, 1-bit flips,
@@ -500,6 +563,14 @@ def fields_work(k: int, extended: bool) -> tuple[int, int]:
     if extended:
         return k * (21 + 4 * 39 + 10), k * (60 + 32 + 40)
     return k * (14 + 4 * 24 + 9), k * 60
+
+
+def fields_in_block_work(work: tuple[int, int], k: int, extended: bool) -> tuple[int, int]:
+    """A block decode's work (bytes, ops) plus the fields of its K slots
+    under F: fields_work less the frames' re-read (14 B a slot, 21 with the
+    raw bytes), which the F flag computes from registers."""
+    f_bytes, f_ops = fields_work(k, extended)
+    return work[0] + f_bytes - k * (21 if extended else 14), work[1] + f_ops
 
 
 def block_decode_work(n_off: int, k: int, extended: bool) -> tuple[int, int]:
@@ -627,6 +698,11 @@ def phase_kernels(
                                  words_p)]
     r2_err = check_block_decode_r2(r2_inputs)
     print(f"block-decode kernel, R2 == plain on {len(r2_inputs)} inputs, both modes")
+    # F (the batched fields in the same launch): the same inputs, both
+    # modes, with and without R2, against plain and the old chain.
+    f_err, chain_fields_launches = check_block_decode_fields(r2_inputs)
+    print(f"block-decode kernel, F == plain == block decode + fields kernel on {len(r2_inputs)} inputs, "
+          f"both modes, with and without R2")
 
     # The fields kernel: both blocks' dicts, the recover2 block's, and K
     # random rows that take every byte value in every column.
@@ -709,6 +785,31 @@ def phase_kernels(
                             lambda: block_fields_plain(ext_dict["frames"], ext_dict["frames_raw"]),
                             None, ("fields_kernel",), fields_work(capacity_ext, extended=True)),
     }
+    # The F instantiations on the same blocks, and the chain each replaces.
+    f_blocks = {
+        "block_decode_fields": ((det_words_b, words_b, counts_b, n_off, CAPACITY), False, False,
+                                block_decode_work(n_off, CAPACITY, extended=False)),
+        "block_decode_extended_fields": ((det_words_e, words_e, counts_e, n_off, capacity_ext), True, False,
+                                         block_decode_work(n_off, capacity_ext, extended=True)),
+        "block_decode_r2_fields": ((det_words_r, words_r, counts_r, n_off, CAPACITY), False, True,
+                                   r2_work(n_off, CAPACITY, False, r2_dict)),
+        "block_decode_extended_r2_fields": ((det_words_e, words_e, counts_e, n_off, capacity_ext), True, True,
+                                            r2_work(n_off, capacity_ext, True, ext_dict)),
+    }
+    chains = {}
+    for name, (args, extended, r2, work) in f_blocks.items():
+        timed[name] = (
+            lambda args=args, extended=extended, r2=r2: decode_block_bits(
+                *args, extended=extended, recover2=r2, fields=True),
+            lambda args=args, extended=extended, r2=r2: decode_block_bits_plain(
+                *args, extended=extended, recover2=r2, fields=True),
+            None, ("block_decode_kernel",), fields_in_block_work(work, args[4], extended))
+
+        def chain(args=args, extended=extended, r2=r2):
+            out = decode_block_bits(*args, extended=extended, recover2=r2)
+            return block_fields(out["frames"], out["frames_raw"] if extended else None)
+
+        chains[name] = chain
     rows = {}
     for name, (kernel, plain, library, names, work) in timed.items():
         k_ms, p_ms = cuda_ms(kernel), cuda_ms(plain)
@@ -719,8 +820,13 @@ def phase_kernels(
                       "bound_ms": b_ms, "bound_by": b_by}
         if library:
             rows[name]["library_device_us"] = device_us(library)
+        if name in chains:  # the block decode without F, then the fields kernel
+            rows[name]["chain_device_us"] = device_us(chains[name], ("block_decode_kernel", "fields_kernel"))
+            rows[name]["chain_ms"] = cuda_ms(chains[name])
         print(f"{name}: kernel {k_ms:.4f} ms by events, {dev_us:.2f} us device; plain {p_ms:.4f} ms; "
               + (f"{lib_name} {l_ms:.4f} ms, {rows[name]['library_device_us']:.2f} us device; " if library else "")
+              + (f"block decode + fields kernel {rows[name]['chain_ms']:.4f} ms by events, "
+                 f"{rows[name]['chain_device_us']:.2f} us device; " if name in chains else "")
               + f"bound {b_ms * 1e3:.2f} us ({b_by}: {work[0]} bytes, {work[1]} operations)")
 
     def entry(name, source, replaces, err, **extra):
@@ -743,24 +849,33 @@ def phase_kernels(
               r2_err["df17"]),
         entry("block_decode_extended_r2", "airjax_torch/csrc/block_decode.cu", "airjax/pipeline.py:210",
               r2_err["extended"]),
+        entry("block_decode_fields", "airjax_torch/csrc/block_decode.cu", "airjax/protocol/fields.py:36",
+              f_err[("df17", False)]),
+        entry("block_decode_extended_fields", "airjax_torch/csrc/block_decode.cu",
+              "airjax/protocol/shortframe.py:337", f_err[("extended", False)]),
+        entry("block_decode_r2_fields", "airjax_torch/csrc/block_decode.cu", "airjax/protocol/fields.py:36",
+              f_err[("df17", True)]),
+        entry("block_decode_extended_r2_fields", "airjax_torch/csrc/block_decode.cu",
+              "airjax/protocol/shortframe.py:337", f_err[("extended", True)]),
         entry("fields", "airjax_torch/csrc/fields.cu", "airjax/protocol/fields.py:36", fields_err["df17"]),
         entry("fields_extended", "airjax_torch/csrc/fields.cu", "airjax/protocol/shortframe.py:337",
               fields_err["extended"]),
     ]
-    return entries, tree_err, front_launches
+    return entries, tree_err, front_launches, chain_fields_launches
 
 
 def r2_work(n_off: int, k: int, extended: bool, out: dict) -> tuple[int, int]:
-    """block_decode_work plus recovered2 (1 B a slot) and the pair search
-    this block's data needs: 12 probes for each slot whose delta is nonzero
-    and matched no single syndrome (counted from the mode's dict without
-    R2; in the extended mode a single repair is seen only where it made a
-    good_long, so a few more are counted)."""
+    """block_decode_work plus recovered2 (1 B a slot), the 32 KB pair table
+    read once, and the pair lookup this block's data needs: two hashes and
+    8 key compares for each slot whose delta is nonzero and matched no
+    single syndrome (counted from the mode's dict without R2; in the
+    extended mode a single repair is seen only where it made a good_long,
+    so a few more are counted)."""
     n_bytes, n_ops = block_decode_work(n_off, k, extended)
     n_slots = min(int(out["n_detections"]), k)
     ok = (out["icao_ap_long"] == 0) | out["recovered"] if extended else out["good"]
     searched = n_slots - int(ok[:n_slots].sum())
-    return n_bytes + k, n_ops + 12 * searched
+    return n_bytes + k + 32768, n_ops + 10 * searched
 
 
 def candidate_work(k: int, extended: bool) -> tuple[int, int]:
@@ -801,17 +916,17 @@ def phase_block(block_dev: torch.Tensor, frames: list[bytes], offsets: np.ndarra
 
 
 def batched_pass(name: str, fn, n_samples: int, n_off: int, n_frames: int) -> None:
-    """One batched pass (a `_with_fields` decode): three launches, the
-    front, the block decode and the fields kernel; timed and profiled as a
-    block pass."""
+    """One batched pass (a `_with_fields` decode): two launches, the front
+    and the block decode with F, and no fields kernel; timed and profiled
+    as a block pass."""
     with counted() as launches:
         fn()
         torch.cuda.synchronize()
-    check(launches == {**ONE_PASS, "fields": 1}, f"{name}: not three launches: {launches}")
+    check(launches == BATCHED_PASS, f"{name}: not the front and the block decode with F alone: {launches}")
     ms = cuda_ms(fn, reps=15)
     print(f"block decode, {name}: {ms:.4f} ms median of 15 = {BLOCK / ms / 1e3:.1f} MS/s, "
-          f"{n_frames / ms * 1e3:.1f} msgs/s")
-    profile_pass(name, fn, ms * 1e3, n_samples, n_off, kernel_path=True, kernels=PASS_KERNELS + ("fields_kernel",))
+          f"{n_frames / ms * 1e3:.1f} msgs/s; launches {json.dumps(launches)}")
+    profile_pass(name, fn, ms * 1e3, n_samples, n_off, kernel_path=True)
 
 
 @contextlib.contextmanager
@@ -821,16 +936,19 @@ def counted():
     from airjax_torch.kernels import block_decode, candidate, compact, fields, magdet
 
     magdet.launches = magdet.bits_launches = block_decode.launches = compact.launches = candidate.launches = 0
-    fields.launches = 0
+    fields.launches = block_decode.fields_launches = 0
     got: dict[str, int] = {}
     yield got
     got.update(magdet_bits=magdet.bits_launches, block_decode=block_decode.launches,
-               compact_bits=compact.launches, candidate=candidate.launches, magdet_front=magdet.launches,
-               fields=fields.launches)
+               block_decode_fields=block_decode.fields_launches, compact_bits=compact.launches,
+               candidate=candidate.launches, magdet_front=magdet.launches, fields=fields.launches)
 
 
-# A block decode's launches: the front and the block-decode kernel once each.
-ONE_PASS = {"magdet_bits": 1, "block_decode": 1, "compact_bits": 0, "candidate": 0, "magdet_front": 0, "fields": 0}
+# A block decode's launches: the front and the block-decode kernel once each;
+# a batched one's: the same, the block decode with F.
+ONE_PASS = {"magdet_bits": 1, "block_decode": 1, "block_decode_fields": 0, "compact_bits": 0, "candidate": 0,
+            "magdet_front": 0, "fields": 0}
+BATCHED_PASS = {**ONE_PASS, "block_decode_fields": 1}
 
 
 def device_profile(fn, marker: str, passes: int = 10) -> tuple[dict[str, float], float, int, dict[str, float]]:
@@ -1328,6 +1446,12 @@ def phase_recover2_block(block_dev: torch.Tensor, frames: list[bytes], offsets: 
         print(f"block decode, {name}: {ms:.4f} ms median of 15 = "
               f"{BLOCK / ms / 1e3:.1f} MS/s, {len(frames) / ms * 1e3:.1f} msgs/s")
         profile_pass(name, fn, ms * 1e3, block_dev.shape[0], n_off, kernel_path="kernel" in name)
+    batched_pass("recover2 batched kernel path",
+                 lambda: pipeline.decode_iq_block_with_fields(block_dev, n_off, CAPACITY, recover2=True),
+                 block_dev.shape[0], n_off, len(frames))
+    batched_pass("extended recover2 batched kernel path",
+                 lambda: pipeline.decode_iq_block_extended_with_fields(block_dev, n_off, cap, recover2=True),
+                 block_dev.shape[0], n_off, len(frames))
 
 
 # The tracker stream: 300 aircraft over 30 s at 2 MS/s.
@@ -1450,11 +1574,13 @@ def phase_tracker_stream(dev: torch.device) -> dict[str, int]:
     with --recover2, (2) BatchTracker with --recover2 and (3) without, (4) a
     per-packet extended table and (5) ExtendedBatchTracker, both with
     --recover2, (6) WebDisplay's batched sink in-process, read back through
-    GET /api/aircraft. The batched tables equal the per-packet ones, every
-    aircraft has its callsign, altitude and a position within CPR
-    resolution of the truth, recovered2 counts the gated 2-flip frames (0
-    on the extended batched sink, as in airjax), and each batched pass ran
-    the fields kernel once. Returns the launches of the kernels line."""
+    GET /api/aircraft, (7) ExtendedBatchTracker without --recover2. The
+    batched tables equal the per-packet ones, every aircraft has its
+    callsign, altitude and a position within CPR resolution of the truth,
+    recovered2 counts the gated 2-flip frames (0 on the extended batched
+    sink, as in airjax), and each batched pass launched the block decode
+    with F once and the fields kernel never. Returns the launches of the
+    kernels line."""
     import urllib.request
 
     from airjax_torch.extended import handle_extended_update
@@ -1519,12 +1645,15 @@ def phase_tracker_stream(dev: torch.device) -> dict[str, int]:
         display.shutdown()
         server.join(30)
     check(not server.is_alive(), "the web server did not shut down")
+    ebt0 = ExtendedBatchTracker()
+    _, n7 = run("ExtendedBatchTracker", ebt0, True, False)
 
     for name, n in (("per-packet", n1), ("per-packet extended", n4)):
-        check(n["fields"] == 0, f"{name}: the fields kernel ran: {n}")
-    for name, n in (("BatchTracker --recover2", n2), ("BatchTracker", n3), ("ExtendedBatchTracker", n5),
-                    ("WebDisplay", n6)):
-        check(n["fields"] == n["block_decode"], f"{name}: not one fields launch a pass: {n}")
+        check(n["fields"] == n["block_decode_fields"] == 0, f"{name}: the fields ran: {n}")
+    for name, n in (("BatchTracker --recover2", n2), ("BatchTracker", n3), ("ExtendedBatchTracker --recover2", n5),
+                    ("WebDisplay", n6), ("ExtendedBatchTracker", n7)):
+        check(n["block_decode_fields"] == n["block_decode"] and n["fields"] == 0,
+              f"{name}: not one block decode with F a pass and no fields kernel: {n}")
     check(s1["recovered2"] == s2["recovered2"] == s6["recovered2"] == gated,
           f"recovered2 {s1['recovered2']}, {s2['recovered2']}, {s6['recovered2']} != {gated} gated 2-flips")
     check(s1["good"] == s2["good"] == n_df17 - n_two + gated and s3["good"] == n_df17 - n_two
@@ -1537,7 +1666,8 @@ def phase_tracker_stream(dev: torch.device) -> dict[str, int]:
           "ExtendedBatchTracker != the per-packet extended table")
     web = {a["icao"]: {k: v for k, v in a.items() if k != "lastContact"} for a in snapshot}
     check(same_table(web, table), "GET /api/aircraft != the per-packet table")
-    for name, tab in (("per-packet", per), ("BatchTracker", bt0.aircrafts), ("extended", per_ext)):
+    for name, tab in (("per-packet", per), ("BatchTracker", bt0.aircrafts), ("extended", per_ext),
+                      ("ExtendedBatchTracker", ebt0.aircrafts)):
         check(set(tab) == set(truth), f"{name}: {len(tab)} aircraft, not the {len(truth)} sent")
         worst = 0.0
         for icao, a in tab.items():
@@ -1557,8 +1687,10 @@ def phase_tracker_stream(dev: torch.device) -> dict[str, int]:
     check(all(per_ext[ic].squawk == truth[ic]["squawk"] for ic in truth), "extended: a squawk differs")
     print(f"tracker stream: the batched tables == the per-packet tables ({len(table)} aircraft), "
           f"GET /api/aircraft == the per-packet table, recovered2 {gated} == the gated 2-flips")
-    return {"block_decode_r2": n2["block_decode"], "block_decode_extended_r2": n5["block_decode"],
-            "fields": n2["fields"], "fields_extended": n5["fields"]}
+    return {"block_decode_r2": n1["block_decode"], "block_decode_extended_r2": n4["block_decode"],
+            "block_decode_fields": n3["block_decode_fields"], "block_decode_r2_fields": n2["block_decode_fields"],
+            "block_decode_extended_fields": n7["block_decode_fields"],
+            "block_decode_extended_r2_fields": n5["block_decode_fields"]}
 
 
 def main() -> int:
@@ -1592,7 +1724,7 @@ def main() -> int:
           f"every format, extended capacity {capacity}; {len(r2_frames)} DF17 frames, {len(r2_flipped)} with a "
           f"2-bit flip; made in {time.perf_counter() - t0:.2f} s")
 
-    kernels, tree_err, front_launches = phase_kernels(block_dev, ext_block_dev, capacity, r2_block_dev)
+    kernels, tree_err, front_launches, chain_fields = phase_kernels(block_dev, ext_block_dev, capacity, r2_block_dev)
     phase_block(block_dev, frames, offsets)
     phase_recover2_block(r2_block_dev, r2_frames, r2_offsets, r2_flipped)
     launches = phase_block_ab(block_dev, ext_block_dev, capacity)
@@ -1602,17 +1734,22 @@ def main() -> int:
     ext = phase_extended_stream(dev)
     tracker = phase_tracker_stream(dev)
     launches.update({**df17, **ext, **tracker, "block_decode": df17["block_decode"] + ext["block_decode"],
-                     "magdet_front": front_launches["df17"], "magdet_front_preamble": front_launches["preamble"]})
+                     "magdet_front": front_launches["df17"], "magdet_front_preamble": front_launches["preamble"],
+                     "fields": chain_fields["df17"], "fields_extended": chain_fields["extended"]})
     paths = {"magdet_bits": "adsb stream", "magdet_bits_preamble": "adsb --extended stream",
              "block_decode": "adsb stream + adsb --extended stream",
              "compact_bits": "block A/B, staged chain (DF17 + extended)",
              "candidate_crc": "block A/B, staged chain (DF17)", "candidate_extended": "block A/B, staged chain (extended)",
              "magdet_front": "phase 3 oracle checks (DF17 gate)",
              "magdet_front_preamble": "phase 3 oracle checks (preamble gate)",
-             "block_decode_r2": "tracker stream, BatchTracker --recover2",
-             "block_decode_extended_r2": "tracker stream, ExtendedBatchTracker --recover2",
-             "fields": "tracker stream, BatchTracker --recover2",
-             "fields_extended": "tracker stream, ExtendedBatchTracker --recover2"}
+             "block_decode_r2": "tracker stream, per-packet table --recover2",
+             "block_decode_extended_r2": "tracker stream, per-packet extended table --recover2",
+             "block_decode_fields": "tracker stream, BatchTracker",
+             "block_decode_r2_fields": "tracker stream, BatchTracker --recover2",
+             "block_decode_extended_fields": "tracker stream, ExtendedBatchTracker",
+             "block_decode_extended_r2_fields": "tracker stream, ExtendedBatchTracker --recover2",
+             "fields": "phase 3 F checks, the old chain (A/B baseline; no decode path)",
+             "fields_extended": "phase 3 F checks, the old chain (A/B baseline; no decode path)"}
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["path"] = paths[k["name"]]

@@ -108,23 +108,36 @@ def test_candidate_call(lib, extended):
     assert nulls == ([True, True] + [False] * 6 if extended else [False, False] + [True] * 6)
 
 
+@pytest.mark.parametrize("with_fields", [False, True])
 @pytest.mark.parametrize("recover2", [False, True])
 @pytest.mark.parametrize("capacity", [0, 64])
 @pytest.mark.parametrize("extended", [False, True])
-def test_block_decode_call(lib, extended, capacity, recover2):
+def test_block_decode_call(lib, extended, capacity, recover2, with_fields):
     n_off = 20000
     det_words = torch.zeros(magdet.n_det_words(n_off), dtype=torch.int32)
     words = torch.zeros(700, dtype=torch.int32)
     counts = torch.zeros(magdet.n_tiles(n_off), dtype=torch.int32)
-    out = block_decode._block_decode_cuda(det_words, words, counts, n_off, capacity, extended, recover2)
+    out = block_decode._block_decode_cuda(det_words, words, counts, n_off, capacity, extended, recover2, with_fields)
     (name, args), = lib.calls
-    assert name == "airjax_block_decode" and args[-1] == STREAM and args[-3:-1] == (int(extended), int(recover2))
+    assert name == "airjax_block_decode" and args[-1] == STREAM
+    assert args[-4:-1] == (int(extended), int(recover2), int(with_fields))  # the kernel's Mode, R2, F
     if recover2:
         pairs = block_decode._pairs(det_words.device)
         assert args[19:21] == (out.pop("recovered2").data_ptr(), pairs.data_ptr())
-        assert np.array_equal(pairs.numpy().view(np.uint32), block_decode.pair_table())
+        assert np.array_equal(pairs.numpy().view(np.uint32), block_decode.pair_hash_table().reshape(-1))
     else:
         assert args[19:21] == (None, None) and "recovered2" not in out
+    field_dicts = [out.pop("fields")] + ([out.pop("short_fields")] if extended else []) if with_fields else []
+    if with_fields:
+        # The fields' int32 rows and their byte buffer (callsign codes first).
+        assert args[21:23] == (field_dicts[0]["df"].data_ptr(), field_dicts[0]["callsign_codes"].data_ptr())
+        assert args[22] % 4 == 0
+        assert sorted(field_dicts[0]) == sorted(long_extract(capacity))
+        if extended:
+            assert sorted(field_dicts[1]) == sorted(short_extract(capacity))
+            assert field_dicts[1]["df"].data_ptr() == field_dicts[0]["df"].data_ptr() + 4 * 24 * capacity
+    else:
+        assert args[21:23] == (None, None) and "fields" not in out and "short_fields" not in out
     assert args[:6] == (det_words.data_ptr(), words.data_ptr(), 700, counts.data_ptr(), n_off, capacity)
     common = ("offsets", "valid", "frames", "n_detections", "overflow")
     assert args[6:11] == tuple(out[key].data_ptr() for key in common)
@@ -144,9 +157,22 @@ def test_block_decode_call(lib, extended, capacity, recover2):
         scalar = key in ("n_detections", "n_good", "overflow")
         assert tuple(t.shape) == ((capacity, 14) if key.startswith("frames") else () if scalar else (capacity,)), key
         assert t.dtype == (torch.uint8 if key.startswith("frames") else torch.int32 if key in ints else torch.bool), key
+    for key, t in (item for d in field_dicts for item in d.items()):
+        want = (torch.uint8, (capacity, 8)) if key == "callsign_codes" else (
+            (torch.bool, (capacity,)) if key in ("alt_mode_25", "altitude_valid") else (torch.int32, (capacity,)))
+        assert (t.dtype, tuple(t.shape)) == want, key
     # The outputs are disjoint slices of two buffers.
-    spans = sorted((t.data_ptr(), t.data_ptr() + t.numel() * t.element_size()) for t in out.values() if t.numel())
+    tensors = [*out.values(), *(t for d in field_dicts for t in d.values())]
+    spans = sorted((t.data_ptr(), t.data_ptr() + t.numel() * t.element_size()) for t in tensors if t.numel())
     assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+
+
+def long_extract(k: int) -> dict:
+    return fields.extract_fields(torch.zeros((k, 14), dtype=torch.uint8))
+
+
+def short_extract(k: int) -> dict:
+    return fields.extract_short_fields_from_raw(torch.zeros((k, 14), dtype=torch.uint8))
 
 
 @pytest.mark.parametrize("k", [0, 5, 64])

@@ -475,8 +475,9 @@ def test_fields_kernel_matches_plain(cuda_device, extended, k):  # noqa: F811
 @pytest.mark.parametrize("recover2", [False, True])
 @pytest.mark.parametrize("extended", [False, True])
 def test_with_fields_path_matches_plain(cuda_device, extended, recover2):  # noqa: F811
-    """decode_iq_block(_extended)_with_fields on the card: three launches,
-    the whole dict equal to the CPU's."""
+    """decode_iq_block(_extended)_with_fields on the card: two launches (the
+    front, the block decode with F; the fields kernel none), the whole
+    dict equal to the CPU's."""
     from airjax_torch.kernels import fields as fields_mod
 
     n = (1 << 17) + 1024
@@ -486,9 +487,45 @@ def test_with_fields_path_matches_plain(cuda_device, extended, recover2):  # noq
     before = _counts() + (fields_mod.launches,)
     got = pipeline.to_host(fn(torch.as_tensor(iq).to(cuda_device), n - 240, k, recover2))
     after = _counts() + (fields_mod.launches,)
-    assert after == (before[0] + 1, before[1] + 1) + before[2:5] + (before[5] + 1,)
+    assert after == (before[0] + 1, before[1] + 1) + before[2:]
     want = pipeline.to_host(fn(torch.as_tensor(iq), n - 240, k, recover2))
+    _same_with_fields(want, got)
+
+
+def _same_with_fields(want: dict, got: dict) -> None:
+    want, got = dict(want), dict(got)
     for key in ("fields", "short_fields"):
+        assert (key in want) == (key in got), key
         if key in want:
             assert_same_dict(want.pop(key), got.pop(key))
     assert_same_dict(want, got)
+
+
+@pytest.mark.parametrize("recover2", [False, True])
+@pytest.mark.parametrize("extended", [False, True])
+@pytest.mark.parametrize("case", R2_CASES)
+def test_block_decode_fields_matches_plain_and_chain(cuda_device, case, extended, recover2):  # noqa: F811
+    """The F instantiations (with and without R2) against their plain
+    version, and against the chain they replace: the block decode without
+    F, then the fields kernel; one launch each."""
+    from airjax_torch.kernels import fields as fields_mod
+
+    n = (1 << 17) + 1024
+    if case == "pair flips":
+        iq, n_off, k = _pair_flips(n, 31, extended), n - 240, 1 << 14
+    else:
+        iq, n_off, k = _block_case(case, n)
+    iq = torch.as_tensor(iq).to(cuda_device)
+    det_words, words, counts = magdet_mod.magdet_bits(iq, n_off, "preamble" if extended else "df17")
+    args = (det_words, words, counts, n_off, k)
+    before = (block_decode_mod.launches, fields_mod.launches)
+    got = block_decode_mod.decode_block_bits(*args, extended=extended, recover2=recover2, fields=True)
+    assert (block_decode_mod.launches, fields_mod.launches) == (before[0] + 1, before[1])
+    got = pipeline.to_host(got)
+    want = block_decode_mod.decode_block_bits_plain(*args, extended=extended, recover2=recover2, fields=True)
+    _same_with_fields(pipeline.to_host(want), got)
+    chain = block_decode_mod.decode_block_bits(*args, extended=extended, recover2=recover2)
+    chain["fields"], short = fields_mod.block_fields(chain["frames"], chain["frames_raw"] if extended else None)
+    if extended:
+        chain["short_fields"] = short
+    _same_with_fields(pipeline.to_host(chain), got)

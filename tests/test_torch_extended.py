@@ -246,7 +246,7 @@ def test_cli_extended_and_jsonl_equal_airjax(tmp_path):
     tc16.save_c16(iq, path)
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        rc = cli.main(["adsb", "-p", str(path), "--fast", "--extended", "--device", "cpu",
+        rc = cli.main(["adsb", "-p", str(path), "--fast", "--extended", "--torch-device", "cpu",
                        "--jsonl", str(tmp_path / "t.jsonl")])
     assert rc == 0
     text = out.getvalue()

@@ -2,7 +2,8 @@
 extract_short_fields(_from_raw) and callsign_to_str on random rows that
 take every byte value, the fields kernel's wrapper on the CPU (its plain
 version), and the whole `_with_fields` dicts of both decodes, with and
-without recover2. Inputs are made with numpy from seeds; every output is
+without recover2, also through the block-decode wrapper's fields=True
+(the kernel's F flag; on the CPU its plain version). Inputs are made with numpy from seeds; every output is
 compared exactly, dtypes included (airjax's uint32 fields as int32)."""
 
 import jax
@@ -17,6 +18,8 @@ from airjax.protocol import shortframe as jshort
 from airjax_torch import pipeline as tpipe
 from airjax_torch.io import synth as tsynth
 from airjax_torch.kernels import fields as kfields
+from airjax_torch.kernels.block_decode import decode_block_bits
+from airjax_torch.kernels.magdet import magdet_bits
 from airjax_torch.protocol import fields as tfields
 from airjax_torch.protocol import shortframe as tshort
 from torch_parity import assert_same_dict
@@ -123,15 +126,26 @@ def _capture(seed: int):
 def test_with_fields_dicts_equal_airjax(recover2, capacity):
     iq = _capture(8)
     n_off = len(iq) - 240
+    t_iq = torch.as_tensor(iq)
     want = jax.device_get(jpipe.decode_iq_block_with_fields(jnp.asarray(iq), n_off, capacity, recover2))
-    got = tpipe.to_host(tpipe.decode_iq_block_with_fields(torch.as_tensor(iq), n_off, capacity, recover2))
-    assert sorted(want) == sorted(got)
-    assert_same_dict(want.pop("fields"), got.pop("fields"))
-    assert_same_dict(want, got)
+    got = tpipe.to_host(tpipe.decode_iq_block_with_fields(t_iq, n_off, capacity, recover2))
+    _same_nested(want, got)
+    bits = magdet_bits(t_iq, n_off)
+    _same_nested(want, tpipe.to_host(decode_block_bits(*bits, n_off, capacity, recover2=recover2, fields=True)))
 
     want = jax.device_get(jpipe.decode_iq_block_extended_with_fields(jnp.asarray(iq), n_off, 4 * capacity, recover2))
-    got = tpipe.to_host(tpipe.decode_iq_block_extended_with_fields(torch.as_tensor(iq), n_off, 4 * capacity, recover2))
+    got = tpipe.to_host(tpipe.decode_iq_block_extended_with_fields(t_iq, n_off, 4 * capacity, recover2))
+    _same_nested(want, got)
+    bits = magdet_bits(t_iq, n_off, "preamble")
+    _same_nested(want, tpipe.to_host(decode_block_bits(*bits, n_off, 4 * capacity, extended=True, recover2=recover2,
+                                                       fields=True)))
+
+
+def _same_nested(want: dict, got: dict) -> None:
+    """A `_with_fields` dict: its field dicts and the rest, key by key."""
+    want, got = dict(want), dict(got)
     assert sorted(want) == sorted(got)
-    assert_same_dict(want.pop("fields"), got.pop("fields"))
-    assert_same_dict(want.pop("short_fields"), got.pop("short_fields"))
+    for key in ("fields", "short_fields"):
+        if key in want:
+            assert_same_dict(want.pop(key), got.pop(key))
     assert_same_dict(want, got)

@@ -1,5 +1,6 @@
 """airjax_torch's 2-bit CRC repair (recover2) against airjax: the pair
-table, crc_check_and_recover2 and its scalar oracle, the DF17 and the
+table and its hashed form (the block-decode kernel's lookup, emulated in
+torch), crc_check_and_recover2 and its scalar oracle, the DF17 and the
 extended block decodes with recover2 (whole dicts, dtypes included; on
 the CPU the block-decode wrapper runs its plain version), and the
 extended assembly's pass 1.5. Inputs are made with numpy from seeds;
@@ -25,7 +26,7 @@ from airjax_torch import extended as text
 from airjax_torch import pipeline as tpipe
 from airjax_torch.dsp.magnitude import magnitude_u16
 from airjax_torch.io import synth as tsynth
-from airjax_torch.kernels.block_decode import pair_table
+from airjax_torch.kernels import block_decode as kblock
 from airjax_torch.protocol import crc as tcrc
 from airjax_torch.protocol import shortframe
 from airjax_torch.track.icao_cache import IcaoCache as TCache
@@ -46,13 +47,88 @@ def test_pair_tables_equal_airjax():
     for want, got in zip(jcrc._pair_tables(), tcrc._pair_tables()):
         assert want.dtype == got.dtype
         np.testing.assert_array_equal(want, got)
-    table = pair_table()
+    table = kblock.pair_hash_table()
     pair, pi, pj = jcrc._pair_tables()
-    n = len(pair)
-    assert n == 3828 and table.dtype == np.uint32 and np.all(np.diff(table[:n].astype(np.int64)) > 0)
-    # Each sorted syndrome carries its own (i, j).
+    assert len(pair) == 3828 and table.dtype == np.uint32
+    assert table.shape == (kblock.PAIR_BUCKETS, kblock.BUCKET_ENTRIES, 2)
+    # The table holds exactly the pair syndromes, each with its own (i, j).
+    keys, values = table[..., 0], table[..., 1]
     ij = {int(s): (int(i), int(j)) for s, i, j in zip(pair, pi, pj)}
-    assert all(ij[int(s)] == (int(v) & 0xFF, int(v) >> 8) for s, v in zip(table[:n], table[n:]))
+    assert sorted(keys[keys != 0].tolist()) == sorted(ij)
+    assert all(ij[int(s)] == (int(v) & 0xFF, int(v) >> 8) for s, v in zip(keys[keys != 0], values[keys != 0]))
+    assert not values[keys == 0].any()
+
+
+def test_pair_hash_table_places_every_pair_in_its_buckets():
+    """Every airjax pair syndrome sits in bucket h1 or h2 of itself."""
+    table = kblock.pair_hash_table()
+    pair, pi, pj = jcrc._pair_tables()
+    h1, h2 = kblock.pair_buckets(pair)
+    for s, i, j, b1, b2 in zip(pair.tolist(), pi.tolist(), pj.tolist(), h1.tolist(), h2.tolist()):
+        hits = [tuple(e) for b in {b1, b2} for e in table[b].tolist() if e[0] == s]
+        assert hits == [(s, i | j << 8)], hex(s)
+
+
+def test_pair_hash_table_misses_every_other_key():
+    """The 88 single syndromes, 0 and 10,000 seeded random 24-bit deltas
+    that are no pair syndrome find nothing in either bucket."""
+    table = kblock.pair_hash_table()
+    pair = set(jcrc._pair_tables()[0].tolist())
+    rng = np.random.default_rng(11)
+    others = [d for d in rng.integers(0, 1 << 24, 12_000).tolist() if d not in pair][:10_000]
+    keys = np.concatenate([np.asarray(jcrc._tables()[1], np.int64), [0], others])
+    assert len(keys) == 88 + 1 + 10_000
+    assert (_lookup(torch.as_tensor(keys), table) == -1).all()
+
+
+def test_pair_hash_table_is_the_same_on_every_call():
+    first = kblock.pair_hash_table()
+    assert all(np.array_equal(first, kblock.pair_hash_table()) for _ in range(2))
+
+
+def _lookup(delta: torch.Tensor, table: np.ndarray) -> torch.Tensor:
+    """The block-decode kernel's pair_of (csrc/candidate.cuh) in plain
+    torch: both buckets of each delta (int64 hash), 8 keys compared ->
+    i | j << 8, or -1."""
+    t = torch.as_tensor(table.astype(np.int64))
+    d = delta.to(torch.int64)
+    h1, h2 = (((d * m) & 0xFFFFFFFF) >> kblock.HASH_SHIFT for m in kblock.HASH_MULTIPLIERS)
+    entries = torch.cat([t[h1], t[h2]], dim=1)  # (N, 8, 2)
+    hit = entries[..., 0] == d[:, None]
+    return torch.where(hit.any(dim=1), (entries[..., 1] * hit).sum(dim=1), torch.full_like(d, -1))
+
+
+def _flipped_rows(seed: int, n_flips: int) -> np.ndarray:
+    """(N, 112) bits: seeded DF17 frames with n_flips distinct bits flipped
+    anywhere (the CRC field included), and random rows."""
+    rng = np.random.default_rng(seed)
+    rows = [_flip_bits(tsynth.make_df17(int(rng.integers(1, 1 << 24)), tsynth.make_id_me(f"H{i:06d}")),
+                       rng.choice(112, n_flips, replace=False)) for i in range(300)]
+    bits = np.unpackbits(np.frombuffer(b"".join(rows), np.uint8)).reshape(-1, 112)
+    return np.concatenate([bits, rng.integers(0, 2, (100, 112), dtype=np.uint8)])
+
+
+@pytest.mark.parametrize("n_flips", [0, 1, 2, 3])
+def test_hashed_lookup_equals_airjax_recover2(n_flips):
+    """The single-bit repair, then the hashed pair lookup where the delta
+    is nonzero and matched no single syndrome, equals airjax's
+    crc_check_and_recover2 on every output."""
+    bits = _flipped_rows(20 + n_flips, n_flips)
+    want = jcrc.crc_check_and_recover2(jnp.asarray(bits))
+    t_bits = torch.as_tensor(bits)
+    tab = tcrc.tables()
+    corrected, good, recovered = tcrc.crc_check_and_recover(t_bits, tab)
+    delta = tcrc.crc24_batch(t_bits[:, :88], tab) ^ tcrc.pack_bits_msbfirst(t_bits[:, 88:], 24)
+    ij = _lookup(delta, kblock.pair_hash_table())
+    found2 = (ij >= 0) & ~good
+    pos = torch.arange(112)
+    flip = (pos == (ij & 0xFF)[:, None]) | (pos == (ij >> 8)[:, None])
+    corrected = torch.where(found2[:, None], t_bits ^ flip.to(t_bits.dtype), corrected)
+    for name, w, g in zip(("bits", "good", "recovered", "recovered2"), want,
+                          (corrected, good | found2, recovered, found2)):
+        assert_same(w, g, name)
+    if n_flips == 2:
+        assert int(found2.sum()) >= 150  # the ~62% of 300 whose two flips are both data bits
 
 
 def _bit_rows(seed: int) -> np.ndarray:

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from airjax import cli as jcli
 from airjax import runner as jrunner
 from airjax.io import source as jsource
 from airjax.io import synth as jsynth
@@ -149,7 +150,7 @@ def _cli(argv) -> tuple[int, list[str], str]:
 
 
 def test_cli_synthetic_on_cpu():
-    rc, hexes, text = _cli(["adsb", "--synthetic", "3", "--device", "cpu"])
+    rc, hexes, text = _cli(["adsb", "--synthetic", "3", "--torch-device", "cpu"])
     assert rc == 0
     want = []
     jrunner.run_stream(jsource.synthetic_blocks(n_blocks=3), lambda p: want.append(p.packet.hex()))
@@ -160,7 +161,7 @@ def test_cli_synthetic_on_cpu():
 def test_cli_prints_the_reference_display():
     """Every packet's full Display, as airjax's stream mode prints it (a
     port that printed only the `== <hex> ==` line fails here)."""
-    rc, _, text = _cli(["adsb", "--synthetic", "3", "--device", "cpu"])
+    rc, _, text = _cli(["adsb", "--synthetic", "3", "--torch-device", "cpu"])
     assert rc == 0
     want = io.StringIO()
     jrunner.run_stream(jsource.synthetic_blocks(n_blocks=3), jstream.stream_printer(want))
@@ -179,13 +180,13 @@ def test_cli_playback_overlap_and_no_overlap(tmp_path):
     iq, frames = _capture(4 * chunk + 10, offsets, 8)
     path = tmp_path / "capture.c16"
     tc16.save_c16(iq, path)
-    rc, hexes, _ = _cli(["adsb", "--playback", str(path), "--fast", "--device", "cpu"])
+    rc, hexes, _ = _cli(["adsb", "--playback", str(path), "--fast", "--torch-device", "cpu"])
     assert rc == 0 and hexes == [f.hex() for f in frames]
-    rc, hexes, _ = _cli(["adsb", "-p", str(path), "--fast", "--no-overlap", "--device", "cpu"])
+    rc, hexes, _ = _cli(["adsb", "-p", str(path), "--fast", "--no-overlap", "--torch-device", "cpu"])
     assert rc == 0 and hexes == [frames[0].hex(), frames[2].hex()]
-    rc, hexes, _ = _cli(["adsb", "-p", str(path), "--fast", "--max-blocks", "1", "--device", "cpu"])
+    rc, hexes, _ = _cli(["adsb", "-p", str(path), "--fast", "--max-blocks", "1", "--torch-device", "cpu"])
     assert hexes == [frames[0].hex()]
-    assert _cli(["adsb", "-p", str(tmp_path / "missing.c16"), "--fast", "--device", "cpu"])[0] == 1
+    assert _cli(["adsb", "-p", str(tmp_path / "missing.c16"), "--fast", "--torch-device", "cpu"])[0] == 1
 
 
 def test_cli_cuda_without_card_raises():
@@ -193,3 +194,38 @@ def test_cli_cuda_without_card_raises():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError):
         cli.main(["adsb", "--synthetic", "1"])
+
+
+def _parsed(build_parser, argv):
+    """(exit status, the source chosen, the SDR index) of one command line:
+    the playback wins over --synthetic, as both packages' _cmd_adsb read
+    them."""
+    try:
+        args = build_parser().parse_args(argv)
+    except SystemExit as e:
+        return e.code, None, None
+    source = "playback" if args.playback else "synthetic" if args.synthetic is not None else "sdr"
+    return 0, source, args.device
+
+
+@pytest.mark.parametrize("argv", [
+    ["adsb", "--synthetic", "1", "--device", "0"],
+    ["adsb", "--synthetic", "1", "-d", "0"],
+    ["adsb", "-p", "cap.c16", "--synthetic", "2"],
+])
+def test_cli_accepts_airjax_command_lines(argv, capsys):
+    """Fault F2: the port's parser takes airjax's `-d/--device N` (the SDR
+    index) and a playback beside --synthetic, and picks the same source."""
+    want = _parsed(jcli.build_parser, argv)
+    assert want[0] == 0
+    assert _parsed(cli.build_parser, argv) == want
+    assert cli.build_parser().parse_args(argv).torch_device == "cuda"
+    assert capsys.readouterr().err == ""
+
+
+def test_cli_playback_wins_over_synthetic(tmp_path):
+    iq, frames = _capture(2 * 20000 + 10, [300, 20000 + 4000], 5)
+    path = tmp_path / "capture.c16"
+    tc16.save_c16(iq, path)
+    rc, hexes, _ = _cli(["adsb", "-p", str(path), "--synthetic", "2", "--fast", "--torch-device", "cpu", "-d", "0"])
+    assert rc == 0 and hexes == [f.hex() for f in frames]

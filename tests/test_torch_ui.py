@@ -102,7 +102,7 @@ def test_cli_interactive_batched_saves_state(tmp_path):
     the table fills, q quits, the checkpoint is written (and airjax reads it)."""
     path = tmp_path / "state.json"
     argv = [sys.executable, "-m", "airjax_torch.cli", "adsb", "--synthetic", "2", "-m", "interactive", "--batched",
-            "--recover2", "--state", str(path), "--device", "cpu"]
+            "--recover2", "--state", str(path), "--torch-device", "cpu"]
     saw, buf, rc, err = _drive_pty(argv, [b"SYN100", b"airjax adsb tracker"])
     assert saw, (buf[-2000:], err[-2000:])
     assert rc == 0, err[-2000:]
@@ -247,7 +247,7 @@ def _run_cli(main, argv):
 ])
 def test_cli_checks_and_messages_equal_airjax(argv, rc, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    got = _run_cli(tcli.main, argv + ["--device", "cpu"])
+    got = _run_cli(tcli.main, argv + ["--torch-device", "cpu"])
     want = _run_cli(jcli.main, argv)
     assert got[0] == want[0] == rc
     assert got[2].replace("airjax_torch", "airjax").splitlines()[-1:] == want[2].splitlines()[-1:]
@@ -257,7 +257,7 @@ def test_cli_checks_and_messages_equal_airjax(argv, rc, tmp_path, monkeypatch):
 def test_cli_bad_state_file(tmp_path):
     bad = tmp_path / "bad.json"
     bad.write_text("{not json")
-    for main, extra in ((tcli.main, ["--device", "cpu"]), (jcli.main, [])):
+    for main, extra in ((tcli.main, ["--torch-device", "cpu"]), (jcli.main, [])):
         rc, _, err = _run_cli(main, ["adsb", "--synthetic", "1", "-m", "interactive", "--state", str(bad)] + extra)
         assert rc == 1 and f"error: bad state file {bad}" in err
 
@@ -266,7 +266,7 @@ def test_cli_bad_state_file(tmp_path):
 @pytest.mark.parametrize("extended", [False, True])
 def test_cli_stream_recover2_stats_equal_airjax(extended, recover2):
     argv = ["adsb", "--synthetic", "2"] + ["--extended"] * extended + ["--recover2"] * recover2
-    rc_t, out_t, _ = _run_cli(tcli.main, argv + ["--device", "cpu"])
+    rc_t, out_t, _ = _run_cli(tcli.main, argv + ["--torch-device", "cpu"])
     rc_j, out_j, _ = _run_cli(jcli.main, argv)
     assert rc_t == rc_j == 0
 
@@ -303,7 +303,7 @@ def test_cli_web_mode_serves_then_saves_state(tmp_path, monkeypatch):
     monkeypatch.setattr(tweb.WebDisplay, "start_background", start)
     for _ in range(2):
         rc, out, _ = _run_cli(tcli.main, ["adsb", "--synthetic", "2", "-m", "web", "--batched", "--state", str(path),
-                                          "--device", "cpu"])
+                                          "--torch-device", "cpu"])
         assert rc == 0 and "source exhausted; web server still running" in out
         d = seen["display"]
         snap = json.load(urllib.request.urlopen(f"http://127.0.0.1:{d._httpd.server_address[1]}/api/aircraft",
