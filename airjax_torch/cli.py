@@ -6,7 +6,7 @@
                                   [--extended] [--recover2] [--batched]
                                   [--jsonl PATH] [--state FILE]
                                   [--ref-lat LAT --ref-lon LON]
-                                  [--evict-after SECONDS]
+                                  [--evict-after SECONDS] [--devices N]
                                   [-d/--device N] [--torch-device cuda|cpu]
 
 Stream mode (the default) prints the reference's Display of every decoded
@@ -19,10 +19,12 @@ tracker, and `--state` restores and saves their table. `--extended`
 decodes every Mode S downlink format; `--recover2` also accepts frames
 that a unique 2-bit repair validated, gated on an ICAO already seen.
 `--torch-device` (the port's own flag) defaults to cuda; without a card
-that raises — the port never falls back to the CPU on its own. `-d/--device`
-is airjax's SDR index, read only for live input, which is not ported yet;
-a playback wins over --synthetic, as in airjax. Not ported: live SDR input,
-`list`, `receive`, `--devices`, `--trace`, `--plot-dir`, `--dump-preamble`.
+that raises — the port never falls back to the CPU on its own. `--devices
+N` decodes the stream over the first N cards (runner.run_stream_sharded),
+or with `--torch-device cpu` over N CPU shards. `-d/--device` is airjax's
+SDR index, read only for live input, which is not ported yet; a playback
+wins over --synthetic, as in airjax. Not ported: live SDR input, `list`,
+`receive`, `--trace`, `--plot-dir`, `--dump-preamble`.
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ def _source(args):
 
 def _cmd_adsb(args) -> int:
     from airjax_torch.config import DEFAULT_CONFIG
-    from airjax_torch.runner import StreamStats, run_stream
+    from airjax_torch.runner import StreamStats, run_stream, run_stream_sharded
 
     device = torch.device(args.torch_device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -72,8 +74,14 @@ def _cmd_adsb(args) -> int:
     source = _source(args)
     if isinstance(source, int):
         return source
+    if args.devices is not None and args.no_overlap:
+        print("error: --devices requires overlap mode (the sharded runner's halo IS the overlap)", file=sys.stderr)
+        return 2
 
     def _run(source, sink, stats=None):
+        if args.devices is not None:
+            return run_stream_sharded(source, sink, n_devices=args.devices, extended=args.extended, stats=stats,
+                                      recover2=args.recover2, device=device)
         return run_stream(source, sink, overlap=not args.no_overlap, extended=args.extended, device=device,
                           stats=stats, recover2=args.recover2)
 
@@ -205,11 +213,17 @@ def build_parser() -> argparse.ArgumentParser:
     adsb.add_argument(
         "--recover2", action="store_true",
         help="also accept frames repaired by a unique DOUBLE bit-flip, gated on an already-validated ICAO "
-        "(the stream's seen-set, or the acceptance cache with --extended); composes with --extended and --batched",
+        "(the stream's seen-set, or the acceptance cache with --extended); composes with --extended, --batched and "
+        "--devices",
     )
     adsb.add_argument(
         "--evict-after", type=float, default=None, metavar="SECONDS",
         help="drop aircraft unheard for SECONDS (web/interactive modes; default: never)",
+    )
+    adsb.add_argument(
+        "--devices", type=int, default=None, metavar="N",
+        help="shard the decode over the first N devices of the mesh (continuous stream, halo between shards, "
+        "carry between steps; with --torch-device cpu, N CPU shards); default: the single-device runner",
     )
     adsb.add_argument("--torch-device", choices=["cuda", "cpu"], default="cuda",
                       help="where the decode runs (default cuda; raises without a card)")

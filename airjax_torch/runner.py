@@ -28,11 +28,14 @@ in extended mode the ICAO cache gates them (assemble_extended pass 1.5,
 or the batched sink's own). stats.recovered2 counts the accepted repairs
 on every path but the extended batched sink's, as in airjax
 (:129-131): there it stays 0. airjax's plot and preamble-dump branches
-and its pipeline_depth are not ported.
+and run_stream's pipeline_depth are not ported.
 
-Blocks are decoded one at a time: each block is uploaded, decoded, and
-its results copied back and applied before the next is dispatched. Only
-the source read overlaps the decode, on the Prefetcher's thread.
+run_stream decodes blocks one at a time: each block is uploaded, decoded,
+and its results copied back and applied before the next is dispatched.
+Only the source read overlaps the decode, on the Prefetcher's thread.
+run_stream_sharded decodes the stream over a mesh of devices
+(parallel/halo.py), in steps of many blocks, with pipeline_depth steps in
+flight.
 """
 
 from __future__ import annotations
@@ -125,6 +128,66 @@ def _gate_recover2_batch(
     return idx[keep], int(np.sum(r2 & keep))
 
 
+class _Sink:
+    """The acceptance policy both runners share: a decoded block's frames
+    to a sink, per packet or batched (`on_fields`, `on_extended_block`),
+    through the extended ICAO cache and the recover2 gate."""
+
+    def __init__(self, on_packet, extended: bool, recover2: bool, stats: StreamStats):
+        self.on_packet = on_packet
+        self.extended = extended
+        self.recover2 = recover2
+        self.stats = stats
+        self.batch_fn = None if extended else getattr(on_packet, "on_fields", None)
+        self.ext_batch_fn = getattr(on_packet, "on_extended_block", None) if extended else None
+        self.batched = self.batch_fn is not None or self.ext_batch_fn is not None
+        self.icao_cache = IcaoCache()
+        self.seen_icaos: set[int] = set()  # the DF17 recover2 gate
+
+    def apply(self, out: dict, keep: np.ndarray | None, min_offset: int | None, now: float) -> int:
+        """One block's host dict to the sink -> the packets emitted. `keep`
+        masks the DF17 rows; in extended mode the candidates at local
+        offsets below `min_offset` (the padded head of the stream) seed the
+        ICAO cache but are not emitted."""
+        stats = self.stats
+        if self.ext_batch_fn is not None:
+            return self.ext_batch_fn(out, now, self.icao_cache, min_offset=min_offset)
+        emitted = 0
+        if self.extended:
+            # Offsets of the frames only the gated 2-flip repair validated.
+            offs = np.asarray(out["offsets"])
+            rec2_offs = set(offs[np.asarray(out["recovered2"])].tolist()) if self.recover2 else ()
+            for local, packet in assemble_extended(out, now, self.icao_cache):
+                if min_offset is not None and local < min_offset:
+                    continue
+                if local in rec2_offs:
+                    stats.recovered2 += 1
+                self.on_packet(packet)
+                emitted += 1
+            return emitted
+        idx = np.nonzero(keep)[0]
+        if self.batch_fn is not None:
+            if self.recover2:
+                idx, n_r2 = _gate_recover2_batch(idx, out["fields"]["icao"], out["recovered2"], self.seen_icaos)
+                stats.recovered2 += n_r2
+            return self.batch_fn(out["fields"], idx, now)
+        for k in idx:
+            frame = out["frames"][k].tobytes()
+            if self.recover2:
+                icao = int.from_bytes(frame[1:4], "big")
+                if out["recovered2"][k]:
+                    # A 2-flip repair is trusted only for an aircraft
+                    # already validated without one.
+                    if icao not in self.seen_icaos:
+                        continue
+                    stats.recovered2 += 1
+                else:
+                    self.seen_icaos.add(icao)
+            self.on_packet(AdsbPacket.from_bytes(frame, now))
+            emitted += 1
+        return emitted
+
+
 def _decode_fn(extended: bool, batched: bool, recover2: bool):
     """The block decode for a stream, one of airjax's six
     (airjax/runner.py:204-223): decode(iq, n_off, capacity) -> dict."""
@@ -152,11 +215,8 @@ def run_stream(
     stats = stats or StreamStats()
     # A batched sink (track.batch): on_fields in DF17 mode, on_extended_block
     # in extended mode; any other sink takes packets.
-    batch_fn = None if extended else getattr(on_packet, "on_fields", None)
-    ext_batch_fn = getattr(on_packet, "on_extended_block", None) if extended else None
-    decode = _decode_fn(extended, batch_fn is not None or ext_batch_fn is not None, recover2)
-    icao_cache = IcaoCache()
-    seen_icaos: set[int] = set()  # the DF17 recover2 gate
+    sink = _Sink(on_packet, extended, recover2, stats)
+    decode = _decode_fn(extended, sink.batched, recover2)
     halo = WINDOW - 1
     # The initial carry is the non-detecting (1,0)-magnitude pattern: a
     # zero carry passes the equality-tolerant gate at every offset.
@@ -181,48 +241,13 @@ def run_stream(
                 capacity = min(capacity * 4, n_off)
                 out = to_host(decode(block_dev, n_off, capacity))
         t_apply = time.perf_counter()
-        emitted = 0
         good = out.get("good")
         if good is not None and overlap:
             # int64 before adding the base: it passes 2^31 after ~18 min of
             # stream (airjax/runner.py:283-289). Offsets below 0 are the
             # padded head of the first block.
             good = good & (out["offsets"].astype(np.int64) + base >= 0)
-        if ext_batch_fn is not None:
-            # min_offset masks the application (not the cache seeding) of
-            # the padded head of the first block, as the per-packet skip.
-            emitted = ext_batch_fn(out, now, icao_cache, min_offset=-base if overlap and base < 0 else None)
-        elif extended:
-            # Offsets of the frames only the gated 2-flip repair validated.
-            rec2_offs = set(out["offsets"][out["recovered2"]].tolist()) if recover2 else ()
-            for local, packet in assemble_extended(out, now, icao_cache):
-                if overlap and base + local < 0:
-                    continue  # the padded head of the first block
-                if local in rec2_offs:
-                    stats.recovered2 += 1
-                on_packet(packet)
-                emitted += 1
-        elif batch_fn is not None:
-            idx = np.nonzero(good)[0]
-            if recover2:
-                idx, n_r2 = _gate_recover2_batch(idx, out["fields"]["icao"], out["recovered2"], seen_icaos)
-                stats.recovered2 += n_r2
-            emitted = batch_fn(out["fields"], idx, now)
-        else:
-            for k in np.nonzero(good)[0]:
-                frame = out["frames"][k].tobytes()
-                if recover2:
-                    icao = int.from_bytes(frame[1:4], "big")
-                    if out["recovered2"][k]:
-                        # A 2-flip repair is trusted only for an aircraft
-                        # already validated without one.
-                        if icao not in seen_icaos:
-                            continue
-                        stats.recovered2 += 1
-                    else:
-                        seen_icaos.add(icao)
-                on_packet(AdsbPacket.from_bytes(frame, now))
-                emitted += 1
+        emitted = sink.apply(out, good, -base if overlap and base < 0 else None, now)
         stats.stages.add("apply", time.perf_counter() - t_apply)
         # The tail flush is an extra decode, not a source block (n_samples=0).
         stats.blocks += 1 if n_samples else 0
@@ -267,4 +292,183 @@ def run_stream(
     if overlap and carry.shape[0] > halo:
         # Tail flush: the carry's offsets whose windows end at the stream end.
         _decode(carry, carry.shape[0] - halo, global_base, 0)
+    return stats
+
+
+def run_stream_sharded(
+    source: Iterator[np.ndarray],
+    on_packet: Callable[[AdsbPacket], None],
+    mesh=None,
+    n_devices: int | None = None,
+    cfg: PipelineConfig = DEFAULT_CONFIG,
+    stats: StreamStats | None = None,
+    extended: bool = False,
+    shard_block: int | None = None,
+    capacity_per_shard: int | None = None,
+    compact_capacity: int | None = None,
+    pipeline_depth: int = 1,
+    recover2: bool = False,
+    *,
+    device: torch.device | str | None = None,
+) -> StreamStats:
+    """The stream decoded over a mesh (airjax/runner.py:410-686): `mesh`, or
+    make_mesh(n_devices, device).
+
+    Blocks are gathered into steps of T = shard_block * D samples; a step is
+    the compact sharded decode (parallel/halo.py: each shard's front and
+    block decode, then one shard gather), and a carry of the last 239
+    samples joins each step to the next, so every offset of the stream is
+    scanned once and the emitted stream equals run_stream's in overlap mode.
+    The last step is padded with the non-detecting pattern and its offsets
+    past the stream's end dropped (`max_local`). `pipeline_depth` steps are
+    dispatched before the oldest is fetched; a step that overflows is
+    decoded again with K and C grown 4x. Sinks as run_stream: per packet, or
+    a batched one (`on_fields`, `on_extended_block`), whose fields come from
+    one block_fields launch on the gathered rows; recover2 gates as there.
+
+    `detections` counts each step's last 239 offsets twice, by design: a
+    step scans them with the wrapped halo (and masks their hits), the next
+    one with the real samples. `good` and the packets are exact.
+    """
+    import collections
+
+    from airjax_torch.parallel.halo import (
+        _EXT_MASK_KEYS,
+        EXT_COMPACT_ROW_KEYS,
+        HALO,
+        _halo_size,
+        build_sharded_decoder_compact,
+        build_sharded_decoder_extended_compact,
+        shard_iq,
+        tuned_block,
+        unpack_extended_compact,
+    )
+    from airjax_torch.parallel.mesh import make_mesh
+    from airjax_torch.pipeline import pad_iq_non_detecting
+
+    if mesh is None:
+        if device is None:
+            raise ValueError("run_stream_sharded: give a mesh or a device")
+        mesh = make_mesh(n_devices, device)
+    n_dev = mesh.size
+    axis = mesh.axis
+    stats = stats or StreamStats()
+
+    sink = _Sink(on_packet, extended, recover2, stats)
+
+    block = shard_block or tuned_block(max(16384, cfg.block_len))
+    halo = _halo_size(block)
+    T = block * n_dev  # samples a step
+    F = T - HALO  # fresh samples a step
+    K = capacity_per_shard or cfg.max_candidates
+    C = compact_capacity or max(128 if not extended else 512, K)
+    with_fields = sink.batched
+    builder = build_sharded_decoder_extended_compact if extended else build_sharded_decoder_compact
+    steps: dict[tuple[int, int], Callable] = {}
+
+    def get_step(k: int, c: int):
+        if (k, c) not in steps:
+            steps[(k, c)] = builder(mesh, T, k, c, axis, with_fields=with_fields, recover2=recover2)
+        return steps[(k, c)]
+
+    count_key = "n_candidates" if extended else "n_good"
+    scalar_keys = (count_key, "n_detections", "overflow")
+    row_keys = EXT_COMPACT_ROW_KEYS if extended else ("offsets", "recovered", "frames")
+    if recover2:
+        row_keys = row_keys + ("recovered2",)
+
+    # A warm-up step on the non-detecting pattern before the source is read
+    # (airjax :521-530): the kernels build and load here, not while frames
+    # of the first step age in the ICAO cache's 60 s window.
+    warm = np.zeros((T, 2), dtype=np.int16)
+    warm[::2, 0] = 1
+    int(get_step(K, C)(warm)[count_key])
+
+    # The initial carry: the non-detecting pattern, its offsets masked by
+    # global_base < 0.
+    carry = np.zeros((HALO, 2), dtype=np.int16)
+    carry[::2, 0] = 1
+    global_base = -HALO
+    acc = np.zeros((0, 2), dtype=np.int16)
+    inflight: collections.deque = collections.deque()
+
+    def _fetch_rows(out: dict, n: int) -> dict:
+        rows = {k: out[k][:n] for k in row_keys}
+        if with_fields:
+            rows["fields"] = {k: v[:n] for k, v in out["fields"].items()}
+            if extended:
+                rows["short_fields"] = {k: v[:n] for k, v in out["short_fields"].items()}
+        return to_host(rows)
+
+    def _process(entry) -> None:
+        nonlocal K, C
+        shards, base, now, n_fresh, max_local, out = entry
+        with stats.stages.stage("fetch"):
+            scal = to_host({k: out[k] for k in scalar_keys})
+            overflowed = bool(scal["overflow"])
+            while bool(scal["overflow"]) and (K < block or C < T):
+                K = min(K * 4, block)
+                C = min(C * 4, T)
+                out = get_step(K, C)(shards)
+                scal = to_host({k: out[k] for k in scalar_keys})
+            n = int(scal[count_key])
+            rows = _fetch_rows(out, n)
+        t_apply = time.perf_counter()
+        # int64: the stream base passes 2^31 after ~18 min of stream.
+        offs = np.asarray(rows["offsets"], dtype=np.int64)
+        # The padded head of the first step (base < 0) and, on the padded
+        # last step, offsets whose window runs past the stream's end.
+        ok = offs + base >= 0
+        if max_local is not None:
+            ok &= offs <= max_local
+        if extended:
+            unp = unpack_extended_compact(rows, n)
+            if max_local is not None:
+                # Padding candidates must not even seed the ICAO cache:
+                # run_stream never scans those offsets.
+                for k in _EXT_MASK_KEYS + (("recovered2",) if recover2 else ()):
+                    unp[k] = unp[k] & (offs <= max_local)
+            stats.recovered += int(np.sum(unp["recovered"]))
+            if with_fields:
+                unp["fields"] = rows["fields"]
+                unp["short_fields"] = rows["short_fields"]
+            rows = unp
+        emitted = sink.apply(rows, ok, -base if base < 0 else None, now)
+        stats.stages.add("apply", time.perf_counter() - t_apply)
+        stats.blocks += 1 if n_fresh else 0
+        stats.samples += n_fresh
+        stats.detections += int(scal["n_detections"])
+        stats.good += emitted
+        if not extended:
+            stats.recovered += int(np.sum(np.asarray(rows["recovered"])[ok]))
+        stats.overflow_blocks += overflowed
+
+    def _dispatch(fresh: np.ndarray, max_local: int | None) -> None:
+        nonlocal carry, global_base
+        full = np.concatenate([carry, fresh], axis=0)
+        if full.shape[0] < T:
+            full = pad_iq_non_detecting(full, T)
+        with stats.stages.stage("dispatch"):
+            shards = shard_iq(full, mesh, block, halo)
+            out = get_step(K, C)(shards)
+        inflight.append((shards, global_base, time.time(), fresh.shape[0], max_local, out))
+        carry = full[F:].copy()
+        global_base += F
+        while len(inflight) > max(pipeline_depth, 0):
+            _process(inflight.popleft())
+
+    for blk in Prefetcher(source, depth=4):
+        blk = np.asarray(blk, dtype=np.int16)
+        acc = np.concatenate([acc, blk], axis=0) if len(acc) else blk
+        while acc.shape[0] >= F:
+            fresh, acc = acc[:F], acc[F:]
+            _dispatch(fresh, None)
+    if acc.shape[0] > 0:
+        # The last, partial step: only offsets whose window fits in
+        # carry + acc are real.
+        true_len = HALO + acc.shape[0]
+        if true_len >= WINDOW:
+            _dispatch(acc, true_len - WINDOW)
+    while inflight:
+        _process(inflight.popleft())
     return stats

@@ -49,7 +49,8 @@ Phases; any failure raises and the exit code is nonzero:
   6. a 20 M-sample (10 s at 2 MS/s) capture with ~600 frames, some
      straddling the 20,000-sample chunk edges and some corrupted, replayed
      through the CLI (`adsb --playback FILE --fast`): overlap mode emits
-     every frame once, in order; --no-overlap loses the straddlers; both
+     every frame once, in order; `--devices 1` (the sharded runner on a
+     one-card mesh) the same list; --no-overlap loses the straddlers; the
      hit lists equal the plain path's on the card;
   7. the extended decode of every downlink format on a 2^24 + 1024-sample
      block (1024 aircraft, each a DF17 before its DF0/4/5/11/16/20/21/24
@@ -81,7 +82,24 @@ Phases; any failure raises and the exit code is nonzero:
      position within CPR resolution of the truth, recovered2 equals the
      gated 2-flip frames, each batched pass launched the block decode with
      F once and the fields kernel never; MS/s, msgs/s and stages printed
-     per run.
+     per run;
+ 11. the mesh paths: a 2^26-sample capture (4096 DF17 frames, one at each
+     shard edge and one ending at the capture's end) through
+     decode_capture_sharded and decode_capture_sharded_extended on 4 shards
+     of the card (2^24 samples each) and on make_mesh(1): hits and packets
+     == decode_capture_overlap's == the embedded frames, each step a front
+     and a block decode a shard and one shard gather; a sharded step
+     profiled (each kernel's device time, launches and bound, and nothing
+     else on the card); the shard-gather kernel (csrc/shard_gather.cu)
+     against its plain version on the steps' shards and on random ones (D
+     1 and 4, both modes, with and without R2, C below and above the
+     total), timed at the step's shapes; analyze_capture (overlap and
+     devices=1) and analyze_capture_extended on the first 2^25 samples of
+     phase 10's traffic, their fixes == the per-packet tracker's at the same
+     offsets, one fields launch an analysis; decode_channels on 8 channels
+     of 2^21 samples; run_stream_sharded with BatchTracker and
+     ExtendedBatchTracker on 4 shards, the tables == run_stream's; MS/s of
+     each path.
 Phase 3 also holds the block-decode kernel's recover2 (R2) instantiations
 to their plain versions, and to the mode without R2 where no pair repair
 applied, on its inputs plus the recover2 block and every format with 2-bit
@@ -116,6 +134,12 @@ import subprocess
 import sys
 import tempfile
 import time
+
+# torch.profiler keeps CUPTI attached from one window to the next unless
+# TEARDOWN_CUPTI is 1; late in a long process a CUPTI kept so misses the
+# first launches of a window (up to 6 kernel events), and one attached anew
+# for each window misses none. Set before torch is imported.
+os.environ["TEARDOWN_CUPTI"] = "1"
 
 import numpy as np
 import torch
@@ -286,28 +310,46 @@ def compact_work(n_off: int, k: int) -> tuple[int, int]:
     return 4 * n_det_words(n_off) + 4 * n_tiles(n_off) + 9 * k + 4, n_det_words(n_off) + n_tiles(n_off) + k
 
 
+# Windows a measurement profiles before it fails: a window that lost a
+# device event (see TEARDOWN_CUPTI above) is profiled again.
+PROFILE_TRIES = 10
+
+
+def device_events(fn, calls: int) -> list:
+    """The device events of `calls` calls of fn under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def busy_us(events: list) -> float:
+    """The union of the events' device intervals, µs."""
+    busy, end = 0.0, float("-inf")
+    for t0, t1 in sorted((e.time_range.start, e.time_range.end) for e in events):
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    return busy
+
+
 def device_us(fn, names: tuple[str, ...] = (), calls: int = 10) -> float:
     """Device µs per call of fn under torch.profiler: the kernels whose name
     holds one of `names` (every kernel if none), over `calls` calls. fn
-    launches the kernels of each name the same number of times a call; the
-    profiler can drop single events of a window, so a window whose count
-    of a name is no multiple of `calls` is profiled again (three tries)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    launches the kernels of each name the same number of times a call; a
+    window whose count of a name is no multiple of `calls` is profiled
+    again (PROFILE_TRIES windows, then it fails)."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-                  and (not names or any(n in e.name for n in names))]
+    for _ in range(PROFILE_TRIES):
+        events = [e for e in device_events(fn, calls) if not names or any(n in e.name for n in names)]
         seen = [sum(n in e.name for e in events) for n in names]
         if events and all(n and n % calls == 0 for n in seen):
             return sum(e.time_range.end - e.time_range.start for e in events) / calls
         print(f"device_us: the profiler dropped events ({dict(zip(names, seen))} in {calls} calls); again")
-    check(False, f"device_us: the profiler dropped events of {names} in three windows")
+    check(False, f"device_us: the profiler dropped events of {names} in {PROFILE_TRIES} windows")
 
 
 def library_call():
@@ -933,21 +975,22 @@ def batched_pass(name: str, fn, n_samples: int, n_off: int, n_frames: int) -> No
 def counted():
     """Every kernel wrapper's launch count set to 0 on entry; on exit the
     dict holds the launches made inside."""
-    from airjax_torch.kernels import block_decode, candidate, compact, fields, magdet
+    from airjax_torch.kernels import block_decode, candidate, compact, fields, magdet, shard_gather
 
     magdet.launches = magdet.bits_launches = block_decode.launches = compact.launches = candidate.launches = 0
-    fields.launches = block_decode.fields_launches = 0
+    fields.launches = block_decode.fields_launches = shard_gather.launches = 0
     got: dict[str, int] = {}
     yield got
     got.update(magdet_bits=magdet.bits_launches, block_decode=block_decode.launches,
                block_decode_fields=block_decode.fields_launches, compact_bits=compact.launches,
-               candidate=candidate.launches, magdet_front=magdet.launches, fields=fields.launches)
+               candidate=candidate.launches, magdet_front=magdet.launches, fields=fields.launches,
+               shard_gather=shard_gather.launches)
 
 
 # A block decode's launches: the front and the block-decode kernel once each;
 # a batched one's: the same, the block decode with F.
 ONE_PASS = {"magdet_bits": 1, "block_decode": 1, "block_decode_fields": 0, "compact_bits": 0, "candidate": 0,
-            "magdet_front": 0, "fields": 0}
+            "magdet_front": 0, "fields": 0, "shard_gather": 0}
 BATCHED_PASS = {**ONE_PASS, "block_decode_fields": 1}
 
 
@@ -958,13 +1001,7 @@ def device_profile(fn, marker: str, passes: int = 10) -> tuple[dict[str, float],
     `marker`, which fn launches once (the profiler can lose whole passes),
     and the launches per pass by kernel name; ({}, 0.0, 0, {}) if it
     recorded no device activity."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(passes):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = device_events(fn, passes)
     seen = sum(marker in e.name for e in events)
     if not seen:
         return {}, 0.0, 0, {}
@@ -973,11 +1010,7 @@ def device_profile(fn, marker: str, passes: int = 10) -> tuple[dict[str, float],
     for e in events:
         per_kernel[e.name] = per_kernel.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / seen
         per_pass[e.name] = per_pass.get(e.name, 0.0) + 1 / seen
-    busy, end = 0.0, float("-inf")
-    for t0, t1 in sorted((e.time_range.start, e.time_range.end) for e in events):
-        busy += max(0.0, t1 - max(t0, end))
-        end = max(end, t1)
-    return per_kernel, busy / seen, seen, per_pass
+    return per_kernel, busy_us(events) / seen, seen, per_pass
 
 
 # The kernel once a pass by which the profiler's passes are counted: the
@@ -997,7 +1030,7 @@ def profile_pass(name: str, fn, pass_us: float, n_samples: int, n_off: int, kern
     also that the pass ran `kernels` (the front and block-decode kernels
     unless given) once each, at most one memset, and nothing else."""
     kernels = kernels or PASS_KERNELS
-    for attempt in range(3):
+    for attempt in range(PROFILE_TRIES):
         per_kernel, busy, seen, per_pass = device_profile(fn, KERNEL_MARKER if kernel_path else PLAIN_MARKER)
         # The profiler can drop single kernel events of a window (a count a
         # pass below 1, never above): profile that window again.
@@ -1333,6 +1366,19 @@ def phase_stream(dev: torch.device) -> dict[str, int]:
               f"stats {json.dumps({k: v for k, v in stats.items() if k != 'stages'})}")
         print(f"stream stages: {json.dumps(stats['stages'])}")
 
+        # The sharded runner on a one-card mesh: the same hit list.
+        with counted() as n_sh:
+            text_s, stats_s, wall_s = run_cli(["adsb", "--playback", path, "--fast", "--devices", "1"])
+        check(hexes(text_s) == got and stats_s["good"] == stats["good"] and stats_s["recovered"] == len(corrupt),
+              f"adsb --devices 1 differs from overlap mode: stats {stats_s}")
+        check(n_sh["shard_gather"] > 0 and n_sh["magdet_bits"] == n_sh["block_decode"] == n_sh["shard_gather"]
+              and n_sh["compact_bits"] == n_sh["candidate"] == n_sh["fields"] == 0,
+              f"adsb --devices 1: not a front, a block decode and a shard gather a step: {n_sh}")
+        launches["shard_gather"] = n_sh["shard_gather"]
+        print(f"stream --devices 1: {len(hexes(text_s))} frames == overlap mode; {STREAM_SAMPLES / wall_s / 1e6:.2f} "
+              f"MS/s ({wall_s:.2f} s wall); launches {json.dumps(n_sh)}; "
+              f"stats {json.dumps({k: v for k, v in stats_s.items() if k != 'stages'})}")
+
         text_p, _, wall_p = run_cli(["adsb", "--playback", path, "--fast", "--no-overlap"])
         hexes_p = hexes(text_p)
         want = [f.hex() for g, f in plain if g % CHUNK < CHUNK - 240]
@@ -1580,7 +1626,7 @@ def phase_tracker_stream(dev: torch.device) -> dict[str, int]:
     recovered2 counts the gated 2-flip frames (0 on the extended batched
     sink, as in airjax), and each batched pass launched the block decode
     with F once and the fields kernel never. Returns the launches of the
-    kernels line."""
+    kernels line and the traffic's IQ."""
     import urllib.request
 
     from airjax_torch.extended import handle_extended_update
@@ -1690,7 +1736,333 @@ def phase_tracker_stream(dev: torch.device) -> dict[str, int]:
     return {"block_decode_r2": n1["block_decode"], "block_decode_extended_r2": n4["block_decode"],
             "block_decode_fields": n3["block_decode_fields"], "block_decode_r2_fields": n2["block_decode_fields"],
             "block_decode_extended_fields": n7["block_decode_fields"],
-            "block_decode_extended_r2_fields": n5["block_decode_fields"]}
+            "block_decode_extended_r2_fields": n5["block_decode_fields"]}, iq
+
+
+# Phase 11: the sharded decode over a mesh, the analyses, the channels.
+SHARD_SAMPLES = 1 << 26  # 33.6 s at 2 MS/s, 256 MB of IQ
+SHARDS = 4  # shards of the mesh on the one card: 2^24 samples each
+SHARD_FRAMES = 4096
+ANALYTICS_SAMPLES = 1 << 25  # the first 16.8 s of the tracker traffic: one block of <= 2^25 offsets
+N_CHANNELS, CHANNEL_SAMPLES, CHANNEL_FRAMES = 8, 1 << 21, 128
+
+
+def sharded_capture(seed: int):
+    """SHARD_SAMPLES samples: SHARD_FRAMES DF17 frames at multiples of 300,
+    one straddling each shard edge of the SHARDS-shard mesh and one whose
+    window ends at the capture's end -> (iq, offsets, frames)."""
+    from airjax_torch.io import synth
+    from airjax_torch.parallel.halo import tuned_block
+
+    rng = np.random.default_rng(seed)
+    block = tuned_block(-(-SHARD_SAMPLES // SHARDS))
+    special = np.array([i * block - 120 for i in range(1, SHARDS)] + [SHARD_SAMPLES - 240])
+    grid = np.arange(0, (SHARD_SAMPLES - 240) // 300) * 300
+    grid = grid[np.abs(grid[:, None] - special[None]).min(axis=1) >= 300]
+    offsets = np.sort(np.concatenate([rng.choice(grid, SHARD_FRAMES - len(special), replace=False), special]))
+    frames = make_frames(len(offsets), seed)
+    return synth.modulate(frames, list(map(int, offsets)), SHARD_SAMPLES, noise_std=60.0, seed=seed), offsets, frames
+
+
+def gather_work(shards: list[dict], out: dict, extended: bool) -> tuple[int, int]:
+    """Bytes and operations of one shard gather on these inputs: every
+    slot's flags (valid, and good or the six classes), the offset of each
+    slot those flags pass (its range test, and the output's offset), the
+    other columns of the rows written (the classmask is computed, not read),
+    the C rows and the scalars written; a compare and an add a flag or
+    offset read, a copy a payload byte."""
+    from airjax_torch.kernels.shard_gather import MASK_KEYS
+
+    d, k, c = len(shards), shards[0]["offsets"].shape[0], out["offsets"].shape[0]
+    total = min(int(out["n_candidates" if extended else "n_good"]), c)
+    row = 4 + 14 + (1 + 14 + 12 if extended else 1) + (1 if "recovered2" in out else 0)
+    payload = row - 4 - (1 if extended else 0)
+    flags = 1 + (len(MASK_KEYS) if extended else 1)
+    passed = 0
+    for s in shards:
+        sel = torch.stack([s[key] for key in MASK_KEYS]).any(0) if extended else s["good"]
+        passed += int((s["valid"] & sel).sum())
+    n_bytes = d * k * flags + 4 * passed + d * 5 + total * payload + c * row + 9
+    return n_bytes, 2 * (d * k * flags + passed) + total * payload
+
+
+def check_shard_gather(dev: torch.device, real: list[tuple[str, list, int, int, int, bool]]) -> int:
+    """The shard-gather kernel against its plain version: random shard
+    outputs (K = 2048, D 1 and 4, both modes, with and without R2, C below
+    and above the total) and the sharded steps' own (without R2) -> max
+    abs error."""
+    from airjax_torch.kernels.candidate import CLASSES
+    from airjax_torch.kernels.shard_gather import shard_gather, shard_gather_plain
+
+    rng = np.random.default_rng(111)
+    cases = list(real)
+    for d in (1, SHARDS):
+        for extended in (False, True):
+            k, block = CAPACITY, 1 << 24
+            shards = []
+            for _ in range(d):
+                valid = rng.random(k) < 0.9
+                s = {"offsets": torch.as_tensor(np.where(valid, np.sort(rng.integers(0, block, k)), 0).astype(np.int32)),
+                     "valid": torch.as_tensor(valid), "frames": torch.as_tensor(rng.integers(0, 256, (k, 14), np.uint8)),
+                     "n_detections": torch.tensor(int(rng.integers(0, 2 * k)), dtype=torch.int32),
+                     "overflow": torch.tensor(False), "recovered2": torch.as_tensor(rng.random(k) < 0.2)}
+                if extended:
+                    s.update(frames_raw=torch.as_tensor(rng.integers(0, 256, (k, 14), np.uint8)),
+                             **{key: torch.as_tensor(rng.integers(0, 1 << 24, k).astype(np.int32))
+                                for key in ("df", "icao_ap_short", "icao_ap_long")})
+                else:
+                    s.update(good=torch.as_tensor(valid & (rng.random(k) < 0.5)),
+                             recovered=torch.as_tensor(rng.random(k) < 0.2))
+                s = {key: v.to(dev) for key, v in s.items()}
+                if extended:  # one (6, K) block, as the block decode writes them
+                    s.update(zip(CLASSES, torch.as_tensor(rng.random((6, k)) < 0.2).to(dev).unbind(0)))
+                shards.append(s)
+            for c in (d * k // 4, d * k + 100):
+                cases.append((f"random, D {d}, C {c}", shards, block, d * block - 240 - 77, c, extended))
+    err = 0
+    for name, shards, block, max_offset, c, extended in cases:
+        for r2 in (False, True) if "recovered2" in shards[0] else (False,):
+            got = shard_gather(shards, block, max_offset, c, extended=extended, recover2=r2)
+            want = shard_gather_plain(shards, block, max_offset, c, extended=extended, recover2=r2)
+            check(sorted(got) == sorted(want), f"shard gather keys differ on {name}")
+            e = max_abs_err((got[key], want[key]) for key in want)
+            check(e == 0, f"shard-gather kernel disagrees with plain on {name}, R2 {r2} (max abs err {e})")
+            err = max(err, e)
+        total = int(want["n_candidates" if extended else "n_good"])
+        print(f"  shard gather == plain, with and without R2: {name}, {'extended' if extended else 'DF17'}, "
+              f"total {total}" + (" > C" if total > c else ""))
+    torch.cuda.synchronize()
+    return err
+
+
+def sharded_step_profile(name: str, step, shards: list, d: int, n_off: int, k: int, gate: str) -> dict:
+    """One sharded step (pre-sharded input): its launches (a front and a
+    block decode a shard, one shard gather, nothing else), its time by CUDA
+    events, and under the profiler the device time of each kernel against
+    its bound -> {kernel: (launches a step, device µs a step, bound µs a step)}."""
+    with counted() as n:
+        step(shards)
+        torch.cuda.synchronize()
+    check(n == {**ONE_PASS, "magdet_bits": d, "block_decode": d, "shard_gather": 1},
+          f"{name}: not a front and a block decode a shard and one shard gather: {n}")
+    ms = cuda_ms(lambda: step(shards), reps=10)
+    want = {"magdet_bits_kernel": d, "block_decode_kernel": d, "shard_gather_kernel": 1}
+    for _ in range(PROFILE_TRIES):
+        per_kernel, busy, seen, per_pass = device_profile(lambda: step(shards), "shard_gather_kernel")
+        counts = {m: round(sum(c for key, c in per_pass.items() if m in key), 6) for m in want}
+        if counts == want and seen == 10:
+            break
+        print(f"profile, {name}: the profiler dropped events ({json.dumps(counts)}, {seen} of 10 steps); again")
+    other = [key for key in per_pass if "memset" not in key.lower() and not any(m in key for m in want)]
+    check(counts == want and seen == 10 and not other,
+          f"{name}: a step should run {d} fronts, {d} block decodes, one shard gather and nothing else, "
+          f"each recorded: {json.dumps(per_pass)} ({seen} of 10 steps recorded)")
+    L = n_off + 240
+    bounds = {"magdet_bits_kernel": bound(*front_work(L, n_off, gate, bits_bytes(L, n_off)))[0] * 1e3,
+              "block_decode_kernel": bound(*block_decode_work(n_off, k, gate == "preamble"))[0] * 1e3}
+    table = {}
+    for m in want:
+        dev_us = sum(us for key, us in per_kernel.items() if m in key)
+        table[m] = (want[m], dev_us, want[m] * bounds.get(m, float("nan")))
+    print(f"sharded step, {name}: {ms * 1e3:.1f} us by CUDA events, device busy {busy:.1f} us ({seen} of 10 steps "
+          f"recorded), idle share {1 - busy / (ms * 1e3):.3f}, {d * n_off / ms / 1e3:.1f} MS/s a step by "
+          f"events; kernels {sum(us for _, us, _ in table.values()):.1f} us device a step")
+    for m, (c, us, b) in table.items():
+        print(f"  {m}: {c} a step, {us:.2f} us device a step" + (f", bound {b:.2f} us" if b == b else ""))
+    return table
+
+
+def phase_sharded(dev: torch.device, tracker_iq: np.ndarray) -> tuple[list[dict], dict[str, int]]:
+    """Phase 11: the halo-sharded decode of a 2^26-sample capture (DF17 and
+    extended) on 4 shards of the card and on make_mesh(1), against
+    decode_capture_overlap and the embedded frames; a sharded step's
+    kernels profiled; the shard-gather kernel against its plain version;
+    analyze_capture(_extended) on the first 2^25 samples of the tracker
+    traffic, its fixes against the per-packet tracker's; decode_channels
+    on 8 channels; the sharded batched streams against run_stream's. ->
+    (the shard-gather kernel's entry, the launches of the paths)."""
+    from airjax_torch import analytics, pipeline
+    from airjax_torch.config import PipelineConfig
+    from airjax_torch.io import synth
+    from airjax_torch.kernels.shard_gather import shard_gather, shard_gather_plain
+    from airjax_torch.parallel import channels, halo
+    from airjax_torch.parallel.mesh import Mesh, make_mesh
+    from airjax_torch.protocol.packet import AdsbPacket
+    from airjax_torch.runner import run_stream, run_stream_sharded
+    from airjax_torch.track.aircraft import handle_aircraft_update
+    from airjax_torch.track.batch import BatchTracker, ExtendedBatchTracker
+
+    launches = {"shard_gather": 0, "fields": 0, "fields_extended": 0}
+
+    def add(n: dict) -> None:
+        launches["shard_gather"] += n["shard_gather"]
+
+    def shard_launches_ok(name: str, n: dict, d: int) -> None:
+        check(n["shard_gather"] >= 1 and n["magdet_bits"] == n["block_decode"] == d * n["shard_gather"]
+              and n["compact_bits"] == n["candidate"] == n["magdet_front"] == n["fields"] == 0
+              and n["block_decode_fields"] == 0,
+              f"{name}: not a front and a block decode a shard and a shard gather a step: {n}")
+
+    t0 = time.perf_counter()
+    iq, offsets, frames = sharded_capture(60)
+    want = list(zip(offsets.tolist(), frames))
+    print(f"sharded capture: {SHARD_SAMPLES} samples, {len(frames)} DF17 frames, {SHARDS - 1} at the edges of "
+          f"{SHARDS} shards, one ending at the capture's end; made in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    overlap, _ = pipeline.decode_capture_overlap(iq, PipelineConfig(block_len=1 << 22), device=dev)
+    wall = time.perf_counter() - t0
+    check([(h[1], h[2]) for h in overlap] == want, "decode_capture_overlap differs from the embedded frames")
+    print(f"decode_capture_overlap: {len(overlap)} hits == the embedded frames; {SHARD_SAMPLES / wall / 1e6:.1f} MS/s "
+          f"({wall:.2f} s wall, host included)")
+
+    steps = {}
+    for name, mesh, k, k_ext in (("4 shards of the card", Mesh([dev] * SHARDS), CAPACITY, 1 << 15),
+                                 ("make_mesh(1)", make_mesh(1, dev), 4 * CAPACITY, 1 << 17)):
+        d = mesh.size
+        for extended in (False, True):
+            kw = (dict(capacity_per_shard=k_ext) if extended else
+                  dict(capacity_per_shard=k, compact_capacity=2 * SHARD_FRAMES))
+            decode = halo.decode_capture_sharded_extended if extended else halo.decode_capture_sharded
+            with counted() as n:
+                got, stats = decode(iq, mesh, **kw)
+            shard_launches_ok(name, n, d)
+            add(n)
+            t0 = time.perf_counter()
+            decode(iq, mesh, **kw)
+            wall = time.perf_counter() - t0
+            if extended:
+                # Noise detections give AP candidates too; the cache lets through those whose
+                # residual is one of the 4096 ICAOs, so the other packets are held against the
+                # one-shard decode (the whole capture as one extended block), not against none.
+                long = [(o, p.packet) for o, p in got if type(p).__name__ == "AdsbPacket"]
+                check(long == want and stats["n_good_long"] == len(frames),
+                      f"{name}: the extended DF17 packets differ from the embedded frames")
+                gated = [(o, repr(p)) for o, p in got if type(p).__name__ != "AdsbPacket"]
+                if ("4 shards of the card", True) in steps:
+                    check(gated == steps[("4 shards of the card", True)][2],
+                          f"{name}: the cache-gated packets differ from the 4-shard decode's")
+            else:
+                gated = None
+                check(got == [(0, *h[1:]) for h in overlap], f"{name}: the hits differ from decode_capture_overlap's")
+            label = f"decode_capture_sharded{'_extended' if extended else ''}, {name}"
+            extra = f" (+ {len(gated)} cache-gated AP packets of noise)" if extended else ""
+            print(f"{label}: {len(got) - len(gated or ())} {'packets' if extended else 'hits'} == the embedded "
+                  f"frames{extra}; "
+                  f"{SHARD_SAMPLES / wall / 1e6:.1f} MS/s ({wall:.2f} s wall, host included; launches {json.dumps(n)}); "
+                  f"stats {json.dumps(stats)}")
+            steps[(name, extended)] = (mesh, stats, gated)
+
+    # A sharded step's kernels, and the gather at the step's shapes.
+    block = halo.tuned_block(-(-SHARD_SAMPLES // SHARDS))
+    padded = pipeline.pad_iq_non_detecting(iq, block * SHARDS)
+    mesh4 = steps[("4 shards of the card", False)][0]
+    shards = halo.shard_iq(padded, mesh4, block, halo._halo_size(block))
+    rows = {}
+    real = []
+    for extended in (False, True):
+        stats = steps[("4 shards of the card", extended)][1]
+        k, c = stats["capacity_per_shard"], stats["compact_capacity"]
+        build = halo.build_sharded_decoder_extended_compact if extended else halo.build_sharded_decoder_compact
+        step = build(mesh4, block * SHARDS, k, c)
+        table = sharded_step_profile(f"{'extended' if extended else 'DF17'}, {SHARDS} shards of {block}", step,
+                                     shards, SHARDS, block, k, "preamble" if extended else "df17")
+        outs = halo._decode_shards(mesh4, shards, block, halo._halo_size(block), k, extended)
+        args = (outs, block, block * SHARDS - 240, c)
+        gathered = shard_gather(*args, extended=extended)
+        real.append((f"the {'extended ' if extended else ''}sharded step's shards", outs, block, args[2], c, extended))
+        b_ms, b_by = bound(*gather_work(outs, gathered, extended))
+        rows[extended] = {"ms": cuda_ms(lambda: shard_gather(*args, extended=extended)),
+                          "plain_ms": cuda_ms(lambda: shard_gather_plain(*args, extended=extended)),
+                          "device_us": device_us(lambda: shard_gather(*args, extended=extended), ("shard_gather_kernel",)),
+                          "step_device_us": table["shard_gather_kernel"][1], "bound_ms": b_ms, "bound_by": b_by,
+                          "library_ms": None, "shape": f"D {SHARDS}, K {k}, C {c}"}
+        print(f"shard gather, {'extended' if extended else 'DF17'} ({rows[extended]['shape']}): kernel "
+              f"{rows[extended]['ms']:.4f} ms by events, {rows[extended]['device_us']:.2f} us device; plain "
+              f"{rows[extended]['plain_ms']:.4f} ms; bound {b_ms * 1e3:.3f} us ({b_by})")
+    err = check_shard_gather(dev, real)
+
+    # The analyses on the first 2^25 samples of the tracker traffic.
+    sub = tracker_iq[:ANALYTICS_SAMPLES]
+    hits, _ = pipeline.decode_capture_overlap(sub, device=dev)
+    per: dict = {}
+    online: dict[int, list] = {}  # the per-packet tracker's new positions, by aircraft
+    for _, off, frame, _ in hits:
+        packet = AdsbPacket.from_bytes(frame, off / analytics.SAMPLE_RATE)
+        prev = per[packet.icao].geo_position if packet.icao in per else None
+        handle_aircraft_update(packet, per)
+        g = per[packet.icao].geo_position
+        if g is not None and g is not prev:
+            online.setdefault(packet.icao, []).append((off, g.latitude, g.longitude))
+    for name, analyze, kw in (("analyze_capture", analytics.analyze_capture, {}),
+                              ("analyze_capture, devices=1", analytics.analyze_capture, {"devices": 1}),
+                              ("analyze_capture_extended", analytics.analyze_capture_extended, {})):
+        with counted() as n:
+            t0 = time.perf_counter()
+            tracks, stats = analyze(sub, device=dev, **kw)
+            wall = time.perf_counter() - t0
+        add(n)
+        launches["fields"] += n["fields"]
+        check(n["fields"] == (0 if "extended" in name else 1), f"{name}: not one fields launch: {n}")
+        fixes = {icao: [(f.offset, f.latitude, f.longitude) for f in t.fixes] for icao, t in tracks.items() if t.fixes}
+        check(sorted(fixes) == sorted(online), f"{name}: fixes for other aircraft than the per-packet tracker's")
+        for icao, fx in fixes.items():
+            # The batch CPR against the tracker's scalar math: to 1e-9 degrees (exact in the replay).
+            tol = 0.0 if "extended" in name else 1e-9
+            check([o for o, _, _ in fx] == [o for o, _, _ in online[icao]]
+                  and all(abs(a - b) <= tol and abs(c - e) <= tol for (_, a, c), (_, b, e) in zip(fx, online[icao])),
+                  f"{name} {icao:06x}: fixes differ from the per-packet tracker's")
+        print(f"{name}: {len(tracks)} aircraft, {stats['n_fixes']} fixes == the per-packet tracker's at the same "
+              f"offsets; {ANALYTICS_SAMPLES / wall / 1e6:.1f} MS/s ({wall:.2f} s wall); launches {json.dumps(n)}; "
+              f"stats {json.dumps(stats)}")
+
+    # Channels: 8 receivers of 2^21 samples on the card.
+    rng = np.random.default_rng(71)
+    chans, embedded = [], []
+    for c in range(N_CHANNELS):
+        offs = np.sort(rng.choice(np.arange(0, (CHANNEL_SAMPLES - 240) // 300) * 300, CHANNEL_FRAMES, replace=False))
+        fr = make_frames(CHANNEL_FRAMES, 80 + c)
+        chans.append(synth.modulate(fr, list(map(int, offs)), CHANNEL_SAMPLES, noise_std=60.0, seed=80 + c))
+        embedded.append(list(zip(offs.tolist(), fr)))
+    chans = np.stack(chans)
+    mesh_c = make_mesh(1, dev, axis="c")
+    channels.decode_channels(chans, mesh_c)
+    with counted() as n:
+        t0 = time.perf_counter()
+        results = channels.decode_channels(chans, mesh_c)
+        wall = time.perf_counter() - t0
+    check(n == {**ONE_PASS, "magdet_bits": N_CHANNELS, "block_decode": N_CHANNELS},
+          f"channels: not a front and a block decode a channel: {n}")
+    check([[(h[1], h[2]) for h in r] for r in results] == embedded, "channels: hits differ from the embedded frames")
+    print(f"decode_channels: {N_CHANNELS} channels of {CHANNEL_SAMPLES} samples, every frame; "
+          f"{N_CHANNELS * CHANNEL_SAMPLES / wall / 1e6:.1f} MS/s ({wall:.2f} s wall); launches {json.dumps(n)}")
+
+    # The sharded batched streams: the tables of run_stream's.
+    def blocks():
+        return (sub[i : i + CHUNK] for i in range(0, len(sub), CHUNK))
+
+    for name, tracker, extended in (("BatchTracker", BatchTracker, False),
+                                    ("ExtendedBatchTracker", ExtendedBatchTracker, True)):
+        single = tracker()
+        run_stream(blocks(), single, extended=extended, device=dev)
+        sharded = tracker()
+        with counted() as n:
+            t0 = time.perf_counter()
+            stats = run_stream_sharded(blocks(), sharded, mesh=Mesh([dev] * SHARDS), extended=extended).as_dict()
+            wall = time.perf_counter() - t0
+        add(n)
+        launches["fields_extended" if extended else "fields"] += n["fields"]
+        check(n["shard_gather"] == n["fields"] > 0 and n["magdet_bits"] == SHARDS * n["shard_gather"],
+              f"sharded {name}: not a shard gather and a fields launch a step: {n}")
+        check(same_table(table_view(sharded.aircrafts, extended), table_view(single.aircrafts, extended)),
+              f"run_stream_sharded, {name}: the table differs from run_stream's")
+        print(f"run_stream_sharded, {name}, {SHARDS} shards: the table == run_stream's ({len(single.aircrafts)} "
+              f"aircraft); {ANALYTICS_SAMPLES / wall / 1e6:.1f} MS/s ({wall:.2f} s wall); launches {json.dumps(n)}; "
+              f"stats {json.dumps({k: v for k, v in stats.items() if k != 'stages'})}")
+
+    entry = {"name": "shard_gather", "route": "cuda", "source": "airjax_torch/csrc/shard_gather.cu",
+             "replaces": "airjax/parallel/halo.py:259", "launches": None, "path": None, "max_abs_err": err,
+             **rows[False], "extended_path": rows[True]}
+    return [entry], launches
 
 
 def main() -> int:
@@ -1732,10 +2104,12 @@ def main() -> int:
     df17 = phase_stream(dev)
     phase_extended_block(ext_block_dev, capacity, ext_frames, ext_offsets)
     ext = phase_extended_stream(dev)
-    tracker = phase_tracker_stream(dev)
+    tracker, tracker_iq = phase_tracker_stream(dev)
+    sharded_entries, sharded = phase_sharded(dev, tracker_iq)
+    kernels += sharded_entries
     launches.update({**df17, **ext, **tracker, "block_decode": df17["block_decode"] + ext["block_decode"],
                      "magdet_front": front_launches["df17"], "magdet_front_preamble": front_launches["preamble"],
-                     "fields": chain_fields["df17"], "fields_extended": chain_fields["extended"]})
+                     **sharded, "shard_gather": sharded["shard_gather"] + df17["shard_gather"]})
     paths = {"magdet_bits": "adsb stream", "magdet_bits_preamble": "adsb --extended stream",
              "block_decode": "adsb stream + adsb --extended stream",
              "compact_bits": "block A/B, staged chain (DF17 + extended)",
@@ -1748,8 +2122,12 @@ def main() -> int:
              "block_decode_r2_fields": "tracker stream, BatchTracker --recover2",
              "block_decode_extended_fields": "tracker stream, ExtendedBatchTracker",
              "block_decode_extended_r2_fields": "tracker stream, ExtendedBatchTracker --recover2",
-             "fields": "phase 3 F checks, the old chain (A/B baseline; no decode path)",
-             "fields_extended": "phase 3 F checks, the old chain (A/B baseline; no decode path)"}
+             "fields": "phase 11: analyze_capture (overlap and devices=1), run_stream_sharded --batched "
+                       "(BatchTracker)",
+             "fields_extended": "phase 11: run_stream_sharded --batched --extended (ExtendedBatchTracker)",
+             "shard_gather": "phase 11: decode_capture_sharded(_extended) on 4 shards and make_mesh(1), "
+                             "analyze_capture(devices=1), analyze_capture_extended, the sharded batched streams; "
+                             "phase 6: adsb --devices 1"}
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["path"] = paths[k["name"]]

@@ -197,3 +197,53 @@ def test_fields_call(lib, extended, k):
         spans = sorted((t.data_ptr(), t.data_ptr() + t.numel() * t.element_size())
                        for t in {**long, **(short or {})}.values())
         assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+
+
+@pytest.mark.parametrize("recover2", [False, True])
+@pytest.mark.parametrize("extended", [False, True])
+@pytest.mark.parametrize("capacity", [0, 10])
+def test_shard_gather_call(lib, extended, recover2, capacity):
+    """12 pointers a shard in csrc/shard_gather.cu's `Shard` order, the 12 of
+    `Out`, the flags and the stream; the outputs disjoint slices of two
+    buffers, with airjax's keys, dtypes and shapes."""
+    from airjax_torch.kernels import shard_gather
+
+    n_off, k = 2000, 16
+    shards = []
+    for _ in range(3):
+        det_words = torch.zeros(magdet.n_det_words(n_off), dtype=torch.int32)
+        counts = torch.zeros(magdet.n_tiles(n_off), dtype=torch.int32)
+        shards.append(block_decode._block_decode_cuda(det_words, torch.zeros(100, dtype=torch.int32), counts, n_off,
+                                                      k, extended, recover2))
+    lib.calls.clear()
+    out = shard_gather._shard_gather_cuda(shards, tuple(shards[0]), k, n_off, 3 * n_off - 240, capacity, extended,
+                                          recover2)
+    (name, args), = lib.calls
+    assert name == "airjax_shard_gather" and args[-1] == STREAM
+    assert args[1:6] == (3, k, capacity, n_off, 3 * n_off - 240) and args[7:9] == (int(extended), int(recover2))
+    ptrs = list(args[0])
+    assert len(ptrs) == 36
+    for s, shard in enumerate(shards):
+        p = ptrs[12 * s : 12 * s + 12]
+        keys = ("offsets", "valid", shard_gather.MASK_KEYS[0] if extended else "good",
+                None if extended else "recovered", "frames", *(("frames_raw", "df", "icao_ap_short", "icao_ap_long")
+                                                               if extended else (None,) * 4),
+                "recovered2" if recover2 else None, "n_detections", "overflow")
+        assert p == [None if key is None else shard[key].data_ptr() for key in keys]
+    count_key = "n_candidates" if extended else "n_good"
+    out_keys = ("offsets", None if extended else "recovered", "classmask" if extended else None, "frames",
+                *(("frames_raw", "df", "icao_ap_short", "icao_ap_long") if extended else (None,) * 4),
+                "recovered2" if recover2 else None, count_key, "n_detections", "overflow")
+    assert list(args[6]) == [None if key is None else out[key].data_ptr() or None for key in out_keys]  # NULL: None
+    want = {"offsets": (torch.int32, (capacity,)), "frames": (torch.uint8, (capacity, 14)),
+            count_key: (torch.int32, ()), "n_detections": (torch.int32, ()), "overflow": (torch.bool, ())}
+    if extended:
+        want.update(classmask=(torch.uint8, (capacity,)), frames_raw=(torch.uint8, (capacity, 14)),
+                    **{key: (torch.int32, (capacity,)) for key in ("df", "icao_ap_short", "icao_ap_long")})
+    else:
+        want["recovered"] = (torch.bool, (capacity,))
+    if recover2:
+        want["recovered2"] = (torch.bool, (capacity,))
+    assert {key: (t.dtype, tuple(t.shape)) for key, t in out.items()} == want
+    spans = sorted((t.data_ptr(), t.data_ptr() + t.numel() * t.element_size()) for t in out.values() if t.numel())
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))

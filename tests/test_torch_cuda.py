@@ -23,6 +23,7 @@ from airjax_torch.kernels import block_decode as block_decode_mod
 from airjax_torch.kernels import candidate as candidate_mod
 from airjax_torch.kernels import compact as compact_mod
 from airjax_torch.kernels import magdet as magdet_mod
+from airjax_torch.kernels import shard_gather as shard_gather_mod
 from airjax_torch.kernels import stencil3 as stencil3_mod
 from torch_parity import assert_same_dict, cuda_device  # noqa: F401
 
@@ -529,3 +530,106 @@ def test_block_decode_fields_matches_plain_and_chain(cuda_device, case, extended
     if extended:
         chain["short_fields"] = short
     _same_with_fields(pipeline.to_host(chain), got)
+
+
+def _gather_shards(d: int, k: int, block: int, seed: int, extended: bool, device) -> list[dict]:
+    """D random shard dicts as the block decode lays them out (the six
+    classes one (6, K) block), on `device`."""
+    rng = np.random.default_rng(seed)
+    shards = []
+    for _ in range(d):
+        valid = rng.random(k) < 0.8
+        s = {"offsets": np.where(valid, np.sort(rng.integers(0, block, k)), 0).astype(np.int32), "valid": valid,
+             "frames": rng.integers(0, 256, (k, 14), np.uint8), "n_detections": np.int32(rng.integers(0, 2 * k + 1)),
+             "overflow": np.bool_(rng.random() < 0.1), "recovered2": rng.random(k) < 0.3}
+        if extended:
+            s.update(frames_raw=rng.integers(0, 256, (k, 14), np.uint8), df=rng.integers(0, 25, k).astype(np.int32),
+                     icao_ap_short=rng.integers(0, 1 << 24, k).astype(np.int32),
+                     icao_ap_long=rng.integers(0, 1 << 24, k).astype(np.int32))
+        else:
+            s.update(good=valid & (rng.random(k) < 0.6), recovered=rng.random(k) < 0.3)
+        t = {key: torch.as_tensor(v).to(device) for key, v in s.items()}
+        if extended:
+            classes = torch.as_tensor(rng.random((6, k)) < 0.25).to(device)
+            t.update(zip(shard_gather_mod.MASK_KEYS, classes.unbind(0)))
+        shards.append(t)
+    return shards
+
+
+@pytest.mark.parametrize("recover2", [False, True])
+@pytest.mark.parametrize("extended", [False, True])
+@pytest.mark.parametrize("d", [1, 3, 4, 32])
+def test_shard_gather_kernel_matches_plain(cuda_device, d, extended, recover2):  # noqa: F811
+    """The shard-gather kernel against its plain version: C below, near and
+    above the total, K from 0 to past a block scan's 512 rows; one launch."""
+    for k, block in ((0, 600), (37, 600), (1500, 1 << 16)):
+        shards = _gather_shards(d, k, block, seed=d + 7 * k, extended=extended, device=cuda_device)
+        max_offset = d * block - 240 - 19
+        for c in (0, 5, d * k // 2, d * k + 9):
+            before = shard_gather_mod.launches
+            got = shard_gather_mod.shard_gather(shards, block, max_offset, c, extended=extended, recover2=recover2)
+            assert shard_gather_mod.launches == before + 1
+            want = shard_gather_mod.shard_gather_plain(shards, block, max_offset, c, extended=extended,
+                                                      recover2=recover2)
+            torch.cuda.synchronize()
+            assert_same_dict(pipeline.to_host(want), pipeline.to_host(got))
+
+
+def test_shard_gather_kernel_raises(cuda_device):  # noqa: F811
+    shards = _gather_shards(33, 8, 600, 0, False, cuda_device)
+    with pytest.raises(ValueError, match="at most 32 shards"):
+        shard_gather_mod.shard_gather(shards, 600, 1000, 16)
+    ext = _gather_shards(2, 8, 600, 0, True, cuda_device)
+    ext[1]["good_df11"] = ext[1]["good_df11"].clone()  # not in the (6, K) block
+    with pytest.raises(ValueError, match=r"\(6, K\) block"):
+        shard_gather_mod.shard_gather(ext, 600, 1000, 16, extended=True)
+
+
+@pytest.mark.parametrize("extended", [False, True])
+def test_sharded_decode_on_card_matches_cpu(cuda_device, extended):  # noqa: F811
+    """decode_capture_sharded(_extended) on 4 shards of the card (a front, a
+    block decode a shard, one shard gather) == the same mesh on the CPU."""
+    from airjax_torch.parallel import halo
+    from airjax_torch.parallel.mesh import Mesh
+
+    n = 4 * halo.tuned_block(1 << 18)
+    iq, _ = _traffic(n, 3, spacing=2999)
+    if extended:
+        iq = _mixed(n, 3)
+    decode = halo.decode_capture_sharded_extended if extended else halo.decode_capture_sharded
+    before = (*_counts()[:2], shard_gather_mod.launches)
+    got = decode(iq, Mesh([cuda_device] * 4), capacity_per_shard=4096)
+    after = (*_counts()[:2], shard_gather_mod.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (4, 4, 1)
+    want = decode(iq, Mesh(["cpu"] * 4), capacity_per_shard=4096)
+    if extended:
+        assert [(o, repr(p)) for o, p in got[0]] == [(o, repr(p)) for o, p in want[0]] and got[0]
+    else:
+        assert got[0] == want[0] and got[0]
+    assert got[1] == want[1]
+
+
+def test_sharded_paths_on_card_match_cpu(cuda_device):  # noqa: F811
+    """run_stream_sharded (batched, extended), the channels and the analyses
+    on the card == on the CPU."""
+    from airjax_torch import analytics
+    from airjax_torch.parallel import channels
+    from airjax_torch.parallel.mesh import Mesh, make_mesh
+    from airjax_torch.runner import run_stream_sharded
+    from airjax_torch.track.batch import ExtendedBatchTracker
+
+    iq = _mixed(600_000, 4)
+    summaries = []
+    for mesh in (Mesh([cuda_device] * 2), Mesh(["cpu"] * 2)):
+        tracker = ExtendedBatchTracker()
+        stats = run_stream_sharded((iq[i : i + 20000] for i in range(0, len(iq), 20000)), tracker, mesh=mesh,
+                                   extended=True, recover2=True).as_dict()
+        summaries.append(({a: t.get_summary().to_json(extended=True) | {"lastContact": 0}
+                           for a, t in tracker.aircrafts.items()}, {k: stats[k] for k in ("good", "detections")}))
+    assert summaries[0] == summaries[1] and summaries[0][0]
+    chans = np.stack([_traffic(40_000, s, spacing=3001)[0] for s in range(4)])
+    assert channels.decode_channels(chans, make_mesh(1, cuda_device, axis="c")) == channels.decode_channels(
+        chans, make_mesh(1, "cpu", axis="c"))
+    for analyze in (analytics.analyze_capture, analytics.analyze_capture_extended):
+        got, want = analyze(iq, devices=1, device=cuda_device), analyze(iq, devices=1, device="cpu")
+        assert repr(got) == repr(want) and got[0]

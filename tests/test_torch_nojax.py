@@ -34,7 +34,9 @@ import importlib, pkgutil
 import airjax_torch
 names = sorted(m.name for m in pkgutil.walk_packages(airjax_torch.__path__, "airjax_torch."))
 for name in ("airjax_torch.kernels.block_decode", "airjax_torch.kernels.fields", "airjax_torch.track.batch",
-             "airjax_torch.track.state", "airjax_torch.ui.tui", "airjax_torch.ui.web"):
+             "airjax_torch.track.state", "airjax_torch.ui.tui", "airjax_torch.ui.web",
+             "airjax_torch.kernels.shard_gather", "airjax_torch.parallel.mesh", "airjax_torch.parallel.halo",
+             "airjax_torch.parallel.channels", "airjax_torch.analytics"):
     assert name in names, names
 for name in names:
     importlib.import_module(name)
@@ -62,6 +64,16 @@ tracker = ExtendedBatchTracker()
 stats = runner.run_stream(iter([iq]), tracker, extended=True, device="cpu", recover2=True)
 assert tracker.n_messages == len(mixed) and len(tracker.aircrafts) == 1, stats.as_dict()
 assert (web._STATIC_DIR / "index.html").is_file() and "airjax_torch" in str(web._STATIC_DIR)
+from airjax_torch import analytics
+from airjax_torch.parallel import halo
+from airjax_torch.parallel.mesh import make_mesh
+hits, _ = halo.decode_capture_sharded(synth.modulate([frame] * 2, [500, 3900], 8000, seed=1), make_mesh(2, "cpu"))
+assert [h[1] for h in hits] == [500, 3900], hits
+tracks, _ = analytics.analyze_capture_extended(iq, devices=2, device="cpu")
+assert len(tracks) == 1, tracks
+got = []
+runner.run_stream_sharded(iter([iq]), got.append, n_devices=2, extended=True, device="cpu")
+assert len(got) == len(mixed), got
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "airjax")]
 print("modules", len(names))
 """

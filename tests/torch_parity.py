@@ -7,6 +7,7 @@ output is an integer or a bit, so the tolerance is exact equality.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import enum
 
@@ -52,6 +53,40 @@ def packet_fields(packet) -> tuple:
         return {k: (v.name if isinstance(v, enum.Enum) else v) for k, v in items}
 
     return type(packet).__name__, dataclasses.asdict(packet, dict_factory=factory)
+
+
+@contextlib.contextmanager
+def airjax_builders_cached():
+    """airjax's sharded and channel step builders memoized by their
+    arguments while the context lasts, so that each shape jit-compiles once
+    in a test module instead of once a call. A built step is a pure
+    function of the builder's arguments, so every result is the same."""
+    from airjax.parallel import channels, halo
+
+    names = {halo: ("build_sharded_decoder", "build_sharded_decoder_compact", "build_sharded_decoder_extended",
+                    "build_sharded_decoder_extended_compact"),
+             channels: ("build_channel_decoder", "build_channel_decoder_extended")}
+
+    def cached(build):
+        steps = {}
+
+        def wrapper(*args, **kw):
+            key = (args, tuple(sorted(kw.items())))
+            try:
+                hash(key)
+            except TypeError:
+                return build(*args, **kw)
+            if key not in steps:
+                steps[key] = build(*args, **kw)
+            return steps[key]
+
+        return wrapper
+
+    with pytest.MonkeyPatch.context() as mp:
+        for module, builders in names.items():
+            for name in builders:
+                mp.setattr(module, name, cached(getattr(module, name)))
+        yield
 
 
 @pytest.fixture
