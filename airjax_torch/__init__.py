@@ -24,7 +24,12 @@ and returns the same output, bit for bit, on the same int16 IQ:
   airjax.config (DF17 fields)       -> airjax_torch.config
   airjax.io.synth / source / c16    -> airjax_torch.io.synth / source / c16
   airjax.ui.stream                  -> airjax_torch.ui.stream
-  airjax.cli (adsb, stream mode)    -> airjax_torch.cli
+  airjax.cli (adsb)                 -> airjax_torch.cli
+  airjax.parallel (mesh, halo,
+    channels, multihost)            -> airjax_torch.parallel.* (+ csrc/shard_gather.cu;
+                                       multihost over torch.distributed)
+  airjax.golden / visualise         -> airjax_torch.golden / visualise
+  airjax.observability              -> airjax_torch.observability (torch.profiler)
 
 Device rule (airjax_torch._dispatch): a kernel wrapper given CPU tensors
 runs the kernel's plain torch version; given CUDA tensors it launches the

@@ -51,7 +51,7 @@ _SIGNATURES = {
         ctypes.c_int, [_P, _P, _I64, _P, _I64, _I64, *[_P] * 17, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]),
     "airjax_fields": (ctypes.c_int, [_P, _P, _I64, _P, _P, _P]),
     "airjax_shard_gather": (
-        ctypes.c_int, [_P, ctypes.c_int, _I64, _I64, _I64, _I64, _P, ctypes.c_int, ctypes.c_int, _P]),
+        ctypes.c_int, [_P, ctypes.c_int, _I64, _I64, _I64, _I64, _P, ctypes.c_int, ctypes.c_int, _I64, _P]),
     "airjax_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 

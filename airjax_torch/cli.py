@@ -7,6 +7,8 @@
                                   [--jsonl PATH] [--state FILE]
                                   [--ref-lat LAT --ref-lon LON]
                                   [--evict-after SECONDS] [--devices N]
+                                  [--plot-dir DIR] [--dump-preamble]
+                                  [--trace DIR]
                                   [-d/--device N] [--torch-device cuda|cpu]
 
 Stream mode (the default) prints the reference's Display of every decoded
@@ -23,8 +25,13 @@ that raises — the port never falls back to the CPU on its own. `--devices
 N` decodes the stream over the first N cards (runner.run_stream_sharded),
 or with `--torch-device cpu` over N CPU shards. `-d/--device` is airjax's
 SDR index, read only for live input, which is not ported yet; a playback
-wins over --synthetic, as in airjax. Not ported: live SDR input, `list`,
-`receive`, `--trace`, `--plot-dir`, `--dump-preamble`.
+wins over --synthetic, as in airjax. The debug aids, in stream mode:
+`--plot-dir DIR` writes an SVG plot of each DF17 frame's magnitudes (it
+needs matplotlib), `--dump-preamble` prints each frame's preamble; both
+are refused with --devices (exit 2), as airjax refuses them. `--trace DIR`
+writes a torch.profiler trace of the run (the card's kernels included) to
+DIR. Each mode logs its final stats on the `airjax_torch` logger
+(observability.log_stats). Not ported: live SDR input, `list`, `receive`.
 """
 
 from __future__ import annotations
@@ -65,6 +72,16 @@ def _source(args):
 
 
 def _cmd_adsb(args) -> int:
+    if args.trace:
+        from airjax_torch import observability
+
+        with observability.trace(args.trace):
+            return _cmd_adsb_inner(args)
+    return _cmd_adsb_inner(args)
+
+
+def _cmd_adsb_inner(args) -> int:
+    from airjax_torch import observability
     from airjax_torch.config import DEFAULT_CONFIG
     from airjax_torch.runner import StreamStats, run_stream, run_stream_sharded
 
@@ -77,13 +94,20 @@ def _cmd_adsb(args) -> int:
     if args.devices is not None and args.no_overlap:
         print("error: --devices requires overlap mode (the sharded runner's halo IS the overlap)", file=sys.stderr)
         return 2
+    if args.devices is not None and (args.plot_dir or args.dump_preamble):
+        print("error: --plot-dir/--dump-preamble are single-device debug aids; drop --devices to use them",
+              file=sys.stderr)
+        return 2
 
     def _run(source, sink, stats=None):
         if args.devices is not None:
             return run_stream_sharded(source, sink, n_devices=args.devices, extended=args.extended, stats=stats,
                                       recover2=args.recover2, device=device)
+        # The debug aids print in stream mode only: the TUI owns the terminal.
         return run_stream(source, sink, overlap=not args.no_overlap, extended=args.extended, device=device,
-                          stats=stats, recover2=args.recover2)
+                          stats=stats, recover2=args.recover2,
+                          plot_dir=args.plot_dir if args.mode == "stream" else None,
+                          dump_preamble=args.dump_preamble and args.mode == "stream")
 
     ref_position = None
     if (args.ref_lat is None) != (args.ref_lon is None):
@@ -125,6 +149,7 @@ def _cmd_adsb(args) -> int:
         if args.jsonl:
             sink = tee(sink, jsonl_writer(args.jsonl))
         stats = _run(source, sink)
+        observability.log_stats("adsb_stream_done", stats.as_dict())
     elif args.mode == "interactive":
         from airjax_torch.ui.tui import TuiApp, interactive_display
 
@@ -140,8 +165,9 @@ def _cmd_adsb(args) -> int:
                     return
                 yield block
 
+        tui_stats = StreamStats()
         decode_thread = threading.Thread(
-            target=_run, args=(until_stopped(source), sink), kwargs={"stats": StreamStats()}, daemon=True
+            target=_run, args=(until_stopped(source), sink), kwargs={"stats": tui_stats}, daemon=True
         )
         decode_thread.start()
         interactive_display(app)
@@ -153,6 +179,7 @@ def _cmd_adsb(args) -> int:
         decode_thread.join()
         with app._lock:
             _save_state(app.aircrafts)
+        observability.log_stats("adsb_interactive_done", tui_stats.as_dict())
         return 0
     else:  # web
         from airjax_torch.ui.web import WebDisplay
@@ -166,7 +193,8 @@ def _cmd_adsb(args) -> int:
             display.aircrafts.update(restored)
         sink = display.batched_sink(extended=args.extended) if args.batched else display.on_packet
         try:
-            _run(source, sink)
+            stats = _run(source, sink)
+            observability.log_stats("adsb_web_done", stats.as_dict())
             print("source exhausted; web server still running (Ctrl-C to quit)")
             while True:
                 time.sleep(1)
@@ -194,6 +222,12 @@ def build_parser() -> argparse.ArgumentParser:
     adsb.add_argument("--no-overlap", action="store_true", help="reference chunking: boundary frames lost")
     adsb.add_argument("--fast", action="store_true", help="replay without the 2x-real-time sleep")
     adsb.add_argument("--port", type=int, default=8080, help="web mode: the HTTP port")
+    adsb.add_argument("--plot-dir", default=None, help="stream mode: an SVG magnitude plot per DF17 frame in DIR")
+    adsb.add_argument(
+        "--dump-preamble", action="store_true",
+        help="stream mode: print a textual preamble dump (block graph + magnitude/index table) per decoded frame "
+        "(the reference's print_preamble helpers, src/visualise.rs:38-62)",
+    )
     adsb.add_argument("--jsonl", default=None, help="append decoded packets as JSON lines")
     adsb.add_argument(
         "--extended", action="store_true",
@@ -224,6 +258,10 @@ def build_parser() -> argparse.ArgumentParser:
         "--devices", type=int, default=None, metavar="N",
         help="shard the decode over the first N devices of the mesh (continuous stream, halo between shards, "
         "carry between steps; with --torch-device cpu, N CPU shards); default: the single-device runner",
+    )
+    adsb.add_argument(
+        "--trace", default=None, metavar="DIR",
+        help="write a torch.profiler trace of the run (host and card) to DIR (chrome://tracing, ui.perfetto.dev)",
     )
     adsb.add_argument("--torch-device", choices=["cuda", "cpu"], default="cuda",
                       help="where the decode runs (default cuda; raises without a card)")

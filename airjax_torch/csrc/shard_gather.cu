@@ -9,7 +9,7 @@
 // airjax_torch/kernels/shard_gather.py::shard_gather_plain.
 //
 // Row r of shard s is selected when the slot is valid, its global offset
-// offsets[r] + s * block is at most max_offset, and (DF17) it is good or
+// offsets[r] + (first_shard + s) * block is at most max_offset, and (DF17) it is good or
 // (extended) one of the six classes is set; the extended rows carry the set
 // classes packed into a byte (bit c = class c). The selected rows are ranked
 // shard by shard, in slot order, which the block-decode kernel writes in
@@ -17,6 +17,10 @@
 // selected rows of the shards before s, when that is below C. Rows from the
 // total up to C are zero, as the psum leaves them; n_rows is the total,
 // n_det the shards' detections, overflow any shard's overflow or total > C.
+// first_shard is the global index of the first shard: a process of a
+// multi-process decode (airjax_torch/parallel/multihost.py) gathers its own
+// shards with rows that are already global; the kernel takes its first
+// shard's global offset, base0 = first_shard * block, as a parameter.
 //
 // One block per tile of 2048 rows of a shard, and one more per 8192 rows of
 // C. Every block counts the selected rows of all shards, its warps' loads
@@ -244,10 +248,11 @@ __device__ __forceinline__ void zero_row(const Out& out, long long d) {
   if constexpr (kR2) out.recovered2[d] = 0;
 }
 
+// base0 is the first shard's global offset (0 in one process).
 template <bool kExtended, bool kR2>
 __global__ void __launch_bounds__(kThreads)
 shard_gather_kernel(const Shards shards, int n_shards, long long k, long long c, long long block,
-                    long long max_offset, const Out out) {
+                    long long max_offset, const Out out, long long base0) {
   __shared__ int counts[kMaxShards];
   __shared__ int warp_sums[kWarps];
   __shared__ int list[kStep];
@@ -266,7 +271,7 @@ shard_gather_kernel(const Shards shards, int n_shards, long long k, long long c,
     int before = 0;
     const long long split = s == shard ? r0 : 0;
     const Shard& sh = shards.s[s];
-    const int sum = count_rows<kExtended>(sh, k, s * block, max_offset, split, warp_sums, &before);
+    const int sum = count_rows<kExtended>(sh, k, base0 + s * block, max_offset, split, warp_sums, &before);
     if (threadIdx.x == 0) counts[s] = sum;
     if (s == shard) in_shard_before = before;
   }
@@ -282,7 +287,7 @@ shard_gather_kernel(const Shards shards, int n_shards, long long k, long long c,
   // separates a thread's loads.
   if (shard >= 0) {
     const Shard& sh = shards.s[shard];
-    const long long shard_base = shard * block;
+    const long long shard_base = base0 + shard * block;
     const int local = threadIdx.x * kRankRows;
     int m[kRankRows], n = 0;
 #pragma unroll
@@ -336,22 +341,24 @@ shard_gather_kernel(const Shards shards, int n_shards, long long k, long long c,
 
 template <bool kExtended, bool kR2>
 void launch(const Shards& shards, int n_shards, long long k, long long c, long long block, long long max_offset,
-            const Out& out, cudaStream_t stream) {
+            const Out& out, long long first_shard, cudaStream_t stream) {
   const long long tiles = n_shards * ((k + kStep - 1) / kStep);
   const long long zero_blocks = (c + kZeroRows - 1) / kZeroRows;
   const long long blocks = tiles + (zero_blocks < kMaxZeroBlocks ? zero_blocks : kMaxZeroBlocks);
   const int grid = static_cast<int>(blocks > 0 ? blocks : 1);  // block 0 writes the scalars
-  shard_gather_kernel<kExtended, kR2><<<grid, kThreads, 0, stream>>>(shards, n_shards, k, c, block, max_offset, out);
+  shard_gather_kernel<kExtended, kR2><<<grid, kThreads, 0, stream>>>(shards, n_shards, k, c, block, max_offset, out,
+                                                                      first_shard * block);
 }
 
 }  // namespace
 
 // shard_ptrs: n_shards * 12 pointers, the fields of `Shard` in order for
 // each shard; out_ptrs: the 12 pointers of `Out`. All on the current device.
+// first_shard: the global index of the first shard (0 in one process).
 extern "C" int airjax_shard_gather(const void* const* shard_ptrs, int n_shards, long long k, long long c,
                                    long long block, long long max_offset, void* const* out_ptrs, int extended,
-                                   int recover2, void* stream) {
-  if (n_shards < 1 || n_shards > kMaxShards) return static_cast<int>(cudaErrorInvalidValue);
+                                   int recover2, long long first_shard, void* stream) {
+  if (n_shards < 1 || n_shards > kMaxShards || first_shard < 0) return static_cast<int>(cudaErrorInvalidValue);
   Shards shards = {};
   for (int s = 0; s < n_shards; ++s) {
     const void* const* p = shard_ptrs + 12 * s;
@@ -370,11 +377,11 @@ extern "C" int airjax_shard_gather(const void* const* shard_ptrs, int n_shards, 
                 static_cast<int32_t*>(out_ptrs[10]), static_cast<uint8_t*>(out_ptrs[11])};
   const auto s = static_cast<cudaStream_t>(stream);
   if (extended) {
-    if (recover2) launch<true, true>(shards, n_shards, k, c, block, max_offset, out, s);
-    else launch<true, false>(shards, n_shards, k, c, block, max_offset, out, s);
+    if (recover2) launch<true, true>(shards, n_shards, k, c, block, max_offset, out, first_shard, s);
+    else launch<true, false>(shards, n_shards, k, c, block, max_offset, out, first_shard, s);
   } else {
-    if (recover2) launch<false, true>(shards, n_shards, k, c, block, max_offset, out, s);
-    else launch<false, false>(shards, n_shards, k, c, block, max_offset, out, s);
+    if (recover2) launch<false, true>(shards, n_shards, k, c, block, max_offset, out, first_shard, s);
+    else launch<false, false>(shards, n_shards, k, c, block, max_offset, out, first_shard, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

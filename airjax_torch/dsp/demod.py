@@ -141,3 +141,36 @@ def slice_bits_packed(words: torch.Tensor, offsets: torch.Tensor) -> torch.Tenso
     pos = align[:, None] + 2 * t[None, :]  # (K, 112) in [0, 253]
     sel = torch.gather(gathered, 1, pos >> 5)
     return ((sel >> (31 - (pos & 31))) & 1).to(torch.uint8)
+
+
+def threshold_slice_bits(
+    mags: torch.Tensor, offsets: torch.Tensor, high, derate: float = 0.9
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's dead threshold slicer (`extract_manchester_threshold`,
+    demod.rs:142-173, #[allow(dead_code)]), in plain torch
+    (airjax/dsp/demod.py:148-196). No decode path runs it: the reference's
+    author measured it worse than the relative slicer.
+
+    Each half-bit of the frame at offset o is sliced against the derated
+    `high` (per offset, or one for all); a pair of equal halves is invalid
+    and decodes as 0, and a frame with more than 2 invalid pairs in any
+    byte is rejected. A tenth derate is exact in integers (x * 9 // 10
+    equals the reference's f64 truncation over the magnitude range, as
+    airjax proves), another one goes through float32. Windows past the end
+    are clamped, as airjax's dynamic_slice clamps them.
+    -> (bits (K, 112) uint8, ok (K,) bool)."""
+    offsets = torch.as_tensor(offsets, dtype=torch.int64, device=mags.device)
+    high = torch.as_tensor(high, device=mags.device).to(torch.int64).expand(offsets.shape)
+    num = derate * 10.0
+    if num == int(num):
+        threshold = high * int(num) // 10
+    else:
+        threshold = (high.to(torch.float32) * derate).to(torch.int64)
+    start = (offsets + DATA_OFFSET).clamp(0, max(mags.shape[0] - FRAME_SAMPLES, 0))
+    window = mags.to(torch.int64)[start[:, None] + torch.arange(FRAME_SAMPLES, device=mags.device)]
+    first = window[:, 0::2] > threshold[:, None]
+    second = window[:, 1::2] > threshold[:, None]
+    valid = first != second
+    bits = (first & valid).to(torch.uint8)
+    per_byte = (~valid).reshape(-1, FRAME_BITS // 8, 8).sum(dim=2)
+    return bits, (per_byte <= 2).all(dim=1)

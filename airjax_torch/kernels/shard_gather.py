@@ -8,7 +8,8 @@ rows. Here it is csrc/shard_gather.cu, on the mesh's first device, and its
 plain version `shard_gather_plain` is the same function in torch.
 
 Shard s's slot r is selected when it is valid, its global offset
-offsets[r] + s * block is at most `max_offset` and, DF17, it is `good`
+offsets[r] + (first_shard + s) * block is at most `max_offset` and, DF17,
+it is `good`
 (airjax/parallel/halo.py:376) or, extended, one of the six classes of
 `MASK_KEYS` is set (:561-566). The selected slots keep their order, shard
 by shard, so the rows come out sorted by offset; a row whose place is C or
@@ -18,7 +19,10 @@ leaves them. The result is airjax's compact dict: DF17 `offsets`,
 `offsets`, `classmask` (bit c = MASK_KEYS[c]), `df`, `icao_ap_short`,
 `icao_ap_long`, `frames`, `frames_raw`, `n_candidates`, `n_detections`,
 `overflow`; with recover2 also `recovered2`. `overflow` is any shard's
-overflow or a total above C (:416, :612).
+overflow or a total above C (:416, :612). `first_shard` is the global
+index of the first dict: a process of the multi-process decode
+(parallel/multihost.py) gathers its own shards into rows that are already
+global (0 in one process).
 
 `shard_gather` launches the kernel when the shards lie on one CUDA device
 and runs `shard_gather_plain` when they lie on the CPU. `launches` counts
@@ -54,13 +58,13 @@ def _selection(shard: dict, index: int, block: int, max_offset: int, extended: b
 
 def shard_gather_plain(
     shards: list[dict], block: int, max_offset: int, capacity: int, *, extended: bool = False,
-    recover2: bool = False,
+    recover2: bool = False, first_shard: int = 0,
 ) -> dict[str, torch.Tensor]:
     """Plain torch version: each shard's selected slots (nonzero), their
     rows concatenated in shard order, the first C of them at the front of a
     zero (C,) buffer."""
     rows: dict[str, list[torch.Tensor]] = {}
-    for i, shard in enumerate(shards):
+    for i, shard in enumerate(shards, first_shard):
         mask = _selection(shard, i, block, max_offset, extended)
         sel = torch.nonzero(mask).flatten()
         picked = {"offsets": shard["offsets"][sel] + i * block, "frames": shard["frames"][sel]}
@@ -89,16 +93,16 @@ def shard_gather_plain(
 
 def shard_gather(
     shards: list[dict], block: int, max_offset: int, capacity: int, *, extended: bool = False,
-    recover2: bool = False,
+    recover2: bool = False, first_shard: int = 0,
 ) -> dict[str, torch.Tensor]:
     """The D shards' block-decode dicts (capacity K each; shard s covers
-    global offsets s * block + [0, block)) -> airjax's compact dict of
+    global offsets (first_shard + s) * block + [0, block)) -> airjax's compact dict of
     capacity C = `capacity` (module docstring). The dicts are those of
     pipeline.decode_iq_block(_extended), with `recovered2` under recover2."""
     if not shards:
         raise ValueError("shard_gather: no shards")
-    if capacity < 0 or block < 0:
-        raise ValueError(f"shard_gather: capacity {capacity}, block {block}")
+    if capacity < 0 or block < 0 or first_shard < 0:
+        raise ValueError(f"shard_gather: capacity {capacity}, block {block}, first shard {first_shard}")
     keys = (_EXT_KEYS if extended else _DF17_KEYS) + (("recovered2",) if recover2 else ())
     k = shards[0]["offsets"].shape[0]
     for shard in shards:
@@ -108,8 +112,9 @@ def shard_gather(
         if any(shard[key].shape[:1] != (k,) for key in keys if shard[key].dim()):
             raise ValueError("shard_gather: the shards' capacities differ")
     if use_kernel(*(shard[key] for shard in shards for key in keys)):
-        return _shard_gather_cuda(shards, keys, k, block, max_offset, capacity, extended, recover2)
-    return shard_gather_plain(shards, block, max_offset, capacity, extended=extended, recover2=recover2)
+        return _shard_gather_cuda(shards, keys, k, block, max_offset, capacity, extended, recover2, first_shard)
+    return shard_gather_plain(shards, block, max_offset, capacity, extended=extended, recover2=recover2,
+                              first_shard=first_shard)
 
 
 def _pointer(t: torch.Tensor | None, dtype: torch.dtype, shape: tuple) -> int | None:
@@ -122,7 +127,7 @@ def _pointer(t: torch.Tensor | None, dtype: torch.dtype, shape: tuple) -> int | 
 
 def _shard_gather_cuda(
     shards: list[dict], keys: tuple, k: int, block: int, max_offset: int, capacity: int, extended: bool,
-    recover2: bool,
+    recover2: bool, first_shard: int = 0,
 ) -> dict[str, torch.Tensor]:
     global launches
     import ctypes
@@ -182,7 +187,7 @@ def _shard_gather_cuda(
     out_arr = (ctypes.c_void_p * len(out_ptrs))(*out_ptrs)
     with torch.cuda.device(device):
         rc = lib.airjax_shard_gather(shard_arr, len(shards), k, c, block, max_offset, out_arr, int(extended),
-                                     int(recover2), torch.cuda.current_stream().cuda_stream)
+                                     int(recover2), first_shard, torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "shard-gather kernel")
     launches += 1
     return out

@@ -1,11 +1,49 @@
-"""Host-side stage timing for the stream runner: the `StageTimer` of
-airjax/observability.py:45-81 (that module imports jax), with the same
-stage names in airjax_torch.runner: dispatch, fetch, apply."""
+"""Observability (airjax/observability.py, which imports jax): a profiler
+trace of a run, host-side stage timing, and one-line structured stat logs.
+
+  * `trace(...)`   — torch.profiler around a block: host ops and, where a
+                     card is present, the card's kernels and copies; written
+                     as a Chrome trace (chrome://tracing, ui.perfetto.dev)
+                     into the directory given (`adsb --trace DIR`)
+  * `StageTimer`   — wall-clock per named stage; the stream runner's
+                     stages are dispatch, fetch and apply
+  * `log_stats`    — `<event> <JSON of the stats, keys sorted>` at INFO
+"""
 
 from __future__ import annotations
 
 import contextlib
+import json
+import logging
+import os
 import time
+
+import torch
+
+logger = logging.getLogger("airjax_torch")
+
+
+@contextlib.contextmanager
+def trace(log_dir: str, enabled: bool = True):
+    """Profile the enclosed block (airjax :28-42) into
+    `log_dir`/airjax_torch.<pid>.<ns>.pt.trace.json; the CUDA activity is
+    recorded when a card is present. enabled=False does nothing."""
+    if not enabled:
+        yield
+        return
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        try:
+            yield
+        finally:
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+    path = os.path.join(log_dir, f"airjax_torch.{os.getpid()}.{time.time_ns()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    logger.info("profile written to %s", path)
 
 
 class StageTimer:
@@ -39,3 +77,8 @@ class StageTimer:
             }
             for name, total in sorted(totals.items())
         }
+
+
+def log_stats(event: str, stats: dict, level: int = logging.INFO) -> None:
+    """One structured line: the event, then the stats as JSON (airjax :84-86)."""
+    logger.log(level, "%s %s", event, json.dumps(stats, sort_keys=True))

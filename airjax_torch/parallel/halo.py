@@ -58,6 +58,8 @@ EXT_COMPACT_ROW_KEYS = ("offsets", "classmask", "df", "icao_ap_short", "icao_ap_
 _EXT_MASK_KEYS = MASK_KEYS
 _EXT_DATA_KEYS = ("df", "icao_ap_short", "icao_ap_long")
 _EXT_FRAME_KEYS = ("frames", "frames_raw")
+# The columns of the dense extended dict that assemble_extended consumes.
+EXT_DENSE_KEYS = ("offsets", *_EXT_MASK_KEYS, *_EXT_DATA_KEYS, *_EXT_FRAME_KEYS)
 
 
 def _halo_size(block: int) -> int:
@@ -133,6 +135,31 @@ def _decode_shards(mesh: Mesh, iq, block: int, halo: int, capacity: int, extende
     return [_to_device(out, mesh.devices[0]) for out in outs]
 
 
+def dense_rows(outs: list[dict], block: int, n_samples: int, extended: bool, first_shard: int = 0) -> dict:
+    """The shards' block-decode dicts -> the dense dict of all their slots
+    (airjax :111-142, :490-518): offsets globalized from shard first_shard
+    on (out of range: n_samples), the flags masked to owned in-capture
+    offsets (DF17 good and recovered, extended the six classes), the other
+    columns as decoded, and n_detections (and DF17 n_good), overflow over
+    the shards."""
+    max_offset = n_samples - WINDOW
+    parts: dict[str, list] = {}
+    for i, res in enumerate(outs, first_shard):
+        offsets = res["offsets"] + i * block
+        in_range = res["valid"] & (offsets <= max_offset)
+        parts.setdefault("offsets", []).append(torch.where(in_range, offsets, n_samples))
+        for k in _EXT_MASK_KEYS if extended else ("good", "recovered"):
+            parts.setdefault(k, []).append(res[k] & in_range)
+        for k in _EXT_DATA_KEYS + _EXT_FRAME_KEYS if extended else ("frames",):
+            parts.setdefault(k, []).append(res[k])
+    out = {k: torch.cat(v) for k, v in parts.items()}
+    out["n_detections"] = torch.stack([r["n_detections"] for r in outs]).sum(dtype=torch.int32)
+    if not extended:
+        out["n_good"] = out["good"].sum(dtype=torch.int32)
+    out["overflow"] = torch.stack([r["overflow"] for r in outs]).any()
+    return out
+
+
 def build_sharded_decoder(mesh: Mesh, n_samples: int, capacity_per_shard: int, axis: str = TIME_AXIS):
     """A step for captures of `n_samples` (airjax :62-142): (n_samples, 2)
     int16 IQ, or shard_iq's list -> the dense dict of every shard's slots,
@@ -140,24 +167,10 @@ def build_sharded_decoder(mesh: Mesh, n_samples: int, capacity_per_shard: int, a
     n_samples), good, recovered (D*K,) bool, frames (D*K, 14) uint8, and
     n_detections, n_good, overflow summed over the shards."""
     n_dev, block, halo = _shape(mesh, n_samples, axis)
-    max_offset = n_samples - WINDOW
 
     def step(iq) -> dict[str, torch.Tensor]:
-        parts: dict[str, list] = {"offsets": [], "good": [], "recovered": [], "frames": [], "n_good": []}
         outs = _decode_shards(mesh, iq, block, halo, capacity_per_shard, extended=False)
-        for i, res in enumerate(outs):
-            offsets = res["offsets"] + i * block
-            in_range = res["valid"] & (offsets <= max_offset)
-            parts["offsets"].append(torch.where(in_range, offsets, n_samples))
-            parts["good"].append(res["good"] & in_range)
-            parts["recovered"].append(res["recovered"] & in_range)
-            parts["frames"].append(res["frames"])
-            parts["n_good"].append(parts["good"][-1].sum(dtype=torch.int32))
-        out = {k: torch.cat(v) for k, v in parts.items() if k != "n_good"}
-        out["n_detections"] = torch.stack([r["n_detections"] for r in outs]).sum(dtype=torch.int32)
-        out["n_good"] = torch.stack(parts["n_good"]).sum(dtype=torch.int32)
-        out["overflow"] = torch.stack([r["overflow"] for r in outs]).any()
-        return out
+        return dense_rows(outs, block, n_samples, extended=False)
 
     return step
 
@@ -191,23 +204,10 @@ def build_sharded_decoder_extended(mesh: Mesh, n_samples: int, capacity_per_shar
     offsets, df / AP residuals / frames / raw frames as decoded, and
     n_detections, overflow over the shards."""
     n_dev, block, halo = _shape(mesh, n_samples, axis)
-    max_offset = n_samples - WINDOW
 
     def step(iq) -> dict[str, torch.Tensor]:
         outs = _decode_shards(mesh, iq, block, halo, capacity_per_shard, extended=True)
-        parts: dict[str, list] = {}
-        for i, res in enumerate(outs):
-            offsets = res["offsets"] + i * block
-            in_range = res["valid"] & (offsets <= max_offset)
-            parts.setdefault("offsets", []).append(torch.where(in_range, offsets, n_samples))
-            for k in _EXT_MASK_KEYS:
-                parts.setdefault(k, []).append(res[k] & in_range)
-            for k in _EXT_DATA_KEYS + _EXT_FRAME_KEYS:
-                parts.setdefault(k, []).append(res[k])
-        out = {k: torch.cat(v) for k, v in parts.items()}
-        out["n_detections"] = torch.stack([r["n_detections"] for r in outs]).sum(dtype=torch.int32)
-        out["overflow"] = torch.stack([r["overflow"] for r in outs]).any()
-        return out
+        return dense_rows(outs, block, n_samples, extended=True)
 
     return step
 
@@ -250,6 +250,83 @@ def _run_compact_with_regrow(make_step, iq_dev, K: int, C: int, block: int, n_de
     return out, scal, K, C
 
 
+def _run_dense_with_regrow(make_step, iq_dev, K: int, block: int) -> tuple[dict, int]:
+    """Run a dense step, regrowing K 4x, capped at block, while a shard
+    overflows: a detection storm must not drop hits (airjax :204-208) ->
+    (out on the host, K)."""
+    out = to_host(make_step(K)(iq_dev))
+    while bool(out["overflow"]) and K < block:
+        K = min(K * 4, block)
+        out = to_host(make_step(K)(iq_dev))
+    return out, K
+
+
+def collect_df17(make_step, iq_dev, K: int, C: int, block: int, n_dev: int, max_offset: int,
+                 gather: str) -> tuple[list, dict]:
+    """The DF17 decode over the shards, regrown on overflow -> (hits,
+    stats). make_step(k, c) builds the compact step (gather="compact") or
+    the dense one; hits are (0, global_offset, frame_bytes, recovered) at
+    offsets up to max_offset, in offset order; stats n_detections, n_good,
+    overflow, capacity_per_shard, and compact_capacity, fetched_bytes
+    (compact)."""
+    if gather == "compact":
+        out, scal, K, C = _run_compact_with_regrow(make_step, iq_dev, K, C, block, n_dev, "n_good")
+        n_good = int(scal["n_good"])
+        rows = to_host({k: out[k][:n_good] for k in ("offsets", "recovered", "frames")})
+        picked = range(n_good)
+        extra = {"compact_capacity": C, "fetched_bytes": n_good * (4 + 4 + 14)}
+    else:
+        rows, K = _run_dense_with_regrow(lambda k: make_step(k, C), iq_dev, K, block)
+        scal, picked, extra = rows, np.nonzero(rows["good"])[0], {}
+    hits = []
+    for k in picked:
+        off = int(rows["offsets"][k])
+        if off <= max_offset:
+            hits.append((0, off, rows["frames"][k].tobytes(), bool(rows["recovered"][k])))
+    hits.sort(key=lambda h: h[1])
+    stats = {
+        "n_detections": int(scal["n_detections"]),
+        "n_good": int(scal["n_good"]),
+        "overflow": bool(scal["overflow"]),
+        "capacity_per_shard": K,
+        **extra,
+    }
+    return hits, stats
+
+
+def collect_extended(make_step, iq_dev, K: int, C: int, block: int, n_dev: int, max_offset: int,
+                     gather: str) -> tuple[dict, dict]:
+    """The extended decode over the shards, regrown on overflow ->
+    (candidates, stats). make_step(k, c) builds the compact step
+    (gather="compact") or the dense one; the candidates are on the host in
+    the schema assemble_extended consumes, their classes masked to offsets
+    up to max_offset; stats n_detections, n_good_long, n_good_df11,
+    overflow, capacity_per_shard, and compact_capacity, n_candidates,
+    fetched_bytes (compact)."""
+    if gather == "compact":
+        out, scal, K, C = _run_compact_with_regrow(make_step, iq_dev, K, C, block, n_dev, "n_candidates")
+        n_cand = int(scal["n_candidates"])
+        cand = unpack_extended_compact(to_host({k: out[k][:n_cand] for k in EXT_COMPACT_ROW_KEYS}), n_cand)
+        extra = {"compact_capacity": C, "n_candidates": n_cand,
+                 "fetched_bytes": n_cand * (4 + 1 + 4 + 4 + 4 + 14 + 14)}
+    else:
+        scal, K = _run_dense_with_regrow(lambda k: make_step(k, C), iq_dev, K, block)
+        cand, extra = {k: scal[k] for k in EXT_DENSE_KEYS}, {}
+    # Windows past the capture (into a padded capture's padding) were never real.
+    in_cap = cand["offsets"] <= max_offset
+    for k in _EXT_MASK_KEYS:
+        cand[k] = cand[k] & in_cap
+    stats = {
+        "n_detections": int(scal["n_detections"]),
+        "n_good_long": int(np.sum(cand["good_long"])),
+        "n_good_df11": int(np.sum(cand["good_df11"])),
+        "overflow": bool(scal["overflow"]),
+        "capacity_per_shard": K,
+        **extra,
+    }
+    return cand, stats
+
+
 def unpack_extended_compact(out: dict, n: int | None = None) -> dict:
     """A fetched compact extended dict (numpy) -> the schema
     assemble_extended consumes: the classes unpacked from `classmask`,
@@ -286,47 +363,16 @@ def decode_capture_sharded(
     offset order, as pipeline.decode_capture_overlap's. gather="compact"
     fetches n_good rows (stats["fetched_bytes"]); "dense" every shard's K."""
     n, n_dev, block, padded_len, iq_dev = _prepare(iq, mesh, axis)
-    max_offset = n - WINDOW
-    hits = []
-    if gather == "compact":
-        C = compact_capacity or max(128, capacity_per_shard)
-        out, scal, capacity_per_shard, C = _run_compact_with_regrow(
-            lambda k, c: build_sharded_decoder_compact(mesh, padded_len, k, c, axis),
-            iq_dev, capacity_per_shard, C, block, n_dev, "n_good",
-        )
-        n_good = int(scal["n_good"])
-        rows = to_host({k: out[k][:n_good] for k in ("offsets", "recovered", "frames")})
-        for k in range(n_good):
-            off = int(rows["offsets"][k])
-            if off <= max_offset:
-                hits.append((0, off, rows["frames"][k].tobytes(), bool(rows["recovered"][k])))
-        stats = {
-            "n_detections": int(scal["n_detections"]),
-            "n_good": n_good,
-            "overflow": bool(scal["overflow"]),
-            "capacity_per_shard": capacity_per_shard,
-            "compact_capacity": C,
-            "fetched_bytes": n_good * (4 + 4 + 14),
-        }
-        return hits, stats
 
-    out = to_host(build_sharded_decoder(mesh, padded_len, capacity_per_shard, axis)(iq_dev))
-    # Regrow on a shard's overflow: a detection storm must not drop hits.
-    while bool(out["overflow"]) and capacity_per_shard < block:
-        capacity_per_shard = min(capacity_per_shard * 4, block)
-        out = to_host(build_sharded_decoder(mesh, padded_len, capacity_per_shard, axis)(iq_dev))
-    for k in np.nonzero(out["good"])[0]:
-        off = int(out["offsets"][k])
-        if off <= max_offset:
-            hits.append((0, off, out["frames"][k].tobytes(), bool(out["recovered"][k])))
-    hits.sort(key=lambda h: h[1])
-    stats = {
-        "n_detections": int(out["n_detections"]),
-        "n_good": int(out["n_good"]),
-        "overflow": bool(out["overflow"]),
-        "capacity_per_shard": capacity_per_shard,
-        "fetched_bytes": out["offsets"].size * (4 + 1 + 1) + out["frames"].size,
-    }
+    def make_step(k: int, c: int):
+        if gather == "compact":
+            return build_sharded_decoder_compact(mesh, padded_len, k, c, axis)
+        return build_sharded_decoder(mesh, padded_len, k, axis)
+
+    hits, stats = collect_df17(make_step, iq_dev, capacity_per_shard, compact_capacity or max(128, capacity_per_shard),
+                               block, n_dev, n - WINDOW, gather)
+    if gather != "compact":  # every shard's K slots: offsets, good, recovered, frames
+        stats["fetched_bytes"] = n_dev * stats["capacity_per_shard"] * (4 + 1 + 1 + 14)
     return hits, stats
 
 
@@ -339,45 +385,12 @@ def decode_capture_sharded_extended(
     as decoding the whole capture as one extended block, the ICAO cache
     seeing every CRC-validated frame before any AP candidate is gated."""
     n, n_dev, block, padded_len, iq_dev = _prepare(iq, mesh, axis)
-    max_offset = n - WINDOW
-    if gather == "compact":
-        C = compact_capacity or max(512, capacity_per_shard)
-        out, scal, capacity_per_shard, C = _run_compact_with_regrow(
-            lambda k, c: build_sharded_decoder_extended_compact(mesh, padded_len, k, c, axis),
-            iq_dev, capacity_per_shard, C, block, n_dev, "n_candidates",
-        )
-        n_cand = int(scal["n_candidates"])
-        unpacked = unpack_extended_compact(to_host({k: out[k][:n_cand] for k in EXT_COMPACT_ROW_KEYS}), n_cand)
-        # Windows past the capture (into the padding) were never real.
-        in_cap = unpacked["offsets"] <= max_offset
-        for k in _EXT_MASK_KEYS:
-            unpacked[k] = unpacked[k] & in_cap
-        packets = assemble_extended(unpacked, now, cache if cache is not None else IcaoCache())
-        stats = {
-            "n_detections": int(scal["n_detections"]),
-            "n_good_long": int(np.sum(unpacked["good_long"])),
-            "n_good_df11": int(np.sum(unpacked["good_df11"])),
-            "overflow": bool(scal["overflow"]),
-            "capacity_per_shard": capacity_per_shard,
-            "compact_capacity": C,
-            "n_candidates": n_cand,
-            "fetched_bytes": n_cand * (4 + 1 + 4 + 4 + 4 + 14 + 14),
-        }
-        return packets, stats
 
-    out = to_host(build_sharded_decoder_extended(mesh, padded_len, capacity_per_shard, axis)(iq_dev))
-    while bool(out["overflow"]) and capacity_per_shard < block:
-        capacity_per_shard = min(capacity_per_shard * 4, block)
-        out = to_host(build_sharded_decoder_extended(mesh, padded_len, capacity_per_shard, axis)(iq_dev))
-    in_cap = out["offsets"] <= max_offset
-    for k in _EXT_MASK_KEYS:
-        out[k] = out[k] & in_cap
-    packets = assemble_extended(out, now, cache if cache is not None else IcaoCache())
-    stats = {
-        "n_detections": int(out["n_detections"]),
-        "n_good_long": int(np.sum(out["good_long"])),
-        "n_good_df11": int(np.sum(out["good_df11"])),
-        "overflow": bool(out["overflow"]),
-        "capacity_per_shard": capacity_per_shard,
-    }
-    return packets, stats
+    def make_step(k: int, c: int):
+        if gather == "compact":
+            return build_sharded_decoder_extended_compact(mesh, padded_len, k, c, axis)
+        return build_sharded_decoder_extended(mesh, padded_len, k, axis)
+
+    cand, stats = collect_extended(make_step, iq_dev, capacity_per_shard,
+                                   compact_capacity or max(512, capacity_per_shard), block, n_dev, n - WINDOW, gather)
+    return assemble_extended(cand, now, cache if cache is not None else IcaoCache()), stats

@@ -13,8 +13,9 @@ on that card's current stream (the block-decode kernel keeps a per-device
 accumulator, so a card must never run two of them at once).
 
 `make_mesh(n)` takes the first n cards and raises when fewer exist, as
-airjax does; it never falls back to the CPU. airjax's `init_distributed`
-(jax.distributed, several processes) is not ported yet.
+airjax does; it never falls back to the CPU. A decode over several
+processes (airjax's jax.distributed) is parallel/multihost.py: each
+process holds a `Mesh` of its own shards.
 """
 
 from __future__ import annotations

@@ -35,8 +35,10 @@ replaced (front -> compaction kernel -> candidate kernel -> torch dict
 ops): the A/B baseline and a second oracle on the card.
 
 Both block decompositions of airjax are kept: parity (reference playback
-chunking, applied as an offset filter over one whole-stream scan) and
-overlap (every global offset scanned exactly once).
+chunking, applied as an offset filter over one whole-stream scan, or with
+fused=False the literal per-chunk decode, a front and a block-decode launch
+a chunk through `decode_iq_chunks`) and overlap (every global offset
+scanned exactly once).
 
 Every dict has airjax's keys and dtypes: offsets int32, valid/good/
 recovered/overflow bool, frames uint8 (K, 14), n_detections/n_good int32.
@@ -72,6 +74,7 @@ from airjax_torch.kernels.candidate import (
 )
 from airjax_torch.kernels.compact import compact_bits, compact_mask
 from airjax_torch.kernels.magdet import magdet, magdet_bits
+from airjax_torch.protocol.packet import AdsbPacket
 
 Hit = tuple[int, int, bytes, bool]
 
@@ -170,6 +173,17 @@ def decode_iq_block_extended_with_fields(
                              fields=True)
 
 
+def decode_iq_chunks(iq_chunks: torch.Tensor, n_off: int, capacity: int) -> dict[str, torch.Tensor]:
+    """(B, L, 2) int16 IQ chunks -> the batched candidate dict, every key
+    stacked over the chunks (airjax/pipeline.py:331-338, a vmap): each
+    chunk's decode_iq_block, a front and a block-decode launch a chunk on
+    CUDA."""
+    if iq_chunks.dim() != 3 or iq_chunks.shape[0] == 0:
+        raise ValueError(f"iq_chunks: expected (B >= 1, L, 2), got {tuple(iq_chunks.shape)}")
+    outs = [decode_iq_block(chunk, n_off, capacity) for chunk in iq_chunks]
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
 def to_host(out: dict) -> dict:
     """A decode's dict (nested field dicts included) as numpy arrays."""
     return {k: to_host(v) if isinstance(v, dict) else v.cpu().numpy() for k, v in out.items()}
@@ -223,22 +237,30 @@ def reference_chunk_count(n_samples: int, chunk: int = 20000) -> int:
 
 
 def decode_capture_parity(
-    iq: np.ndarray, cfg: PipelineConfig = DEFAULT_CONFIG, *, device: torch.device | str
+    iq: np.ndarray, cfg: PipelineConfig = DEFAULT_CONFIG, fused: bool = True, *, device: torch.device | str
 ) -> tuple[list[Hit], dict]:
     """Decode a capture with exact reference playback semantics
-    (airjax/pipeline.py:399-450, its fused=True form).
+    (airjax/pipeline.py:399-459).
 
     Hits are (chunk_index, offset_in_chunk, frame_bytes, recovered) in
-    scan order. The capture is scanned once as large overlap-save blocks;
-    the reference's chunking is then the offset filter o < chunk - 240 on
-    the whole-stream hits (magnitudes are per sample, so a chunk-local
-    detection equals the whole-stream one).
+    scan order. fused=True (default): the capture is scanned once as large
+    overlap-save blocks; the reference's chunking is then the offset filter
+    o < chunk - 240 on the whole-stream hits (magnitudes are per sample, so
+    a chunk-local detection equals the whole-stream one). fused=False: the
+    literal per-chunk decode (decode_iq_chunks), an overflowed chunk decoded
+    again at a larger capacity; the golden oracle's structure, kept to hold
+    the fused form to it.
     """
     chunk = cfg.block_len
     n_off = chunk - WINDOW
     n_chunks = reference_chunk_count(len(iq), chunk)
     if n_chunks == 0:
         return [], {"n_detections": 0, "n_good": 0, "overflow": False}
+    if not fused:
+        blocks = np.asarray(iq[: n_chunks * chunk], dtype=np.int16).reshape(n_chunks, chunk, 2)
+        out = to_host(decode_iq_chunks(torch.as_tensor(blocks, device=device), n_off, cfg.max_candidates))
+        hits = _collect_hits(out, lambda c, o: (c, o), blocks, n_off, cfg.max_candidates, device)
+        return hits, _collect_stats(out)
 
     scan_cfg = dataclasses.replace(cfg, block_len=max(chunk, 1 << 22))
     prep = _prep_overlap(np.asarray(iq[: n_chunks * chunk]), scan_cfg, device)
@@ -327,3 +349,38 @@ def _overlap_scan(
         stats["n_recovered"] += int(np.sum(out["recovered"]))
         stats["overflow"] |= bool(out["overflow"])
     return hits, stats
+
+
+def _collect_hits(
+    out: dict, to_global, blocks: np.ndarray | None = None, n_off: int | None = None, capacity: int | None = None,
+    device: torch.device | str | None = None,
+) -> list[Hit]:
+    """A batched host dict's hits in order (airjax/pipeline.py:579-606);
+    with the raw blocks given, an overflowed block is decoded again by
+    decode_iq_block_adaptive, so that an overflow never loses a hit."""
+    hits = []
+    for b in range(out["offsets"].shape[0]):
+        if blocks is not None and bool(out["overflow"][b]):
+            res = decode_iq_block_adaptive(blocks[b], n_off, capacity, device)
+        else:
+            res = {k: out[k][b] for k in ("good", "offsets", "frames", "recovered")}
+        for k in np.nonzero(res["good"])[0]:
+            blk, off = to_global(b, int(res["offsets"][k]))
+            hits.append((blk, off, res["frames"][k].tobytes(), bool(res["recovered"][k])))
+    return hits
+
+
+def _collect_stats(out: dict) -> dict:
+    """A batched host dict's stats (airjax/pipeline.py:609-615)."""
+    return {
+        "n_detections": int(np.sum(out["n_detections"])),
+        "n_good": int(np.sum(out["n_good"])),
+        "n_recovered": int(np.sum(out["recovered"])),
+        "overflow": bool(np.any(out["overflow"])),
+    }
+
+
+def hits_to_packets(hits: list[tuple[int, int, bytes, float | None]], time_processed: float | None = None):
+    """Hits -> AdsbPacket.from_bytes of each frame, lazily (airjax/pipeline.py:618-623)."""
+    for _, _, frame, _ in hits:
+        yield AdsbPacket.from_bytes(frame, time_processed)

@@ -190,3 +190,19 @@ def try_crc_recovery2_scalar(frame: bytes) -> bytes | None:
     buf[i // 8] ^= 1 << (7 - i % 8)
     buf[j // 8] ^= 1 << (7 - j % 8)
     return bytes(buf)
+
+
+def try_crc_recovery_scalar(frame: bytes) -> bytes | None:
+    """Scalar single-bit repair, every bit of the frame in order (the
+    reference's src/adsb/crc.rs:49-65; airjax/protocol/crc.py:227-237):
+    the first flip whose CRC then matches the packet's, or None. The
+    golden oracle's repair."""
+    buf = bytearray(frame)
+    packet_crc = (buf[-3] << 16) | (buf[-2] << 8) | buf[-1]
+    for num in range(len(buf)):
+        for i in range(8):
+            augmented = bytearray(buf)
+            augmented[num] ^= 1 << (7 - i)
+            if crc24(bytes(augmented[:-3])) == packet_crc:
+                return bytes(augmented)
+    return None

@@ -27,8 +27,13 @@ in the stream (per packet, or `_gate_recover2_batch` for a batched sink);
 in extended mode the ICAO cache gates them (assemble_extended pass 1.5,
 or the batched sink's own). stats.recovered2 counts the accepted repairs
 on every path but the extended batched sink's, as in airjax
-(:129-131): there it stays 0. airjax's plot and preamble-dump branches
-and run_stream's pipeline_depth are not ported.
+(:129-131): there it stays 0. The debug aids of airjax (:268-330) take
+every frame one at a time, so they make the sink per packet:
+`plot_dir` writes an SVG plot of each decoded frame's magnitudes
+(visualise.plot_adsb_frame, DF17), `dump_preamble` prints each frame's
+preamble (visualise.dump_preamble), after a DF17 packet's sink call and
+before an extended one's, as airjax prints them. run_stream's
+pipeline_depth is not ported.
 
 run_stream decodes blocks one at a time: each block is uploaded, decoded,
 and its results copied back and applied before the next is dispatched.
@@ -133,22 +138,24 @@ class _Sink:
     to a sink, per packet or batched (`on_fields`, `on_extended_block`),
     through the extended ICAO cache and the recover2 gate."""
 
-    def __init__(self, on_packet, extended: bool, recover2: bool, stats: StreamStats):
+    def __init__(self, on_packet, extended: bool, recover2: bool, stats: StreamStats, per_packet: bool = False):
         self.on_packet = on_packet
         self.extended = extended
         self.recover2 = recover2
         self.stats = stats
-        self.batch_fn = None if extended else getattr(on_packet, "on_fields", None)
-        self.ext_batch_fn = getattr(on_packet, "on_extended_block", None) if extended else None
+        self.batch_fn = None if extended or per_packet else getattr(on_packet, "on_fields", None)
+        self.ext_batch_fn = getattr(on_packet, "on_extended_block", None) if extended and not per_packet else None
         self.batched = self.batch_fn is not None or self.ext_batch_fn is not None
         self.icao_cache = IcaoCache()
         self.seen_icaos: set[int] = set()  # the DF17 recover2 gate
 
-    def apply(self, out: dict, keep: np.ndarray | None, min_offset: int | None, now: float) -> int:
+    def apply(self, out: dict, keep: np.ndarray | None, min_offset: int | None, now: float,
+              on_frame: Callable[[int], None] | None = None) -> int:
         """One block's host dict to the sink -> the packets emitted. `keep`
         masks the DF17 rows; in extended mode the candidates at local
         offsets below `min_offset` (the padded head of the stream) seed the
-        ICAO cache but are not emitted."""
+        ICAO cache but are not emitted. A per-packet sink calls `on_frame`
+        with each emitted frame's local offset (the debug aids)."""
         stats = self.stats
         if self.ext_batch_fn is not None:
             return self.ext_batch_fn(out, now, self.icao_cache, min_offset=min_offset)
@@ -162,6 +169,8 @@ class _Sink:
                     continue
                 if local in rec2_offs:
                     stats.recovered2 += 1
+                if on_frame is not None:
+                    on_frame(local)
                 self.on_packet(packet)
                 emitted += 1
             return emitted
@@ -185,6 +194,8 @@ class _Sink:
                     self.seen_icaos.add(icao)
             self.on_packet(AdsbPacket.from_bytes(frame, now))
             emitted += 1
+            if on_frame is not None:
+                on_frame(int(out["offsets"][k]))
         return emitted
 
 
@@ -208,14 +219,18 @@ def run_stream(
     device: torch.device | str,
     stats: StreamStats | None = None,
     recover2: bool = False,
+    plot_dir: str | None = None,
+    dump_preamble: bool = False,
 ) -> StreamStats:
     """Consume a block source until exhausted; call on_packet per packet
     (with extended=True, also AllCallReply, SurveillanceReply, AcasReply
-    and CommDReply objects), or hand a batched sink each block."""
+    and CommDReply objects), or hand a batched sink each block. plot_dir
+    and dump_preamble are the debug aids (module docstring)."""
     stats = stats or StreamStats()
     # A batched sink (track.batch): on_fields in DF17 mode, on_extended_block
-    # in extended mode; any other sink takes packets.
-    sink = _Sink(on_packet, extended, recover2, stats)
+    # in extended mode; any other sink, or the debug aids, take packets.
+    debug = plot_dir is not None or dump_preamble
+    sink = _Sink(on_packet, extended, recover2, stats, per_packet=debug)
     decode = _decode_fn(extended, sink.batched, recover2)
     halo = WINDOW - 1
     # The initial carry is the non-detecting (1,0)-magnitude pattern: a
@@ -247,7 +262,9 @@ def run_stream(
             # stream (airjax/runner.py:283-289). Offsets below 0 are the
             # padded head of the first block.
             good = good & (out["offsets"].astype(np.int64) + base >= 0)
-        emitted = sink.apply(out, good, -base if overlap and base < 0 else None, now)
+        on_frame = functools.partial(_debug_frame, ext, base if overlap else 0, plot_dir, dump_preamble,
+                                     extended) if debug else None
+        emitted = sink.apply(out, good, -base if overlap and base < 0 else None, now, on_frame)
         stats.stages.add("apply", time.perf_counter() - t_apply)
         # The tail flush is an extra decode, not a source block (n_samples=0).
         stats.blocks += 1 if n_samples else 0
@@ -293,6 +310,20 @@ def run_stream(
         # Tail flush: the carry's offsets whose windows end at the stream end.
         _decode(carry, carry.shape[0] - halo, global_base, 0)
     return stats
+
+
+def _debug_frame(ext: np.ndarray, base: int, plot_dir: str | None, dump_preamble: bool, extended: bool,
+                 local: int) -> None:
+    """The debug aids for the frame at `local` of the block `ext`, whose
+    first sample is global sample `base` (airjax/runner.py:268-279,
+    :313-330): a DF17 frame's plot (plot_dir) and each frame's preamble dump."""
+    from airjax_torch import golden, visualise
+
+    if plot_dir is not None and not extended:
+        visualise.plot_adsb_frame(golden.magnitude(ext[local : local + WINDOW]), out_dir=plot_dir,
+                                  detection_offset=0, title=f"frame @ {base + local}")
+    if dump_preamble:
+        print(visualise.dump_preamble(golden.magnitude(ext[local : local + 16]), offset=base + local))
 
 
 def run_stream_sharded(

@@ -19,10 +19,18 @@ the median of 20 CUDA-event pairs around a call. Each turn also prints
 the registers, stack and spills of the tree's `csrc/shard_gather.cu`
 (`nvcc -Xptxas -v` with the build's flags). Prints one JSON line per turn
 and the card's name and power limit.
+
+  python3 airjax_torch/tools/ab_shard_gather.py --sass OLD_TREE NEW_TREE
+
+compares the SASS of each instantiation of OLD's `shard_gather_kernel`
+with NEW's of the same modes (and with every flag NEW adds false),
+instructions with addresses and constants masked, as
+tools/block_decode_sass.py does for the block-decode kernel; needs no card.
 """
 
 from __future__ import annotations
 
+import difflib
 import json
 import os
 import re
@@ -119,7 +127,42 @@ def one(tree: str) -> dict:
     return out
 
 
+def sass(old: str, new: str) -> int:
+    """OLD's instantiations against NEW's with every added flag false."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from block_decode_sass import FLAGS, functions, toolkit
+
+    found = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, tree in enumerate((old, new)):
+            obj = os.path.join(tmp, f"{i}.o")
+            csrc = os.path.join(tree, "airjax_torch", "csrc")
+            subprocess.run([toolkit("nvcc"), *FLAGS, f"-I{csrc}", "-c", "-o", obj, os.path.join(csrc, "shard_gather.cu")],
+                           capture_output=True, text=True, check=True)
+            kernels = {}
+            for name, ins in functions(obj).items():
+                m = re.search(r"shard_gather_kernelI((?:Lb[01]E)+)E", name)
+                if m:
+                    flags = re.findall(r"Lb([01])E", m.group(1))
+                    kernels[tuple(flags)] = ins
+            found.append(kernels)
+    same = True
+    for flags, ins in sorted(found[0].items()):
+        extra = max(len(f) for f in found[1]) - len(flags)
+        mine = found[1][flags + ("0",) * extra]
+        renamed = sorted(re.sub(r"\bU?R\d+", "R", x) for x in ins) == sorted(re.sub(r"\bU?R\d+", "R", x) for x in mine)
+        print(f"modes {flags}: {old} {len(ins)} instructions, {new} {len(mine)}; the same: {ins == mine}; "
+              f"the same instructions up to registers and order: {renamed}")
+        if ins != mine:  # the first differences, to see what moved
+            diff = [ln for ln in difflib.unified_diff(ins, mine, old, new, n=0, lineterm="") if ln[:1] in "+-"]
+            print("\n".join(f"  {ln}" for ln in diff[2:14]))
+        same &= ins == mine
+    return 0 if same else 1
+
+
 def main(argv: list[str]) -> int:
+    if argv[:1] == ["--sass"]:
+        return sass(*argv[1:3])
     if argv[:1] == ["--one"]:
         print(json.dumps(one(argv[1])))
         return 0

@@ -1142,7 +1142,11 @@ def phase_stencil_ab(block_dev: torch.Tensor) -> dict[str, tuple[float, float, i
         fn = (lambda: magdet(block_dev, n_off, packed=False)) if name == "flat" else (
             lambda: stencil3.magdet_tree(block_dev, n_off, name))
         before = stencil3.launches
-        per_kernel, _, _, _ = device_profile(fn, "magdet")
+        for _ in range(PROFILE_TRIES):  # a window that recorded no device activity is profiled again
+            per_kernel, _, _, _ = device_profile(fn, "magdet")
+            if per_kernel:
+                break
+            print(f"stencil A/B, {name}: the profiler recorded no device activity; again")
         if name != "flat":
             launches[name] += stencil3.launches - before
         device[name] = max(per_kernel.values(), default=float("nan"))
@@ -1749,14 +1753,17 @@ N_CHANNELS, CHANNEL_SAMPLES, CHANNEL_FRAMES = 8, 1 << 21, 128
 
 def sharded_capture(seed: int):
     """SHARD_SAMPLES samples: SHARD_FRAMES DF17 frames at multiples of 300,
-    one straddling each shard edge of the SHARDS-shard mesh and one whose
-    window ends at the capture's end -> (iq, offsets, frames)."""
+    one straddling each shard edge of the SHARDS-shard mesh (padded to
+    tuned_block), one straddling each edge of the multi-process decode's
+    SHARDS shards (not padded, so the rank boundaries of phase 12) and one
+    whose window ends at the capture's end -> (iq, offsets, frames)."""
     from airjax_torch.io import synth
     from airjax_torch.parallel.halo import tuned_block
 
     rng = np.random.default_rng(seed)
     block = tuned_block(-(-SHARD_SAMPLES // SHARDS))
-    special = np.array([i * block - 120 for i in range(1, SHARDS)] + [SHARD_SAMPLES - 240])
+    unpadded = SHARD_SAMPLES // SHARDS
+    special = np.array([i * b - 120 for b in (block, unpadded) for i in range(1, SHARDS)] + [SHARD_SAMPLES - 240])
     grid = np.arange(0, (SHARD_SAMPLES - 240) // 300) * 300
     grid = grid[np.abs(grid[:, None] - special[None]).min(axis=1) >= 300]
     offsets = np.sort(np.concatenate([rng.choice(grid, SHARD_FRAMES - len(special), replace=False), special]))
@@ -1789,8 +1796,9 @@ def gather_work(shards: list[dict], out: dict, extended: bool) -> tuple[int, int
 def check_shard_gather(dev: torch.device, real: list[tuple[str, list, int, int, int, bool]]) -> int:
     """The shard-gather kernel against its plain version: random shard
     outputs (K = 2048, D 1 and 4, both modes, with and without R2, C below
-    and above the total) and the sharded steps' own (without R2) -> max
-    abs error."""
+    and above the total, and as the shards of a process of the
+    multi-process decode, from global shard 2) and the sharded steps' own
+    (without R2) -> max abs error."""
     from airjax_torch.kernels.candidate import CLASSES
     from airjax_torch.kernels.shard_gather import shard_gather, shard_gather_plain
 
@@ -1819,11 +1827,15 @@ def check_shard_gather(dev: torch.device, real: list[tuple[str, list, int, int, 
                 shards.append(s)
             for c in (d * k // 4, d * k + 100):
                 cases.append((f"random, D {d}, C {c}", shards, block, d * block - 240 - 77, c, extended))
+            cases.append((f"random, D {d} from shard 2, C {d * k}", shards, block, (2 + d) * block - 240 - 77,
+                          d * k, extended))
     err = 0
     for name, shards, block, max_offset, c, extended in cases:
+        first = 2 if "from shard 2" in name else 0
         for r2 in (False, True) if "recovered2" in shards[0] else (False,):
-            got = shard_gather(shards, block, max_offset, c, extended=extended, recover2=r2)
-            want = shard_gather_plain(shards, block, max_offset, c, extended=extended, recover2=r2)
+            got = shard_gather(shards, block, max_offset, c, extended=extended, recover2=r2, first_shard=first)
+            want = shard_gather_plain(shards, block, max_offset, c, extended=extended, recover2=r2,
+                                      first_shard=first)
             check(sorted(got) == sorted(want), f"shard gather keys differ on {name}")
             e = max_abs_err((got[key], want[key]) for key in want)
             check(e == 0, f"shard-gather kernel disagrees with plain on {name}, R2 {r2} (max abs err {e})")
@@ -1872,7 +1884,7 @@ def sharded_step_profile(name: str, step, shards: list, d: int, n_off: int, k: i
     return table
 
 
-def phase_sharded(dev: torch.device, tracker_iq: np.ndarray) -> tuple[list[dict], dict[str, int]]:
+def phase_sharded(dev: torch.device, tracker_iq: np.ndarray, capture) -> tuple[list[dict], dict[str, int]]:
     """Phase 11: the halo-sharded decode of a 2^26-sample capture (DF17 and
     extended) on 4 shards of the card and on make_mesh(1), against
     decode_capture_overlap and the embedded frames; a sharded step's
@@ -1903,11 +1915,8 @@ def phase_sharded(dev: torch.device, tracker_iq: np.ndarray) -> tuple[list[dict]
               and n["block_decode_fields"] == 0,
               f"{name}: not a front and a block decode a shard and a shard gather a step: {n}")
 
-    t0 = time.perf_counter()
-    iq, offsets, frames = sharded_capture(60)
+    iq, offsets, frames = capture
     want = list(zip(offsets.tolist(), frames))
-    print(f"sharded capture: {SHARD_SAMPLES} samples, {len(frames)} DF17 frames, {SHARDS - 1} at the edges of "
-          f"{SHARDS} shards, one ending at the capture's end; made in {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     overlap, _ = pipeline.decode_capture_overlap(iq, PipelineConfig(block_len=1 << 22), device=dev)
     wall = time.perf_counter() - t0
@@ -2065,7 +2074,373 @@ def phase_sharded(dev: torch.device, tracker_iq: np.ndarray) -> tuple[list[dict]
     return [entry], launches
 
 
+# Phase 12: the multi-process decode (parallel/multihost.py) on the card.
+MH_TIMEOUT = 120  # seconds the worker processes may take together (they take about 10)
+
+
+def mh_canonical(aircrafts: dict) -> dict:
+    """A tracker's state as its checkpoint writes it; times still at their
+    wall-clock default are not compared (the decodes stamp `now`)."""
+    from airjax_torch.track.state import aircraft_to_json
+
+    return {f"{icao:06x}": {k: None if isinstance(v, float) and v >= 1e9 else v
+                             for k, v in aircraft_to_json(a).items()} for icao, a in sorted(aircrafts.items())}
+
+
+def mh_paths(local_iq: np.ndarray, mesh, timed: bool) -> dict:
+    """The three multi-process paths over this process's span and mesh: each
+    run once with its launches counted (and, `timed`, again for its MS/s and
+    the exchange's wall time) -> {path: {digest, n, stats, launches, ...}}."""
+    import hashlib
+
+    from airjax_torch.parallel import multihost
+    from airjax_torch.track.batch import ExtendedBatchTracker
+
+    exchange = [0.0]
+    plain_gather = multihost._all_gather
+
+    def timed_gather(t):  # the exchange's wall time, the card's copies included
+        t0 = time.perf_counter()
+        out = plain_gather(t)
+        if out.is_cuda:
+            torch.cuda.synchronize()
+        exchange[0] += time.perf_counter() - t0
+        return out
+
+    def run(name):
+        if name == "decode_capture":
+            hits, stats = multihost.decode_capture(local_iq, mesh, capacity_per_shard=CAPACITY,
+                                                   compact_capacity=2 * SHARD_FRAMES)
+            return [[h[1], h[2].hex(), h[3]] for h in hits], stats
+        if name == "decode_capture_extended":
+            packets, stats = multihost.decode_capture_extended(local_iq, mesh, capacity_per_shard=1 << 15, now=5.0)
+            return [[o, repr(p)] for o, p in packets], stats
+        tracker = ExtendedBatchTracker()
+        applied, stats = multihost.decode_capture_extended_batched(local_iq, tracker, mesh,
+                                                                   capacity_per_shard=1 << 15, now=5.0)
+        return [applied, mh_canonical(tracker.aircrafts)], stats
+
+    out = {}
+    multihost._all_gather = timed_gather
+    try:
+        for name in ("decode_capture", "decode_capture_extended", "decode_capture_extended_batched"):
+            with counted() as n:
+                result, stats = run(name)
+                torch.cuda.synchronize()
+            entry = {"digest": hashlib.sha256(json.dumps(result).encode()).hexdigest(), "stats": stats,
+                     "launches": n, "n": result[0] if name.endswith("batched") else len(result)}
+            if name == "decode_capture":
+                entry["offsets"] = [h[0] for h in result]
+            elif name == "decode_capture_extended":
+                entry["long"] = [o for o, r in result if r.startswith("AdsbPacket(")]
+            if timed:
+                exchange[0] = 0.0
+                t0 = time.perf_counter()
+                run(name)
+                torch.cuda.synchronize()
+                entry["wall_s"] = time.perf_counter() - t0
+                entry["exchange_s"] = exchange[0]
+            out[name] = entry
+    finally:
+        multihost._all_gather = plain_gather
+    return out
+
+
+def multihost_worker(argv: list[str]) -> int:
+    """One rank of phase 12 (`chip_smoke.py --multihost-rank RANK WORLD PORT
+    BACKEND SHARDS CAPTURE`): joins the group, decodes its span of the
+    saved capture on SHARDS shards of its card, prints `RESULT <json>`."""
+    rank, world, port = map(int, argv[:3])
+    backend, shards, path = argv[3], int(argv[4]), argv[5]
+    from airjax_torch.parallel import multihost
+    from airjax_torch.parallel.mesh import Mesh
+
+    check(torch.cuda.is_available(), "a worker without a card")
+    if backend == "gloo":
+        torch.cuda.set_device(0)  # the ranks of a gloo group share card 0
+    check(multihost.init(backend, f"tcp://127.0.0.1:{port}", world, rank) == (rank, world), "init")
+    card = torch.device("cuda", torch.cuda.current_device())
+    span = SHARD_SAMPLES // world
+    local = np.array(np.load(path, mmap_mode="r")[rank * span : (rank + 1) * span])  # a writable copy
+    out = mh_paths(local, Mesh([card] * shards), timed=True)
+    print("RESULT " + json.dumps({"rank": rank, "card": str(card), "paths": out}), flush=True)
+    multihost.dist.destroy_process_group()
+    return 0
+
+
+def run_workers(world: int, backend: str, shards: int, path: str) -> list[dict]:
+    """`world` rank processes of chip_smoke.py on `backend`, all within one
+    timeout; a nonzero exit or a missing result fails the phase. Each rank
+    writes to files of its own, so that no rank waits on a pipe that is not
+    read while its peers wait on it in a collective."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    # NCCL's bootstrap on one host without a network: the loopback interface.
+    env = dict(os.environ, NCCL_SOCKET_IFNAME=os.environ.get("NCCL_SOCKET_IFNAME", "lo"),
+               NCCL_DEBUG=os.environ.get("NCCL_DEBUG", "WARN"))
+    with tempfile.TemporaryDirectory() as tmp:
+        logs = [(open(os.path.join(tmp, f"{rank}.out"), "w+"), open(os.path.join(tmp, f"{rank}.err"), "w+"))
+                for rank in range(world)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--multihost-rank", str(rank),
+                                   str(world), str(port), backend, str(shards), path],
+                                  stdout=out, stderr=err, text=True, env=env)
+                 for rank, (out, err) in enumerate(logs)]
+        deadline = time.monotonic() + MH_TIMEOUT
+        late = set()
+        try:
+            for proc in procs:
+                try:
+                    proc.wait(timeout=max(deadline - time.monotonic(), 0.1))
+                except subprocess.TimeoutExpired:
+                    break
+        finally:
+            for rank, proc in enumerate(procs):
+                if proc.poll() is None:
+                    late.add(rank)
+                    proc.kill()
+                    proc.wait()
+        texts = []
+        for out, err in logs:
+            out.seek(0)
+            err.seek(0)
+            texts.append((out.read(), err.read()))
+            out.close()
+            err.close()
+    for rank, (proc, (stdout, stderr)) in enumerate(zip(procs, texts)):
+        why = f", killed: not ended in {MH_TIMEOUT} s" if rank in late else ""
+        check(proc.returncode == 0, f"{backend} rank {rank} exited {proc.returncode}{why}:\n{stdout[-3000:]}\n"
+                                    f"{stderr[-3000:]}")
+    results = []
+    for rank, (stdout, _) in enumerate(texts):
+        lines = [ln for ln in stdout.splitlines() if ln.startswith("RESULT ")]
+        check(len(lines) == 1, f"{backend} rank {rank} printed no result")
+        results.append(json.loads(lines[0][len("RESULT "):]))
+    return results
+
+
+def phase_multihost(dev: torch.device, capture) -> dict[str, int]:
+    """Phase 12: multihost.decode_capture, decode_capture_extended and
+    decode_capture_extended_batched of phase 11's capture over 4 shards,
+    (a) 2 processes with gloo on card 0, 2 shards each, (b) NCCL, one
+    process a card, the 4 shards split among them; every rank == one
+    process's decode over the same 4 shards (stats but `processes`) == the
+    embedded frames, and a rank's step is its fronts and block decodes, one
+    shard gather (and one fields launch batched). -> the launches."""
+    from airjax_torch.parallel.mesh import Mesh
+
+    iq, offsets, frames = capture
+    one = mh_paths(iq, Mesh([dev] * SHARDS), timed=True)
+    check(one["decode_capture"]["offsets"] == offsets.tolist(), "one process: the hits != the embedded frames")
+    check(one["decode_capture_extended"]["long"] == offsets.tolist()
+          and one["decode_capture_extended"]["stats"]["n_good_long"] == len(frames),
+          "one process: the extended DF17 packets != the embedded frames")
+    check(one["decode_capture_extended_batched"]["n"] == one["decode_capture_extended"]["n"],
+          "one process: the batched tracker applied another number of messages than the packets")
+    launches = {"shard_gather": 0, "fields_extended": 0}
+
+    def add(n: dict) -> None:
+        launches["shard_gather"] += n["shard_gather"]
+        launches["fields_extended"] += n["fields"]
+
+    for name, entry in one.items():
+        add(entry["launches"])
+        print(f"multihost, one process, {SHARDS} shards of the card, {name}: {entry['n']} "
+              f"{'messages' if name.endswith('batched') else 'hits' if name == 'decode_capture' else 'packets'}; "
+              f"{SHARD_SAMPLES / entry['wall_s'] / 1e6:.1f} MS/s ({entry['wall_s']:.3f} s wall, host included); "
+              f"stats {json.dumps(entry['stats'])}")
+    n_cards = torch.cuda.device_count()
+    world_nccl = max(w for w in (1, 2, 4) if w <= n_cards)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "capture.npy")
+        np.save(path, iq)
+        for label, world, backend in ((f"gloo, 2 processes on card 0", 2, "gloo"),
+                                      (f"nccl, {world_nccl} process(es), one a card", world_nccl, "nccl")):
+            shards = SHARDS // world
+            t0 = time.perf_counter()
+            ranks = run_workers(world, backend, shards, path)
+            wall = time.perf_counter() - t0
+            check([r["rank"] for r in ranks] == list(range(world)), f"{label}: ranks {[r['rank'] for r in ranks]}")
+            if backend == "nccl":
+                check([r["card"] for r in ranks] == [f"cuda:{i}" for i in range(world)],
+                      f"{label}: the ranks' cards {[r['card'] for r in ranks]}")
+            for name, want in one.items():
+                for r in ranks:
+                    got = r["paths"][name]
+                    stats = dict(got["stats"])
+                    check(stats.pop("processes") == world, f"{label}, {name}: processes")
+                    check(got["digest"] == want["digest"] and got["n"] == want["n"]
+                          and stats == {k: v for k, v in want["stats"].items() if k != "processes"},
+                          f"{label}, rank {r['rank']}, {name}: differs from one process's decode: "
+                          f"{got['n']} vs {want['n']}, stats {got['stats']} vs {want['stats']}")
+                    n = got["launches"]
+                    check(n == {**ONE_PASS, "magdet_bits": shards, "block_decode": shards, "shard_gather": 1,
+                                "fields": 1 if name.endswith("batched") else 0},
+                          f"{label}, rank {r['rank']}, {name}: not {shards} fronts, {shards} block decodes, one "
+                          f"shard gather{' and one fields launch' if name.endswith('batched') else ''}: {n}")
+                    add(n)
+                rates = ", ".join(f"rank {r['rank']} {SHARD_SAMPLES / r['paths'][name]['wall_s'] / 1e6:.1f} MS/s "
+                                  f"({r['paths'][name]['wall_s']:.3f} s wall, exchange "
+                                  f"{r['paths'][name]['exchange_s'] * 1e3:.1f} ms)" for r in ranks)
+                print(f"multihost, {label}, {shards} shard(s) a rank, {name}: every rank == one process's decode "
+                      f"(stats but processes); {rates}")
+            print(f"multihost, {label}: {wall:.1f} s for the {world} processes, start-up included")
+    return launches
+
+
+# Phase 13: the golden oracle, the per-chunk parity decode, the debug aids.
+GOLDEN_SAMPLES = 2_000_000
+
+
+def phase_oracle(dev: torch.device, tracker_iq: np.ndarray) -> dict[str, int]:
+    """Phase 13: golden.decode_capture_playback of 2 M samples of the
+    tracker traffic == decode_capture_parity on the card, fused and per
+    chunk (fused=False: a front and a block decode a chunk, plus any chunk
+    decoded again), the two forms' stats equal; `adsb --playback
+    --dump-preamble` on the card prints what it prints on the CPU
+    (`Processed Time` masked); `adsb --trace DIR` writes a trace that names
+    the front and block-decode kernels. -> the launches."""
+    from airjax_torch import golden, pipeline
+    from airjax_torch.io.c16 import save_c16
+
+    sub = np.ascontiguousarray(tracker_iq[:GOLDEN_SAMPLES])
+    t0 = time.perf_counter()
+    gold = golden.decode_capture_playback(sub)
+    t_gold = time.perf_counter() - t0
+    forms = {}
+    for fused in (True, False):
+        pipeline.decode_capture_parity(sub[: 4 * CHUNK + 10], fused=fused, device=dev)  # warm
+        with counted() as n:
+            t0 = time.perf_counter()
+            hits, stats = pipeline.decode_capture_parity(sub, fused=fused, device=dev)
+            wall = time.perf_counter() - t0
+        check([(c, o, f) for c, o, f, _ in hits] == gold, f"decode_capture_parity(fused={fused}) != golden")
+        forms[fused] = (stats, n, wall)
+    n_chunks = pipeline.reference_chunk_count(len(sub))
+    (fstats, _, fwall), (cstats, n, cwall) = forms[True], forms[False]
+    check(fstats == cstats, f"the parity stats differ: fused {fstats}, per chunk {cstats}")
+    check(n["magdet_bits"] == n["block_decode"] >= n_chunks and (n["magdet_bits"] == n_chunks or cstats["overflow"])
+          and n["compact_bits"] == n["candidate"] == n["magdet_front"] == n["fields"] == n["shard_gather"] == 0,
+          f"fused=False: not a front and a block decode a chunk ({n_chunks} chunks): {n}")
+    print(f"golden oracle: {len(gold)} hits in {n_chunks} chunks == decode_capture_parity fused and per chunk; "
+          f"stats equal {json.dumps(fstats)}; golden {GOLDEN_SAMPLES / t_gold / 1e6:.2f} MS/s (host), fused "
+          f"{GOLDEN_SAMPLES / fwall / 1e6:.1f} MS/s, per chunk {GOLDEN_SAMPLES / cwall / 1e6:.1f} MS/s "
+          f"(launches {json.dumps(n)})")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "traffic.c16")
+        save_c16(tracker_iq[: 10 * CHUNK + 10], path)
+        card, _, _ = run_cli(["adsb", "--playback", path, "--fast", "--dump-preamble"])
+        cpu, _, _ = run_cli(["adsb", "--playback", path, "--fast", "--dump-preamble", "--torch-device", "cpu"])
+        dumps = sum(ln.startswith("preamble @ ") for ln in card.splitlines())
+        check(dumps > 0 and masked(card[: card.rindex("\nstats: ")]) == masked(cpu[: cpu.rindex("\nstats: ")]),
+              "adsb --dump-preamble: the card's text differs from the CPU's")
+        trace_dir = os.path.join(tmp, "trace")
+        run_cli(["adsb", "--playback", path, "--fast", "--trace", trace_dir])
+        names = set()
+        for root, _, files in os.walk(trace_dir):
+            for f in files:
+                with open(os.path.join(root, f)) as fh:
+                    names |= {e.get("name", "") for e in json.load(fh)["traceEvents"] if e.get("cat") == "kernel"}
+        check(any("magdet_bits_kernel" in x for x in names) and any("block_decode_kernel" in x for x in names),
+              f"adsb --trace: the trace names no front or block-decode kernel: {sorted(names)[:10]}")
+    print(f"adsb --dump-preamble: the card's {dumps} dumps and packets == the CPU's (Processed Time masked); "
+          f"adsb --trace: a trace with {len(names)} kernel names, the front's and the block decode's among them")
+    return {"magdet_bits_chunks": n["magdet_bits"]}
+
+
+# The multi-card run (`chip_smoke.py --cards`, a host of 4 or more cards).
+def packet_view(packet) -> tuple:
+    """A packet's class and fields but its wall-clock stamp."""
+    import dataclasses
+
+    fields = dataclasses.asdict(packet)
+    return type(packet).__name__, {k: v for k, v in fields.items() if not (isinstance(v, float) and v >= 1e9)}
+
+
+def phase_multicard(dev: torch.device, capture) -> None:
+    """The mesh paths across cards: decode_capture_sharded(_extended) and
+    run_stream_sharded (per packet, BatchTracker, ExtendedBatchTracker) on
+    make_mesh(4), one shard a card (the shards' dicts reach card 0 by peer
+    copies), against Mesh([card 0] * 4): hits, packets, tables and stats
+    equal; the MS/s of both, host included, in turns."""
+    from airjax_torch.parallel import halo
+    from airjax_torch.parallel.mesh import Mesh, make_mesh
+    from airjax_torch.runner import run_stream_sharded
+    from airjax_torch.track.batch import BatchTracker, ExtendedBatchTracker
+
+    iq, offsets, frames = capture
+    meshes = {"make_mesh(4)": make_mesh(4), "Mesh([card 0] * 4)": Mesh([dev] * 4)}
+    for extended in (False, True):
+        decode = halo.decode_capture_sharded_extended if extended else halo.decode_capture_sharded
+        kw = dict(capacity_per_shard=1 << 15) if extended else dict(capacity_per_shard=CAPACITY,
+                                                                    compact_capacity=2 * SHARD_FRAMES)
+        got, walls = {}, {name: [] for name in meshes}
+        for name in (*meshes, *reversed(meshes)):  # in turns: a b b a
+            t0 = time.perf_counter()
+            result, stats = decode(iq, meshes[name], **kw)
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+            view = [(o, repr(p)) for o, p in result] if extended else result
+            check(got.setdefault(name, (view, stats)) == (view, stats), f"{name}: two runs differ")
+        a, b = got.values()
+        check(a == b, f"decode_capture_sharded{'_extended' if extended else ''}: make_mesh(4) != 4 shards of card 0")
+        long = [o for o, r in a[0] if r.startswith("AdsbPacket(")] if extended else [h[1] for h in a[0]]
+        check(long == offsets.tolist(), "the multi-card decode lost an embedded frame")
+        print(f"decode_capture_sharded{'_extended' if extended else ''}: make_mesh(4) == Mesh([card 0] * 4), "
+              f"hits and stats {json.dumps(a[1])}; " + ", ".join(
+                  f"{name} {SHARD_SAMPLES / min(w) / 1e6:.1f} MS/s (walls {', '.join(f'{x:.3f}' for x in w)} s)"
+                  for name, w in walls.items()))
+
+    sub = iq[:ANALYTICS_SAMPLES]
+    for sink_name, make, extended in (("per packet", list, False), ("per packet", list, True),
+                                      ("BatchTracker", BatchTracker, False),
+                                      ("ExtendedBatchTracker", ExtendedBatchTracker, True)):
+        tables, walls = {}, {}
+        for name, mesh in meshes.items():
+            sink = make()
+            t0 = time.perf_counter()
+            stats = run_stream_sharded((sub[i : i + CHUNK] for i in range(0, len(sub), CHUNK)),
+                                       sink.append if isinstance(sink, list) else sink, mesh=mesh,
+                                       extended=extended).as_dict()
+            walls[name] = time.perf_counter() - t0
+            table = ([packet_view(p) for p in sink] if isinstance(sink, list)
+                     else table_view(sink.aircrafts, extended))
+            tables[name] = (table, {k: v for k, v in stats.items() if k not in ("stages", "msamples_per_s")})
+        (ta, sa), (tb, sb) = tables.values()
+        check(sa == sb and (ta == tb if isinstance(ta, list) else same_table(ta, tb)),
+              f"run_stream_sharded, {sink_name}{', extended' if extended else ''}: the meshes differ")
+        print(f"run_stream_sharded, {sink_name}{', extended' if extended else ''}: make_mesh(4) == "
+              f"Mesh([card 0] * 4) ({len(ta)} {'packets' if isinstance(ta, list) else 'aircraft'}); " + ", ".join(
+                  f"{name} {ANALYTICS_SAMPLES / w / 1e6:.1f} MS/s" for name, w in walls.items()))
+
+
+def cards_main() -> int:
+    """`chip_smoke.py --cards`: on a host of 4 or more cards, phase 12 (with
+    NCCL across 4 cards) and the mesh paths across cards, nothing else."""
+    check(torch.cuda.is_available() and torch.cuda.device_count() >= 4, "--cards needs 4 or more cards")
+    t_start = time.perf_counter()
+    card = phase_env()
+    phase_build()
+    dev = torch.device("cuda", 0)
+    capture = sharded_capture(60)
+    phase_multicard(dev, capture)
+    multi = phase_multihost(dev, capture)
+    print(f"chip_smoke --cards: {time.perf_counter() - t_start:.1f} s, the build included; launches "
+          f"{json.dumps(multi)}")
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--multihost-rank"]:
+        return multihost_worker(sys.argv[2:])
+    if sys.argv[1:] == ["--cards"]:
+        return cards_main()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
               file=sys.stderr)
@@ -2105,11 +2480,20 @@ def main() -> int:
     phase_extended_block(ext_block_dev, capacity, ext_frames, ext_offsets)
     ext = phase_extended_stream(dev)
     tracker, tracker_iq = phase_tracker_stream(dev)
-    sharded_entries, sharded = phase_sharded(dev, tracker_iq)
+    t0 = time.perf_counter()
+    capture = sharded_capture(60)
+    print(f"sharded capture: {SHARD_SAMPLES} samples, {len(capture[2])} DF17 frames, {SHARDS - 1} at the edges of "
+          f"{SHARDS} shards (padded and not), one ending at the capture's end; made in "
+          f"{time.perf_counter() - t0:.2f} s")
+    sharded_entries, sharded = phase_sharded(dev, tracker_iq, capture)
     kernels += sharded_entries
+    multi = phase_multihost(dev, capture)
+    del capture
+    phase_oracle(dev, tracker_iq)
     launches.update({**df17, **ext, **tracker, "block_decode": df17["block_decode"] + ext["block_decode"],
                      "magdet_front": front_launches["df17"], "magdet_front_preamble": front_launches["preamble"],
-                     **sharded, "shard_gather": sharded["shard_gather"] + df17["shard_gather"]})
+                     **sharded, "shard_gather": sharded["shard_gather"] + df17["shard_gather"] + multi["shard_gather"],
+                     "fields_extended": sharded["fields_extended"] + multi["fields_extended"]})
     paths = {"magdet_bits": "adsb stream", "magdet_bits_preamble": "adsb --extended stream",
              "block_decode": "adsb stream + adsb --extended stream",
              "compact_bits": "block A/B, staged chain (DF17 + extended)",
@@ -2124,10 +2508,12 @@ def main() -> int:
              "block_decode_extended_r2_fields": "tracker stream, ExtendedBatchTracker --recover2",
              "fields": "phase 11: analyze_capture (overlap and devices=1), run_stream_sharded --batched "
                        "(BatchTracker)",
-             "fields_extended": "phase 11: run_stream_sharded --batched --extended (ExtendedBatchTracker)",
+             "fields_extended": "phase 11: run_stream_sharded --batched --extended (ExtendedBatchTracker); "
+                                "phase 12: multihost decode_capture_extended_batched, every rank and one process",
              "shard_gather": "phase 11: decode_capture_sharded(_extended) on 4 shards and make_mesh(1), "
                              "analyze_capture(devices=1), analyze_capture_extended, the sharded batched streams; "
-                             "phase 6: adsb --devices 1"}
+                             "phase 6: adsb --devices 1; phase 12: multihost decode_capture(_extended, "
+                             "_extended_batched), every rank of gloo and NCCL and one process"}
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["path"] = paths[k["name"]]
@@ -2149,4 +2535,18 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    except BaseException:  # reported, then the same exit as a success's
+        import traceback
+
+        traceback.print_exc()
+        code = 1
+    # With TEARDOWN_CUPTI=1, a process that exits right after its last
+    # profiler window hangs in CUPTI's teardown (measured: a bare
+    # torch.profiler window on the card, then exit, hung past 60 s; the same
+    # without the variable, or with more work after the window, exited). The
+    # script has closed what it opened and reaped its workers by here.
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)

@@ -633,3 +633,42 @@ def test_sharded_paths_on_card_match_cpu(cuda_device):  # noqa: F811
     for analyze in (analytics.analyze_capture, analytics.analyze_capture_extended):
         got, want = analyze(iq, devices=1, device=cuda_device), analyze(iq, devices=1, device="cpu")
         assert repr(got) == repr(want) and got[0]
+
+
+@pytest.mark.parametrize("extended", [False, True])
+def test_shard_gather_kernel_first_shard_matches_plain(cuda_device, extended):  # noqa: F811
+    """A process's gather in a multi-process decode (first_shard > 0): the
+    kernel against the plain version."""
+    for d, first in ((1, 1), (3, 2), (4, 28)):
+        shards = _gather_shards(d, 1500, 1 << 16, seed=d + first, extended=extended, device=cuda_device)
+        max_offset = (first + d) * (1 << 16) - 240 - 19
+        for c in (5, d * 1500 + 9):
+            got = shard_gather_mod.shard_gather(shards, 1 << 16, max_offset, c, extended=extended, recover2=True,
+                                                first_shard=first)
+            want = shard_gather_mod.shard_gather_plain(shards, 1 << 16, max_offset, c, extended=extended,
+                                                      recover2=True, first_shard=first)
+            torch.cuda.synchronize()
+            assert_same_dict(pipeline.to_host(want), pipeline.to_host(got))
+
+
+def test_multihost_and_parity_on_card_match_cpu(cuda_device):  # noqa: F811
+    """One process's multihost decodes on 4 shards of the card == on 4 CPU
+    shards; the per-chunk parity decode on the card == the fused one ==
+    the golden oracle."""
+    from airjax_torch import golden
+    from airjax_torch.config import PipelineConfig
+    from airjax_torch.parallel import multihost
+    from airjax_torch.parallel.mesh import Mesh
+
+    iq = _mixed(4 * 65536, 5)
+    for gather in ("compact", "dense"):
+        got = multihost.decode_capture(iq, Mesh([cuda_device] * 4), gather=gather)
+        assert got == multihost.decode_capture(iq, Mesh(["cpu"] * 4), gather=gather) and got[0]
+        got = multihost.decode_capture_extended(iq, Mesh([cuda_device] * 4), now=1.0, gather=gather)
+        want = multihost.decode_capture_extended(iq, Mesh(["cpu"] * 4), now=1.0, gather=gather)
+        assert [(o, repr(p)) for o, p in got[0]] == [(o, repr(p)) for o, p in want[0]] and got[1] == want[1]
+    cfg = PipelineConfig(block_len=20000)
+    gold = golden.decode_capture_playback(iq)
+    for fused in (True, False):
+        hits, _ = pipeline.decode_capture_parity(iq, cfg, fused=fused, device=cuda_device)
+        assert [(c, o, f) for c, o, f, _ in hits] == gold and gold

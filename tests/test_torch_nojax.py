@@ -36,7 +36,8 @@ names = sorted(m.name for m in pkgutil.walk_packages(airjax_torch.__path__, "air
 for name in ("airjax_torch.kernels.block_decode", "airjax_torch.kernels.fields", "airjax_torch.track.batch",
              "airjax_torch.track.state", "airjax_torch.ui.tui", "airjax_torch.ui.web",
              "airjax_torch.kernels.shard_gather", "airjax_torch.parallel.mesh", "airjax_torch.parallel.halo",
-             "airjax_torch.parallel.channels", "airjax_torch.analytics"):
+             "airjax_torch.parallel.channels", "airjax_torch.analytics", "airjax_torch.parallel.multihost",
+             "airjax_torch.golden", "airjax_torch.visualise", "airjax_torch.observability"):
     assert name in names, names
 for name in names:
     importlib.import_module(name)
@@ -74,6 +75,17 @@ assert len(tracks) == 1, tracks
 got = []
 runner.run_stream_sharded(iter([iq]), got.append, n_devices=2, extended=True, device="cpu")
 assert len(got) == len(mixed), got
+from airjax_torch import golden, observability, visualise
+from airjax_torch.parallel import multihost
+hits, stats = multihost.decode_capture(synth.modulate([frame] * 2, [500, 3900], 8000, seed=1), make_mesh(2, "cpu"))
+assert [h[1] for h in hits] == [500, 3900] and stats["processes"] == 1, (hits, stats)
+iq = synth.modulate([frame], [300], 9000, seed=2)
+from airjax_torch.config import PipelineConfig
+parity, _ = pipeline.decode_capture_parity(iq, PipelineConfig(block_len=4000), fused=False, device="cpu")
+assert [(c, o, f) for c, o, f, _ in parity] == golden.decode_capture_playback(iq, chunk=4000) == [(0, 300, frame)]
+assert "preamble @ 7" in visualise.dump_preamble(golden.magnitude(iq[:16]), offset=7)
+with observability.trace("/dev/null", enabled=False):
+    pass
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "airjax")]
 print("modules", len(names))
 """

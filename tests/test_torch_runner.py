@@ -197,30 +197,41 @@ def test_cli_cuda_without_card_raises():
 
 
 def _parsed(build_parser, argv):
-    """(exit status, the source chosen, the SDR index) of one command line:
-    the playback wins over --synthetic, as both packages' _cmd_adsb read
-    them."""
+    """(exit status, the source chosen, the SDR index, the debug aids) of
+    one command line: the playback wins over --synthetic, as both
+    packages' _cmd_adsb read them."""
     try:
         args = build_parser().parse_args(argv)
     except SystemExit as e:
-        return e.code, None, None
+        return e.code, None, None, None
     source = "playback" if args.playback else "synthetic" if args.synthetic is not None else "sdr"
-    return 0, source, args.device
+    return 0, source, args.device, (args.plot_dir, args.dump_preamble, args.trace, args.devices)
 
 
 @pytest.mark.parametrize("argv", [
     ["adsb", "--synthetic", "1", "--device", "0"],
     ["adsb", "--synthetic", "1", "-d", "0"],
     ["adsb", "-p", "cap.c16", "--synthetic", "2"],
+    ["adsb", "--synthetic", "1", "--plot-dir", "plots", "--dump-preamble", "--trace", "prof"],
+    ["adsb", "--synthetic", "1", "--devices", "2", "--dump-preamble"],
+    ["adsb", "--synthetic", "1", "--devices", "2", "--plot-dir", "plots"],
 ])
 def test_cli_accepts_airjax_command_lines(argv, capsys):
     """Fault F2: the port's parser takes airjax's `-d/--device N` (the SDR
-    index) and a playback beside --synthetic, and picks the same source."""
+    index) and a playback beside --synthetic, and picks the same source;
+    it takes airjax's debug aids (--plot-dir, --dump-preamble, --trace) and
+    refuses the first two with --devices as airjax does: exit 2, the same
+    message."""
     want = _parsed(jcli.build_parser, argv)
     assert want[0] == 0
     assert _parsed(cli.build_parser, argv) == want
     assert cli.build_parser().parse_args(argv).torch_device == "cuda"
     assert capsys.readouterr().err == ""
+    if "--devices" in argv:
+        assert jcli.main(argv) == 2
+        refusal = capsys.readouterr().err
+        assert cli.main([*argv, "--torch-device", "cpu"]) == 2
+        assert capsys.readouterr().err == refusal and "single-device debug aids" in refusal
 
 
 def test_cli_playback_wins_over_synthetic(tmp_path):

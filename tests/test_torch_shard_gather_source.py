@@ -77,6 +77,24 @@ def _shards(d: int, k: int, block: int, extended: bool, seed: int) -> list[dict]
     return out
 
 
+def _check_source(d: int, k: int, extended: bool, recover2: bool, first_shard: int) -> None:
+    """The emulated kernel == shard_gather_plain for C 0, below and above
+    the total, with a max_offset that cuts the last shard."""
+    block = 3000
+    shards = _shards(d, k, block, extended, seed=d * 1000 + k)
+    max_offset = (first_shard + d) * block - 240 - 311
+    keys = (sg._EXT_KEYS if extended else sg._DF17_KEYS) + (("recovered2",) if recover2 else ())
+    total = int(sg.shard_gather_plain(shards, block, max_offset, 1 << 20, extended=extended, first_shard=first_shard)[
+        "n_candidates" if extended else "n_good"])
+    for c in sorted({0, total // 2, total + 9}):
+        got = sg._shard_gather_cuda(shards, keys, k, block, max_offset, c, extended, recover2, first_shard)
+        want = sg.shard_gather_plain(shards, block, max_offset, c, extended=extended, recover2=recover2,
+                                     first_shard=first_shard)
+        assert sorted(got) == sorted(want)
+        for key in want:
+            assert got[key].dtype == want[key].dtype and torch.equal(got[key], want[key]), (key, c)
+
+
 @pytest.mark.parametrize("recover2", [False, True])
 @pytest.mark.parametrize("extended", [False, True])
 @pytest.mark.parametrize("d, k", [(1, 0), (1, 37), (3, 700), (4, 2100), (2, 8194), (1, 16384)])
@@ -84,15 +102,13 @@ def test_kernel_source_equals_plain(on_cpu, d, k, extended, recover2):
     """K from 0 to several tiles (2048 rows), counted in whole steps and a
     clamped last one; C 0, below and above the total; a max_offset that
     cuts the last shard."""
-    block = 3000
-    shards = _shards(d, k, block, extended, seed=d * 1000 + k)
-    max_offset = d * block - 240 - 311
-    keys = (sg._EXT_KEYS if extended else sg._DF17_KEYS) + (("recovered2",) if recover2 else ())
-    total = int(sg.shard_gather_plain(shards, block, max_offset, 1 << 20, extended=extended)[
-        "n_candidates" if extended else "n_good"])
-    for c in sorted({0, total // 2, total + 9}):
-        got = sg._shard_gather_cuda(shards, keys, k, block, max_offset, c, extended, recover2)
-        want = sg.shard_gather_plain(shards, block, max_offset, c, extended=extended, recover2=recover2)
-        assert sorted(got) == sorted(want)
-        for key in want:
-            assert got[key].dtype == want[key].dtype and torch.equal(got[key], want[key]), (key, c)
+    _check_source(d, k, extended, recover2, first_shard=0)
+
+
+@pytest.mark.parametrize("recover2", [False, True])
+@pytest.mark.parametrize("extended", [False, True])
+@pytest.mark.parametrize("d, k, first_shard", [(2, 700, 2), (1, 2100, 3)])
+def test_kernel_source_first_shard(on_cpu, d, k, extended, recover2, first_shard):
+    """A process's shards of a multi-process decode: rows global from
+    first_shard * block, the range test against the global max_offset."""
+    _check_source(d, k, extended, recover2, first_shard)

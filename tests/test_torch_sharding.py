@@ -444,6 +444,27 @@ def test_shard_gather_plain_equals_airjax_composition(d, extended, recover2):
     assert totals[0][0] > totals[0][1] and totals[-1][0] < totals[-1][1]
 
 
+@pytest.mark.parametrize("first_shard", [1, 3])
+@pytest.mark.parametrize("extended", [False, True])
+def test_shard_gather_plain_first_shard_equals_airjax_composition(first_shard, extended):
+    """A process's gather in a multi-process decode: its shards from global
+    index first_shard on equal airjax's composition over the whole mesh
+    with the shards before them empty (no slot valid, no detection)."""
+    d, k, block = 3, 40, 600
+    n_dev = first_shard + d
+    max_offset = n_dev * block - 240 - 37
+    shards = _random_shards(d, k, block, seed=first_shard * 2 + extended, extended=extended)
+    empty = {key: np.zeros_like(v) for key, v in shards[0].items()}
+    for c in (5, d * k + 7):
+        want = _airjax_gather([empty] * first_shard + shards, block, max_offset, c, extended, True)
+        tshards = [{key: torch.as_tensor(v) for key, v in s.items()} for s in shards]
+        got = sg.shard_gather(tshards, block, max_offset, c, extended=extended, recover2=True, first_shard=first_shard)
+        assert_same_dict(want, got)
+        assert int(got["offsets"][0]) >= first_shard * block
+    with pytest.raises(ValueError, match="first shard"):
+        sg.shard_gather(tshards, block, max_offset, 8, extended=extended, recover2=True, first_shard=-1)
+
+
 def test_shard_gather_checks_its_inputs():
     shards = [{key: torch.as_tensor(v) for key, v in s.items()} for s in _random_shards(2, 8, 300, 0, False)]
     with pytest.raises(ValueError, match="no shards"):
