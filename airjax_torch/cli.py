@@ -1,5 +1,8 @@
-"""The port's command line (airjax/cli.py:81-421, the `adsb` command):
+"""The port's command line (airjax/cli.py):
 
+  python -m airjax_torch.cli list
+  python -m airjax_torch.cli receive <frequency> <sample_rate> <gain> <period>
+                                     [-d DEVICE] [--synthetic]
   python -m airjax_torch.cli adsb [--playback FILE | --synthetic N] [--fast]
                                   [-m {stream,interactive,web}] [--port N]
                                   [--no-overlap] [--max-blocks N]
@@ -10,6 +13,15 @@
                                   [--plot-dir DIR] [--dump-preamble]
                                   [--trace DIR]
                                   [-d/--device N] [--torch-device cuda|cpu]
+
+`list` enumerates the SDR devices and `receive` captures `period` seconds
+of IQ from one (`-d`) into `data_<frequency>_<sample_rate>_<gain>` in the
+working directory, or with `--synthetic` the synthetic stream (sdr.py:
+SoapySDR through ctypes; without it both print the error and exit 1).
+`adsb` decodes a playback (`--playback`, which wins over `--synthetic`),
+the synthetic stream, or, given neither, the live SDR `-d/--device N`
+through the native ring (sdr.SdrSource.blocks_ringbuffered), closed however
+the decode stops; `--max-blocks N` bounds any source.
 
 Stream mode (the default) prints the reference's Display of every decoded
 packet (a DF17 packet opens with `== <hex> ==`) and a final `stats:` line;
@@ -23,15 +35,15 @@ that a unique 2-bit repair validated, gated on an ICAO already seen.
 `--torch-device` (the port's own flag) defaults to cuda; without a card
 that raises — the port never falls back to the CPU on its own. `--devices
 N` decodes the stream over the first N cards (runner.run_stream_sharded),
-or with `--torch-device cpu` over N CPU shards. `-d/--device` is airjax's
-SDR index, read only for live input, which is not ported yet; a playback
-wins over --synthetic, as in airjax. The debug aids, in stream mode:
+or with `--torch-device cpu` over N CPU shards. Either runner keeps one
+decode in flight while the previous one is fetched (pipeline_depth 1, as
+airjax's `adsb`). The debug aids, in stream mode:
 `--plot-dir DIR` writes an SVG plot of each DF17 frame's magnitudes (it
 needs matplotlib), `--dump-preamble` prints each frame's preamble; both
 are refused with --devices (exit 2), as airjax refuses them. `--trace DIR`
 writes a torch.profiler trace of the run (the card's kernels included) to
 DIR. Each mode logs its final stats on the `airjax_torch` logger
-(observability.log_stats). Not ported: live SDR input, `list`, `receive`.
+(observability.log_stats).
 """
 
 from __future__ import annotations
@@ -46,8 +58,80 @@ import time
 import torch
 
 
+def _cmd_list(args) -> int:
+    from airjax_torch import sdr
+
+    try:
+        for i, dev in enumerate(sdr.list_devices()):
+            print(f"{i}: {dev}")
+    except sdr.SdrUnavailable as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _cmd_receive(args) -> int:
+    """airjax/cli.py:32-78: `period` seconds of IQ into
+    data_<frequency>_<sample_rate>_<gain> in the working directory."""
+    import numpy as np
+
+    from airjax_torch.io.c16 import save_c16
+
+    name = f"data_{args.frequency}_{args.sample_rate}_{args.gain}"
+    if args.synthetic:
+        from airjax_torch.io.source import synthetic_blocks
+
+        n_samples = int(args.sample_rate * args.period)
+        chunks, got = [], 0
+        for block in synthetic_blocks(chunk=20000):
+            chunks.append(block)
+            got += len(block)
+            if got >= n_samples:
+                break
+        data = np.concatenate(chunks)[:n_samples]
+        save_c16(data, name)
+        print(f"saved {len(data)} synthetic samples to {name}")
+        return 0
+
+    from airjax_torch import sdr
+
+    try:
+        source = sdr.SdrSource(device=args.device, frequency_hz=args.frequency, sample_rate_hz=args.sample_rate,
+                               gain_db=args.gain)
+    except sdr.SdrUnavailable as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    data = []
+    start = time.time()
+    try:
+        for block in source.blocks():
+            data.append(block)
+            if time.time() - start >= args.period:
+                break
+    finally:
+        source.close()
+    all_data = np.concatenate(data)
+    save_c16(all_data, name)
+    print(f"saved {len(all_data)} samples to {name}")
+    return 0
+
+
+def _sdr_blocks(src, limit: int | None):
+    """The live source's blocks through the native ring, at most `limit`;
+    the SDR is closed however the consumer stops (the bound, the generator
+    dropped, or an exception), so it never streams into a dead buffer."""
+    try:
+        for i, block in enumerate(src.blocks_ringbuffered()):
+            if limit is not None and i >= limit:
+                return
+            yield block
+    finally:
+        src.close()
+
+
 def _source(args):
-    """The block source, or an exit code after an error message."""
+    """The block source, or an exit code after an error message
+    (airjax/cli.py:95-155)."""
     if args.playback:
         from airjax_torch.io.source import playback_blocks
 
@@ -64,8 +148,14 @@ def _source(args):
 
         source = synthetic_blocks(n_blocks=args.synthetic)
     else:
-        print("error: give --playback FILE or --synthetic N (live SDR input is not ported)", file=sys.stderr)
-        return 1
+        from airjax_torch import sdr
+
+        try:
+            src = sdr.SdrSource(device=args.device)
+        except sdr.SdrUnavailable as e:
+            print(f"error: {e}\nhint: use --playback FILE or --synthetic N", file=sys.stderr)
+            return 1
+        return _sdr_blocks(src, args.max_blocks)
     if args.max_blocks is not None:
         source = itertools.islice(source, args.max_blocks)
     return source
@@ -213,12 +303,22 @@ def build_parser() -> argparse.ArgumentParser:
         prog="airjax_torch", description="ADS-B / Mode S decode on PyTorch/CUDA"
     )
     sub = parser.add_subparsers(dest="command", required=True)
+    sub.add_parser("list", help="enumerate SDR devices")
+    receive = sub.add_parser("receive", help="capture IQ to a .c16 file")
+    receive.add_argument("frequency", type=float, help="Frequency in Hz")
+    receive.add_argument("sample_rate", type=float, help="Sample rate in Hz")
+    receive.add_argument("gain", type=float, help="Gain")
+    receive.add_argument("period", type=int, help="Period in seconds")
+    receive.add_argument("-d", "--device", type=int, default=None, help="SDR device index")
+    receive.add_argument("--synthetic", action="store_true", help="capture the synthetic stream instead")
     adsb = sub.add_parser("adsb", help="decode and display ADS-B traffic")
-    adsb.add_argument("-d", "--device", type=int, default=None, help="SDR device index (live input, not ported)")
+    adsb.add_argument("-d", "--device", type=int, default=None,
+                      help="SDR device index of the live input (read when neither --playback nor --synthetic is given)")
     adsb.add_argument("-m", "--mode", choices=["web", "interactive", "stream"], default="stream")
     adsb.add_argument("-p", "--playback", default=None, help=".c16 capture to replay (wins over --synthetic)")
     adsb.add_argument("--synthetic", type=int, default=None, metavar="N")
-    adsb.add_argument("--max-blocks", type=int, default=None, metavar="N")
+    adsb.add_argument("--max-blocks", type=int, default=None, metavar="N",
+                      help="stop after N source blocks (bounds live SDR runs)")
     adsb.add_argument("--no-overlap", action="store_true", help="reference chunking: boundary frames lost")
     adsb.add_argument("--fast", action="store_true", help="replay without the 2x-real-time sleep")
     adsb.add_argument("--port", type=int, default=8080, help="web mode: the HTTP port")
@@ -270,7 +370,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    return {"adsb": _cmd_adsb}[args.command](args)
+    return {"list": _cmd_list, "receive": _cmd_receive, "adsb": _cmd_adsb}[args.command](args)
 
 
 if __name__ == "__main__":

@@ -88,11 +88,14 @@ def _shape(mesh: Mesh, n_samples: int, axis: str) -> tuple[int, int, int]:
     return n_dev, block, _halo_size(block)
 
 
-def shard_iq(iq, mesh: Mesh, block: int, halo: int) -> list[torch.Tensor]:
+def shard_iq(iq, mesh: Mesh, block: int, halo: int, non_blocking: bool = False) -> list[torch.Tensor]:
     """(D * block, 2) int16 IQ (numpy or a tensor) -> each shard's (block +
     halo, 2) slice, its block then the head of the next shard, in a fresh
     buffer on the shard's device. A step takes this list as it takes the
-    whole array, so that a regrow does not copy the capture again."""
+    whole array, so that a regrow does not copy the capture again.
+    non_blocking=True queues the copies from a pinned host tensor on the
+    devices' current streams without waiting (the caller keeps it alive
+    until they ran: runner.run_stream_sharded's pipeline.Fetcher)."""
     src = torch.from_numpy(np.ascontiguousarray(iq, dtype=np.int16)) if isinstance(iq, np.ndarray) else iq
     n_dev = mesh.size
     if src.dtype != torch.int16 or tuple(src.shape) != (n_dev * block, 2):
@@ -101,8 +104,8 @@ def shard_iq(iq, mesh: Mesh, block: int, halo: int) -> list[torch.Tensor]:
     for i, device in enumerate(mesh.devices):
         nxt = (i + 1) % n_dev * block
         ext = torch.empty((block + halo, 2), dtype=torch.int16, device=device)
-        ext[:block].copy_(src[i * block : (i + 1) * block])
-        ext[block:].copy_(src[nxt : nxt + halo])
+        ext[:block].copy_(src[i * block : (i + 1) * block], non_blocking=non_blocking)
+        ext[block:].copy_(src[nxt : nxt + halo], non_blocking=non_blocking)
         shards.append(ext)
     return shards
 

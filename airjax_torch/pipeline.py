@@ -48,6 +48,7 @@ airjax (:86), so whole dicts compare equal.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 
@@ -187,6 +188,110 @@ def decode_iq_chunks(iq_chunks: torch.Tensor, n_off: int, capacity: int) -> dict
 def to_host(out: dict) -> dict:
     """A decode's dict (nested field dicts included) as numpy arrays."""
     return {k: to_host(v) if isinstance(v, dict) else v.cpu().numpy() for k, v in out.items()}
+
+
+@dataclasses.dataclass(eq=False)
+class Ticket:
+    """A dispatched decode: the event recorded after its launches (None on
+    the CPU) and the pinned buffer its block was uploaded from, if any."""
+
+    event: torch.cuda.Event | None
+    staging: torch.Tensor | None
+
+
+class Fetcher:
+    """The uploads and result copies of a stream, so that decodes stay in
+    flight on a card (runner.run_stream and run_stream_sharded; airjax keeps
+    them in flight through JAX's async dispatch, airjax/runner.py:382-388).
+
+    On a card: `stage` copies a block into a pinned buffer, which the
+    upload reads with non_blocking=True, so a dispatch does not wait for the
+    card; `launched` records an event on the compute stream after a decode's
+    launches; `fetch` makes a copy stream of its own wait on that event
+    alone, copies the dict there and waits for that stream only, so that
+    block k's copy never queues behind block k+1's kernels. The kernels all
+    run on the compute stream (the block-decode kernel's per-device
+    accumulator allows no other). A staging buffer goes back to the pool in
+    `done`, after its block's event has completed; a pool holds one buffer
+    per decode in flight. On the CPU `stage` wraps the array, `fetch` is
+    to_host, and there are no streams.
+
+    `fetches` counts the decodes done, and `overlapped` those whose fetch
+    returned while the next decode's event was still pending: the overlap
+    itself, read on the card (0 on the CPU).
+    """
+
+    def __init__(self, device: torch.device | str):
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
+        # Made here, on the thread that runs the stream.
+        self._copy = torch.cuda.Stream(self.device) if self.cuda else None
+        self._free: list[torch.Tensor] = []
+        self._pending: collections.deque[Ticket] = collections.deque()
+        self.fetches = 0
+        self.overlapped = 0
+
+    def stage(self, iq: np.ndarray) -> torch.Tensor:
+        """(L, 2) int16 host IQ as a host tensor an upload may read without
+        blocking: a pinned buffer of the pool on a card, the array itself on
+        the CPU."""
+        src = torch.from_numpy(np.ascontiguousarray(iq, dtype=np.int16))
+        if not self.cuda:
+            return src
+        n = src.shape[0]
+        buf = next((b for b in self._free if b.shape[0] >= n), None)
+        if buf is None:
+            self._free.clear()  # the stream's blocks grew: let the smaller buffers go
+            buf = torch.empty((n, 2), dtype=torch.int16, pin_memory=True)
+        else:
+            self._free.remove(buf)
+        buf[:n].copy_(src)
+        return buf[:n]
+
+    def upload(self, staged: torch.Tensor) -> torch.Tensor:
+        """A staged block on the device, its copy queued on the compute stream."""
+        return staged.to(self.device, non_blocking=True) if self.cuda else staged
+
+    def launched(self, staged: torch.Tensor | None = None) -> Ticket:
+        """The ticket of the decode just launched; `staged` is its block's
+        staging buffer, held until the ticket is done."""
+        event = None
+        if self.cuda:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        # stage() hands out a view of a pool buffer: the ticket holds the buffer.
+        ticket = Ticket(event, staged._base if self.cuda and staged is not None else None)
+        self._pending.append(ticket)
+        return ticket
+
+    def fetch(self, out: dict, ticket: Ticket) -> dict:
+        """`out` (a decode's dict, or part of it) as numpy arrays, copied
+        once the ticket's event has completed, on the copy stream."""
+        if not self.cuda:
+            return to_host(out)
+        self._copy.wait_event(ticket.event)
+        with torch.cuda.stream(self._copy):
+            host = _copy_to_host(out)
+        self._copy.synchronize()
+        return _as_numpy(host)
+
+    def done(self, ticket: Ticket) -> None:
+        """The decode's results are on the host: its staging buffer goes back
+        to the pool, and the overlap is counted."""
+        self._pending.remove(ticket)
+        if ticket.staging is not None:
+            self._free.append(ticket.staging)
+        self.fetches += 1
+        if self.cuda and self._pending and not self._pending[0].event.query():
+            self.overlapped += 1
+
+
+def _copy_to_host(out: dict) -> dict:
+    return {k: _copy_to_host(v) if isinstance(v, dict) else v.to("cpu", non_blocking=True) for k, v in out.items()}
+
+
+def _as_numpy(out: dict) -> dict:
+    return {k: _as_numpy(v) if isinstance(v, dict) else v.numpy() for k, v in out.items()}
 
 
 def decode_iq_block_adaptive(

@@ -32,19 +32,23 @@ every frame one at a time, so they make the sink per packet:
 `plot_dir` writes an SVG plot of each decoded frame's magnitudes
 (visualise.plot_adsb_frame, DF17), `dump_preamble` prints each frame's
 preamble (visualise.dump_preamble), after a DF17 packet's sink call and
-before an extended one's, as airjax prints them. run_stream's
-pipeline_depth is not ported.
+before an extended one's, as airjax prints them.
 
-run_stream decodes blocks one at a time: each block is uploaded, decoded,
-and its results copied back and applied before the next is dispatched.
-Only the source read overlaps the decode, on the Prefetcher's thread.
+Both runners keep `pipeline_depth` decodes in flight (default 1, as
+airjax's, whose `adsb` passes none): block k+1 is uploaded from a pinned
+buffer and its kernels launched before block k is fetched, and block k's
+results are copied on a copy stream that waits on block k's event alone
+(pipeline.Fetcher), so the card decodes block k+1 while the host copies
+and applies block k. Entries are fetched and applied first in, first out,
+so packets, the recover2 gate, the ICAO cache and the stats follow stream
+order at every depth. The source is read on the Prefetcher's thread.
 run_stream_sharded decodes the stream over a mesh of devices
-(parallel/halo.py), in steps of many blocks, with pipeline_depth steps in
-flight.
+(parallel/halo.py), in steps of many blocks.
 """
 
 from __future__ import annotations
 
+import collections
 import functools
 import time
 from typing import Callable, Iterator
@@ -62,7 +66,7 @@ from airjax_torch.pipeline import (
     decode_iq_block_extended,
     decode_iq_block_extended_with_fields,
     decode_iq_block_with_fields,
-    to_host,
+    Fetcher,
 )
 from airjax_torch.protocol.packet import AdsbPacket
 from airjax_torch.track.icao_cache import IcaoCache
@@ -84,9 +88,15 @@ class StreamStats:
         self.recovered2 = 0  # 2-bit repairs accepted (recover2)
         self.overflow_blocks = 0
         self.started = time.time()
-        # Host wall-clock per stage: dispatch (block prep + decode launch),
-        # fetch (result copy + overflow regrow), apply (packets + sink).
+        # Host wall-clock per stage: dispatch (upload + decode launches),
+        # fetch (the wait and the result copy + overflow regrow), apply
+        # (packets + sink).
         self.stages = StageTimer()
+        # Set at the stream's end, not in as_dict (airjax has no such keys):
+        # decodes fetched, and those whose fetch returned while the next
+        # decode was still running on the card (pipeline.Fetcher).
+        self.fetches = 0
+        self.overlapped = 0
 
     def as_dict(self) -> dict:
         dt = max(time.time() - self.started, 1e-9)
@@ -221,17 +231,26 @@ def run_stream(
     recover2: bool = False,
     plot_dir: str | None = None,
     dump_preamble: bool = False,
+    pipeline_depth: int = 1,
+    prefetch_depth: int = 4,
 ) -> StreamStats:
     """Consume a block source until exhausted; call on_packet per packet
     (with extended=True, also AllCallReply, SurveillanceReply, AcasReply
     and CommDReply objects), or hand a batched sink each block. plot_dir
-    and dump_preamble are the debug aids (module docstring)."""
+    and dump_preamble are the debug aids (module docstring).
+
+    pipeline_depth decodes stay in flight before the oldest is fetched
+    (airjax/runner.py:105-116, :382-407): block k+1's upload and kernels
+    overlap block k's fetch and packet assembly. Packets come out in stream
+    order at every depth; 0 is the serial form. prefetch_depth bounds the
+    source's read-ahead queue (io.source.Prefetcher)."""
     stats = stats or StreamStats()
     # A batched sink (track.batch): on_fields in DF17 mode, on_extended_block
     # in extended mode; any other sink, or the debug aids, take packets.
     debug = plot_dir is not None or dump_preamble
     sink = _Sink(on_packet, extended, recover2, stats, per_packet=debug)
     decode = _decode_fn(extended, sink.batched, recover2)
+    fetcher = Fetcher(device)
     halo = WINDOW - 1
     # The initial carry is the non-detecting (1,0)-magnitude pattern: a
     # zero carry passes the equality-tolerant gate at every offset.
@@ -241,20 +260,32 @@ def run_stream(
         carry[::2, 0] = 1
     global_base = -halo  # global sample index of carry[0]
     pending = np.zeros((0, 2), dtype=np.int16)
+    inflight: collections.deque = collections.deque()
 
-    def _decode(ext: np.ndarray, n_off: int, base: int, n_samples: int) -> None:
+    def _dispatch(ext: np.ndarray, n_off: int, base: int, n_samples: int) -> None:
         with stats.stages.stage("dispatch"):
-            block_dev = torch.as_tensor(ext, device=device)
+            staged = fetcher.stage(ext)
+            block_dev = fetcher.upload(staged)
             out_dev = decode(block_dev, n_off, cfg.max_candidates)
-            now = time.time()
+            ticket = fetcher.launched(staged)
+        # `now` is stamped at dispatch, as airjax does; the entry keeps the
+        # block on the device for a regrow, and `ext` for the debug aids.
+        inflight.append((ext, n_off, base, time.time(), n_samples, block_dev, out_dev, ticket))
+
+    def _process(entry) -> None:
+        ext, n_off, base, now, n_samples, block_dev, out_dev, ticket = entry
         with stats.stages.stage("fetch"):
-            out = to_host(out_dev)
+            out = fetcher.fetch(out_dev, ticket)
             # Regrow on overflow: a dropped detection would lose a frame.
             overflowed = bool(out["overflow"])
             capacity = cfg.max_candidates
             while bool(out["overflow"]) and capacity < n_off:
                 capacity = min(capacity * 4, n_off)
-                out = to_host(decode(block_dev, n_off, capacity))
+                out_dev = decode(block_dev, n_off, capacity)
+                fetcher.done(ticket)
+                ticket = fetcher.launched()
+                out = fetcher.fetch(out_dev, ticket)
+            fetcher.done(ticket)
         t_apply = time.perf_counter()
         good = out.get("good")
         if good is not None and overlap:
@@ -275,7 +306,7 @@ def run_stream(
         # Blocks that needed a regrow (the regrown result's flag is clear).
         stats.overflow_blocks += overflowed
 
-    for block in Prefetcher(source, depth=4):
+    for block in Prefetcher(source, depth=prefetch_depth):
         block = np.asarray(block, dtype=np.int16)
         if overlap and len(pending):
             # Short reads accumulate rather than being dropped.
@@ -299,16 +330,21 @@ def run_stream(
         else:
             n_off = block.shape[0] - WINDOW
             ext = block
-        _decode(ext, n_off, global_base, block.shape[0])
+        _dispatch(ext, n_off, global_base, block.shape[0])
         if overlap:
             global_base += n_off
+        while len(inflight) > max(pipeline_depth, 0):
+            _process(inflight.popleft())
     if overlap and len(pending):
         # A final short read still ends the stream: frames ending inside
         # it are scannable once appended to the carry.
         carry = np.concatenate([carry, pending], axis=0)
     if overlap and carry.shape[0] > halo:
         # Tail flush: the carry's offsets whose windows end at the stream end.
-        _decode(carry, carry.shape[0] - halo, global_base, 0)
+        _dispatch(carry, carry.shape[0] - halo, global_base, 0)
+    while inflight:
+        _process(inflight.popleft())
+    stats.fetches, stats.overlapped = fetcher.fetches, fetcher.overlapped
     return stats
 
 
@@ -352,17 +388,18 @@ def run_stream_sharded(
     scanned once and the emitted stream equals run_stream's in overlap mode.
     The last step is padded with the non-detecting pattern and its offsets
     past the stream's end dropped (`max_local`). `pipeline_depth` steps are
-    dispatched before the oldest is fetched; a step that overflows is
-    decoded again with K and C grown 4x. Sinks as run_stream: per packet, or
-    a batched one (`on_fields`, `on_extended_block`), whose fields come from
-    one block_fields launch on the gathered rows; recover2 gates as there.
+    dispatched before the oldest is fetched, each uploaded from a pinned
+    buffer and fetched on a copy stream after its own event
+    (pipeline.Fetcher), so that step k's copies overlap step k+1's kernels;
+    a step that overflows is decoded again with K and C grown 4x. Sinks as
+    run_stream: per packet, or a batched one (`on_fields`,
+    `on_extended_block`), whose fields come from one block_fields launch on
+    the gathered rows; recover2 gates as there.
 
     `detections` counts each step's last 239 offsets twice, by design: a
     step scans them with the wrapped halo (and masks their hits), the next
     one with the real samples. `good` and the packets are exact.
     """
-    import collections
-
     from airjax_torch.parallel.halo import (
         _EXT_MASK_KEYS,
         EXT_COMPACT_ROW_KEYS,
@@ -414,6 +451,7 @@ def run_stream_sharded(
     warm = np.zeros((T, 2), dtype=np.int16)
     warm[::2, 0] = 1
     int(get_step(K, C)(warm)[count_key])
+    fetcher = Fetcher(mesh.devices[0])
 
     # The initial carry: the non-detecting pattern, its offsets masked by
     # global_base < 0.
@@ -423,27 +461,32 @@ def run_stream_sharded(
     acc = np.zeros((0, 2), dtype=np.int16)
     inflight: collections.deque = collections.deque()
 
-    def _fetch_rows(out: dict, n: int) -> dict:
+    def _fetch_rows(out: dict, n: int, ticket) -> dict:
         rows = {k: out[k][:n] for k in row_keys}
         if with_fields:
             rows["fields"] = {k: v[:n] for k, v in out["fields"].items()}
             if extended:
                 rows["short_fields"] = {k: v[:n] for k, v in out["short_fields"].items()}
-        return to_host(rows)
+        return fetcher.fetch(rows, ticket)
 
     def _process(entry) -> None:
         nonlocal K, C
-        shards, base, now, n_fresh, max_local, out = entry
+        shards, base, now, n_fresh, max_local, out, ticket = entry
         with stats.stages.stage("fetch"):
-            scal = to_host({k: out[k] for k in scalar_keys})
+            # The scalars first, then n rows: both copies wait on this
+            # step's event alone.
+            scal = fetcher.fetch({k: out[k] for k in scalar_keys}, ticket)
             overflowed = bool(scal["overflow"])
             while bool(scal["overflow"]) and (K < block or C < T):
                 K = min(K * 4, block)
                 C = min(C * 4, T)
                 out = get_step(K, C)(shards)
-                scal = to_host({k: out[k] for k in scalar_keys})
+                fetcher.done(ticket)
+                ticket = fetcher.launched()
+                scal = fetcher.fetch({k: out[k] for k in scalar_keys}, ticket)
             n = int(scal[count_key])
-            rows = _fetch_rows(out, n)
+            rows = _fetch_rows(out, n, ticket)
+            fetcher.done(ticket)
         t_apply = time.perf_counter()
         # int64: the stream base passes 2^31 after ~18 min of stream.
         offs = np.asarray(rows["offsets"], dtype=np.int64)
@@ -480,9 +523,12 @@ def run_stream_sharded(
         if full.shape[0] < T:
             full = pad_iq_non_detecting(full, T)
         with stats.stages.stage("dispatch"):
-            shards = shard_iq(full, mesh, block, halo)
+            staged = fetcher.stage(full)
+            shards = shard_iq(staged, mesh, block, halo, non_blocking=True)
             out = get_step(K, C)(shards)
-        inflight.append((shards, global_base, time.time(), fresh.shape[0], max_local, out))
+            ticket = fetcher.launched(staged)
+        # The entry keeps the shards on their devices for a regrow.
+        inflight.append((shards, global_base, time.time(), fresh.shape[0], max_local, out, ticket))
         carry = full[F:].copy()
         global_base += F
         while len(inflight) > max(pipeline_depth, 0):
@@ -502,4 +548,5 @@ def run_stream_sharded(
             _dispatch(acc, true_len - WINDOW)
     while inflight:
         _process(inflight.popleft())
+    stats.fetches, stats.overlapped = fetcher.fetches, fetcher.overlapped
     return stats

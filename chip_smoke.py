@@ -99,7 +99,30 @@ Phases; any failure raises and the exit code is nonzero:
      offsets, one fields launch an analysis; decode_channels on 8 channels
      of 2^21 samples; run_stream_sharded with BatchTracker and
      ExtendedBatchTracker on 4 shards, the tables == run_stream's; MS/s of
-     each path.
+     each path;
+ 12. the multi-process decode (parallel/multihost.py): one process on 4
+     shards, 2 gloo worker processes on card 0, NCCL a rank a card; every
+     rank == the one process;
+ 13. the golden oracle == decode_capture_parity fused and per chunk on 2 M
+     samples of phase 10's traffic; adsb --dump-preamble card == CPU; adsb
+     --trace names the kernels;
+ 14. the pipelined stream (run_stream's pipeline_depth, pipeline.Fetcher):
+     phase 6's stream at depths 0, 1, 2 and 4 (the embedded frames, in
+     order), ExtendedBatchTracker, BatchTracker --recover2 and
+     run_stream_sharded on 4 shards of the card at depths 0 and 1 (tables
+     equal), phase 4's block fed 8 times at depths 0 and 1 (block k+1
+     pending at block k's fetch in at least half the blocks at depth 1; a
+     profiler window: fronts and block decodes, no other kernel); MS/s and
+     the dispatch/fetch/apply ms of each;
+ 15. live input through the fake SoapySDR (native/fake_soapysdr.c): list,
+     receive --synthetic and receive write what they should; adsb
+     --max-blocks 50 decodes the capture's frames 50 times over through the
+     native ring; native.decode_chunk == decode_capture_parity on the card;
+ 16. airjax_torch/tools as processes, all at once: fuzz_parity,
+     fuzz_extended (and --recover2) at 20 iterations, soak 10 s, soak --sdr
+     5 s, dryrun_multichip on Mesh([card 0] * 4); each exits 0.
+`chip_smoke.py --cards` (4 or more cards): the mesh paths across cards,
+dryrun_multichip on make_mesh(4), and phase 12 with NCCL across 4 cards.
 Phase 3 also holds the block-decode kernel's recover2 (R2) instantiations
 to their plain versions, and to the mode without R2 where no pair repair
 applied, on its inputs plus the recover2 block and every format with 2-bit
@@ -1306,8 +1329,8 @@ def plain_stream_hits(iq: np.ndarray, dev: torch.device) -> list[tuple[int, byte
     return hits
 
 
-def run_cli(argv: list[str]) -> tuple[str, dict, float]:
-    """The CLI's standard output, its final stats and its wall time."""
+def cli_out(argv: list[str]) -> tuple[str, float]:
+    """The CLI's standard output and its wall time; it must exit 0."""
     from airjax_torch import cli
 
     buf = io.StringIO()
@@ -1316,7 +1339,12 @@ def run_cli(argv: list[str]) -> tuple[str, dict, float]:
         rc = cli.main(argv)
     wall = time.perf_counter() - t0
     check(rc == 0, f"cli {argv} returned {rc}")
-    text = buf.getvalue()
+    return buf.getvalue(), wall
+
+
+def run_cli(argv: list[str]) -> tuple[str, dict, float]:
+    """The CLI's standard output, its final stats and its wall time."""
+    text, wall = cli_out(argv)
     stats = ast.literal_eval([ln for ln in text.splitlines() if ln.startswith("stats: ")][-1][len("stats: "):])
     return text, stats, wall
 
@@ -1390,7 +1418,7 @@ def phase_stream(dev: torch.device) -> dict[str, int]:
         lost = len(got) - len(hexes_p)
         check(lost >= len(straddle), f"no-overlap lost {lost} < {len(straddle)} straddlers")
         print(f"stream no-overlap: {len(hexes_p)} frames ({lost} lost at chunk edges); {wall_p:.2f} s wall")
-    return launches
+    return launches, (iq, frames)
 
 
 R2_FLIPS = 256  # DF17 frames of the recover2 block sent with a 2-bit flip
@@ -2318,6 +2346,9 @@ def phase_oracle(dev: torch.device, tracker_iq: np.ndarray) -> dict[str, int]:
             wall = time.perf_counter() - t0
         check([(c, o, f) for c, o, f, _ in hits] == gold, f"decode_capture_parity(fused={fused}) != golden")
         forms[fused] = (stats, n, wall)
+    # The fused form counts the reference-chunked detections with the first
+    # front (_count_chunked_detections): one csrc/magdet.cu launch a capture.
+    check(forms[True][1]["magdet_front"] == 1, f"fused: not one old-front launch a capture: {forms[True][1]}")
     n_chunks = pipeline.reference_chunk_count(len(sub))
     (fstats, _, fwall), (cstats, n, cwall) = forms[True], forms[False]
     check(fstats == cstats, f"the parity stats differ: fused {fstats}, per chunk {cstats}")
@@ -2348,7 +2379,281 @@ def phase_oracle(dev: torch.device, tracker_iq: np.ndarray) -> dict[str, int]:
               f"adsb --trace: the trace names no front or block-decode kernel: {sorted(names)[:10]}")
     print(f"adsb --dump-preamble: the card's {dumps} dumps and packets == the CPU's (Processed Time masked); "
           f"adsb --trace: a trace with {len(names)} kernel names, the front's and the block decode's among them")
-    return {"magdet_bits_chunks": n["magdet_bits"]}
+    return {"magdet_bits_chunks": n["magdet_bits"], "magdet_front_parity": forms[True][1]["magdet_front"]}
+
+
+# Phase 14: the pipelined stream (runner's pipeline_depth, pipeline.Fetcher).
+PIPE_DEPTHS = (0, 1, 2, 4)
+PIPE_SAMPLES = 10_000_000  # the tracker traffic's first 5 s, for the tables
+BIG_STREAM_BLOCKS = 8  # phase 4's block, fed this many times
+
+
+def stream_pass(name: str, blocks, sink, runner=None, **kw):
+    """One stream through `runner` (run_stream by default) -> (stats,
+    stats.as_dict(), launches); prints its MS/s, the mean dispatch, fetch
+    and apply ms a decode, and the fetches that overlapped the next decode."""
+    from airjax_torch.runner import run_stream
+
+    with counted() as n:
+        t0 = time.perf_counter()
+        stats = (runner or run_stream)(blocks(), sink, **kw)
+        wall = time.perf_counter() - t0
+    d = stats.as_dict()
+    st = d["stages"]
+    print(f"pipelined, {name}: {d['samples'] / wall / 1e6:.2f} MS/s ({wall:.3f} s wall, {d['samples']} samples); "
+          f"dispatch / fetch / apply {st['dispatch']['mean_ms']:.4f} / {st['fetch']['mean_ms']:.4f} / "
+          f"{st['apply']['mean_ms']:.4f} ms a decode ({st['fetch']['calls']} decodes); {stats.overlapped} of "
+          f"{stats.fetches} fetches returned with the next decode pending; launches {json.dumps(n)}")
+    return stats, d, n
+
+
+def same_stats(a: dict, b: dict) -> bool:
+    return {k: v for k, v in a.items() if k not in ("stages", "msamples_per_s")} == {
+        k: v for k, v in b.items() if k not in ("stages", "msamples_per_s")}
+
+
+def phase_pipelined(dev: torch.device, stream_capture, block: np.ndarray, block_frames: list[bytes],
+                    tracker_iq: np.ndarray) -> None:
+    """Phase 14: run_stream keeps pipeline_depth decodes in flight, each
+    fetched on a copy stream after its own event (pipeline.Fetcher). Each
+    pass below runs in turns (0, 1, ..., 1, 0) and prints its MS/s and
+    stages. Phase 6's 20 M-sample stream at depths 0, 1, 2 and 4: the
+    packets are the embedded frames in order, a front and a block decode a
+    block. The first PIPE_SAMPLES of the tracker traffic into
+    ExtendedBatchTracker and BatchTracker --recover2, and
+    run_stream_sharded on 4 shards of the card into BatchTracker, at depths
+    0 and 1: the tables and stats equal. Phase 4's block fed
+    BIG_STREAM_BLOCKS times at depths 0 and 1 (capacity 2048: no regrow):
+    the same packets, and at depth 1 block k+1 still pending when block
+    k's fetch returns in at least half the blocks; a profiler window of
+    that depth-1 stream runs the front and the block decode a decode and
+    no other kernel."""
+    from airjax_torch.config import PipelineConfig
+    from airjax_torch.parallel.mesh import Mesh
+    from airjax_torch.runner import run_stream_sharded
+    from airjax_torch.track.batch import BatchTracker, ExtendedBatchTracker
+
+    def chunks(iq, n):
+        return lambda: (iq[i : i + CHUNK] for i in range(0, n, CHUNK))
+
+    stream_iq, frames = stream_capture
+    n_blocks = STREAM_SAMPLES // CHUNK
+    for depth in PIPE_DEPTHS + PIPE_DEPTHS[::-1]:  # in turns
+        got = []
+        stats, d, n = stream_pass(f"phase 6's stream, depth {depth}", chunks(stream_iq, STREAM_SAMPLES), got.append,
+                                  device=dev, pipeline_depth=depth)
+        check([p.packet for p in got] == frames, f"depth {depth}: the packets are not the embedded frames in order")
+        check(n["magdet_bits"] == n["block_decode"] == n_blocks == d["blocks"] and stats.fetches == n_blocks
+              and n["compact_bits"] == n["candidate"] == n["magdet_front"] == n["fields"] == 0,
+              f"depth {depth}: not a front and a block decode a block: {n}")
+        print(f"  stages: {json.dumps(d['stages'])}")
+
+    tracks = chunks(tracker_iq, PIPE_SAMPLES)
+    for name, make, kw in (("ExtendedBatchTracker", ExtendedBatchTracker, {"extended": True}),
+                           ("BatchTracker --recover2", BatchTracker, {"recover2": True}),
+                           ("run_stream_sharded, 4 shards of the card, BatchTracker", BatchTracker,
+                            {"runner": run_stream_sharded, "mesh": Mesh([dev] * 4)})):
+        runs = []
+        for depth in (0, 1, 1, 0):  # in turns
+            sink = make()
+            extra = {} if "runner" in kw else {"device": dev}
+            _, d, n = stream_pass(f"{name}, depth {depth}", tracks, sink, pipeline_depth=depth, **kw, **extra)
+            check(n["block_decode"] > 0 and n["compact_bits"] == n["candidate"] == 0, f"{name}: launches {n}")
+            runs.append((table_view(sink.aircrafts, kw.get("extended", False)), d))
+        t0_, d0 = runs[0]
+        check(len(t0_) > 0 and all(same_table(t0_, t) and same_stats(d0, d) for t, d in runs[1:]),
+              f"{name}: depth 1's table or stats differ from depth 0's")
+        print(f"  {name}: depth 1 == depth 0 ({len(t0_)} aircraft, stats "
+              f"{json.dumps({k: v for k, v in d0.items() if k not in ('stages', 'msamples_per_s')})})")
+
+    def big():
+        return (block for _ in range(BIG_STREAM_BLOCKS))
+
+    # Phase 4's capacity: 1024 frames a block never regrow.
+    cfg = PipelineConfig(max_candidates=CAPACITY)
+    for depth in (0, 1, 1, 0):  # in turns
+        got = []
+        stats, d, n = stream_pass(f"phase 4's block x {BIG_STREAM_BLOCKS}, depth {depth}", big, got.append,
+                                  cfg=cfg, device=dev, pipeline_depth=depth)
+        check([p.packet for p in got] == block_frames * BIG_STREAM_BLOCKS,
+              f"the 2^24 stream, depth {depth}: packets differ")
+        check(n["magdet_bits"] == n["block_decode"] == stats.fetches == BIG_STREAM_BLOCKS + 1,
+              f"the 2^24 stream, depth {depth}: not a front and a block decode a decode: {n}")
+        check(depth == 0 or 2 * stats.overlapped >= BIG_STREAM_BLOCKS,
+              f"the 2^24 stream at depth 1: block k+1 pending at block k's fetch in {stats.overlapped} of "
+              f"{BIG_STREAM_BLOCKS} blocks, not half")
+        print(f"  stages: {json.dumps(d['stages'])}")
+
+    from airjax_torch.runner import run_stream
+
+    def one_stream():
+        run_stream(big(), lambda p: None, cfg, device=dev, pipeline_depth=1)
+
+    one_stream()
+    for _ in range(PROFILE_TRIES):
+        events = device_events(one_stream, 1)
+        names = [e.name for e in events if "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+        fronts = sum("magdet_bits_kernel" in x for x in names)
+        decodes = sum("block_decode_kernel" in x for x in names)
+        other = sorted({x[:80] for x in names if "magdet_bits_kernel" not in x and "block_decode_kernel" not in x})
+        check(not other, f"the depth-1 2^24 stream ran other kernels: {other}")
+        if fronts == decodes == BIG_STREAM_BLOCKS + 1:
+            break
+        print(f"profile, the depth-1 2^24 stream: the profiler dropped events ({fronts} fronts, {decodes} block "
+              f"decodes); again")
+    else:
+        check(False, f"the depth-1 2^24 stream: the profiler dropped events in {PROFILE_TRIES} windows")
+    busy = busy_us(events)
+    copies = sum(1 for e in events if "memcpy" in e.name.lower())
+    print(f"pipelined, the depth-1 2^24 stream under the profiler: {fronts} fronts and {decodes} block decodes, no "
+          f"other kernel; {copies} copies; device busy {busy / 1e3:.3f} ms")
+
+
+# Phase 15: live input on the card (sdr.py, the native ring, list/receive/adsb).
+LIVE_BLOCKS = 50
+LIVE_OFFSETS = (1000, 7000, 13000)
+
+
+def fake_capture(path: str) -> list[bytes]:
+    """A 20,000-sample capture (one MTU block of the fake SoapySDR, which
+    cycles it) of three DF17 identification frames in its interior -> the
+    frames."""
+    from airjax_torch.io import synth
+    from airjax_torch.io.c16 import save_c16
+
+    frames = [synth.make_df17(0x7C0DE0 + i, synth.make_id_me(f"LIVE{i:04d}")) for i in range(len(LIVE_OFFSETS))]
+    save_c16(synth.modulate(frames, list(LIVE_OFFSETS), CHUNK, seed=11), path)
+    return frames
+
+
+@contextlib.contextmanager
+def fake_soapysdr(tmp: str):
+    """The environment that points sdr.py at the fake SoapySDR (built from
+    native/fake_soapysdr.c) over fake_capture's capture -> (capture path,
+    frames, log path); the variables restored on exit."""
+    from airjax_torch import native
+
+    capture, log = os.path.join(tmp, "fake.c16"), os.path.join(tmp, "soapy.log")
+    frames = fake_capture(capture)
+    env = {"AIRJAX_SOAPY_LIB": str(native.build_fake_soapysdr()), "AIRJAX_FAKE_SOAPY_C16": capture,
+           "AIRJAX_FAKE_SOAPY_LOG": log}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield capture, frames, log
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_live(dev: torch.device, tracker_iq: np.ndarray) -> None:
+    """Phase 15: through the fake SoapySDR, `list` prints its device,
+    `receive --synthetic` writes the synthetic stream and a live `receive`
+    the fake's blocks; `adsb --max-blocks LIVE_BLOCKS` on the card decodes
+    the capture's frames LIVE_BLOCKS times over, the blocks through the
+    native ring (sdr.ring_blocks), a front and a block decode a block; the
+    port's native.decode_chunk, chunk by chunk, == decode_capture_parity on
+    the card on phase 13's traffic."""
+    from airjax_torch import native, pipeline, sdr
+    from airjax_torch.io.c16 import load_c16
+    from airjax_torch.io.source import synthetic_blocks
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, fake_soapysdr(tmp) as (capture, frames, log), contextlib.chdir(tmp):
+        text, _ = cli_out(["list"])
+        check(text == "0: device 0\n", f"list printed {text!r}")
+        text, _ = cli_out(["receive", "2000000.0", "2000000.0", "49.5", "1", "--synthetic"])
+        want = np.concatenate(list(synthetic_blocks(chunk=CHUNK, n_blocks=100)))[:2_000_000]
+        check(np.array_equal(load_c16("data_2000000.0_2000000.0_49.5"), want),
+              f"receive --synthetic: not the synthetic stream ({text.strip()})")
+        text, wall = cli_out(["receive", "1090000000.0", "2000000.0", "49.5", "1", "-d", "0"])
+        cap = load_c16("data_1090000000.0_2000000.0_49.5")
+        blocks = cap.reshape(-1, CHUNK, 2) if len(cap) % CHUNK == 0 else None
+        check(blocks is not None and len(blocks) > 0 and all(np.array_equal(b, load_c16(capture)) for b in blocks),
+              f"receive: not the fake's blocks ({text.strip()})")
+        check('makeStrArgs args="driver=rtlsdr,rtl=0"' in open(log).read(), "receive -d 0: not device 0")
+        print(f"live: list == '0: device 0'; receive --synthetic == 2 M samples of the synthetic stream; receive "
+              f"-d 0 wrote {len(blocks)} of the fake's blocks in {wall:.2f} s")
+
+        sdr.ring_blocks = 0
+        with counted() as n:
+            text, stats, wall = run_cli(["adsb", "--max-blocks", str(LIVE_BLOCKS)])
+        check(hexes(text) == [f.hex() for f in frames] * LIVE_BLOCKS,
+              f"live adsb: {len(hexes(text))} packets, not the capture's {len(frames)} frames {LIVE_BLOCKS} times")
+        check(sdr.ring_blocks >= LIVE_BLOCKS, f"live adsb: {sdr.ring_blocks} blocks through the native ring")
+        check(stats["blocks"] == LIVE_BLOCKS and n["magdet_bits"] == n["block_decode"] == LIVE_BLOCKS
+              and n["compact_bits"] == n["candidate"] == n["fields"] == 0, f"live adsb: stats {stats}, launches {n}")
+        closing = open(log).read()
+        check("closeStream" in closing and "unmake" in closing, "live adsb: the SDR was not closed")
+        print(f"live: adsb --max-blocks {LIVE_BLOCKS} on the card: {len(hexes(text))} packets == the capture's "
+              f"frames x {LIVE_BLOCKS}, {sdr.ring_blocks} blocks through the native ring, launches {json.dumps(n)}; "
+              f"{wall:.2f} s; stages {json.dumps(stats['stages'])}")
+
+    sub = np.ascontiguousarray(tracker_iq[:GOLDEN_SAMPLES])
+    hits, _ = pipeline.decode_capture_parity(sub, device=dev)
+    t1 = time.perf_counter()
+    nat = []
+    for c in range(pipeline.reference_chunk_count(len(sub))):
+        chunk_hits, _ = native.decode_chunk(sub[c * CHUNK : (c + 1) * CHUNK])
+        nat += [(c, o, f, r) for o, f, r in chunk_hits]
+    t_nat = time.perf_counter() - t1
+    check(nat == hits, f"native.decode_chunk ({len(nat)} hits) != decode_capture_parity on the card ({len(hits)})")
+    print(f"live: native.decode_chunk == decode_capture_parity on the card, {len(hits)} hits of {GOLDEN_SAMPLES} "
+          f"samples of the tracker traffic; native {GOLDEN_SAMPLES / t_nat / 1e6:.2f} MS/s (host); phase "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+# Phase 16: the port's tools at small size on the card, as processes of their own.
+TOOLS_TIMEOUT = 400
+
+
+def run_tools(commands: dict[str, list[str]], env: dict, tmp: str) -> None:
+    """Each command in a process of its own, all started together, each
+    writing to a file; every one must exit 0 within TOOLS_TIMEOUT. Prints
+    each one's wall time and last line; kills what is left."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = {}
+    try:
+        t0 = time.perf_counter()
+        for name, argv in commands.items():
+            out = open(os.path.join(tmp, f"{len(procs)}.log"), "w")
+            procs[name] = (subprocess.Popen([sys.executable, *argv], cwd=root, env=env, stdout=out,
+                                            stderr=subprocess.STDOUT), out)
+        for name, (proc, out) in procs.items():
+            try:
+                rc = proc.wait(timeout=max(1.0, TOOLS_TIMEOUT - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                rc = None
+            out.close()
+            lines = open(out.name).read().strip().splitlines() or [""]
+            check(rc == 0, f"{name} exited {rc}: {' | '.join(lines[-8:])}")
+            print(f"tools: {name}: exit 0 by {time.perf_counter() - t0:.1f} s: {lines[-1][:400]}")
+    finally:
+        for proc, out in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+
+
+def phase_tools() -> None:
+    """Phase 16: airjax_torch/tools on the card, all at once: fuzz_parity and
+    fuzz_extended (and --recover2) at 20 iterations, soak for 10 s, soak
+    --sdr for 5 s through the fake SoapySDR, dryrun_multichip on
+    Mesh([card 0] * 4); each exits 0."""
+    tools = "airjax_torch/tools/"
+    with tempfile.TemporaryDirectory() as tmp, fake_soapysdr(tmp):
+        run_tools({
+            "fuzz_parity --iters 20": [tools + "fuzz_parity.py", "--iters", "20"],
+            "fuzz_extended --iters 20": [tools + "fuzz_extended.py", "--iters", "20"],
+            "fuzz_extended --iters 20 --recover2": [tools + "fuzz_extended.py", "--iters", "20", "--recover2"],
+            "soak --seconds 10": [tools + "soak.py", "--seconds", "10"],
+            "soak --sdr --seconds 5": [tools + "soak.py", "--sdr", "--seconds", "5"],
+            "dryrun_multichip 4 --one-card": [tools + "dryrun_multichip.py", "4", "--one-card"],
+        }, dict(os.environ), tmp)
 
 
 # The multi-card run (`chip_smoke.py --cards`, a host of 4 or more cards).
@@ -2427,6 +2732,10 @@ def cards_main() -> int:
     dev = torch.device("cuda", 0)
     capture = sharded_capture(60)
     phase_multicard(dev, capture)
+    from airjax_torch.parallel.mesh import make_mesh
+    from airjax_torch.tools.dryrun_multichip import dryrun_multichip
+
+    print(dryrun_multichip(make_mesh(4))[:400])
     multi = phase_multihost(dev, capture)
     print(f"chip_smoke --cards: {time.perf_counter() - t_start:.1f} s, the build included; launches "
           f"{json.dumps(multi)}")
@@ -2476,7 +2785,7 @@ def main() -> int:
     phase_recover2_block(r2_block_dev, r2_frames, r2_offsets, r2_flipped)
     launches = phase_block_ab(block_dev, ext_block_dev, capacity)
     ab = phase_stencil_ab(block_dev)
-    df17 = phase_stream(dev)
+    df17, stream_capture = phase_stream(dev)
     phase_extended_block(ext_block_dev, capacity, ext_frames, ext_offsets)
     ext = phase_extended_stream(dev)
     tracker, tracker_iq = phase_tracker_stream(dev)
@@ -2489,16 +2798,22 @@ def main() -> int:
     kernels += sharded_entries
     multi = phase_multihost(dev, capture)
     del capture
-    phase_oracle(dev, tracker_iq)
+    oracle = phase_oracle(dev, tracker_iq)
+    phase_pipelined(dev, stream_capture, block, frames, tracker_iq)
+    del stream_capture
+    phase_live(dev, tracker_iq)
+    phase_tools()
     launches.update({**df17, **ext, **tracker, "block_decode": df17["block_decode"] + ext["block_decode"],
-                     "magdet_front": front_launches["df17"], "magdet_front_preamble": front_launches["preamble"],
+                     "magdet_front": front_launches["df17"] + oracle["magdet_front_parity"],
+                     "magdet_front_preamble": front_launches["preamble"],
                      **sharded, "shard_gather": sharded["shard_gather"] + df17["shard_gather"] + multi["shard_gather"],
                      "fields_extended": sharded["fields_extended"] + multi["fields_extended"]})
     paths = {"magdet_bits": "adsb stream", "magdet_bits_preamble": "adsb --extended stream",
              "block_decode": "adsb stream + adsb --extended stream",
              "compact_bits": "block A/B, staged chain (DF17 + extended)",
              "candidate_crc": "block A/B, staged chain (DF17)", "candidate_extended": "block A/B, staged chain (extended)",
-             "magdet_front": "phase 3 oracle checks (DF17 gate)",
+             "magdet_front": "phase 3 oracle checks (DF17 gate); phase 13 decode_capture_parity(fused=True): "
+                             "_count_chunked_detections, one launch a capture",
              "magdet_front_preamble": "phase 3 oracle checks (preamble gate)",
              "block_decode_r2": "tracker stream, per-packet table --recover2",
              "block_decode_extended_r2": "tracker stream, per-packet extended table --recover2",

@@ -672,3 +672,50 @@ def test_multihost_and_parity_on_card_match_cpu(cuda_device):  # noqa: F811
     for fused in (True, False):
         hits, _ = pipeline.decode_capture_parity(iq, cfg, fused=fused, device=cuda_device)
         assert [(c, o, f) for c, o, f, _ in hits] == gold and gold
+
+
+def _pipelined_stream(n_blocks: int = 8):
+    """20,000-sample blocks, 7 DF17 frames a block (one across its end),
+    and a ragged tail that completes the last one -> (blocks, frames)."""
+    frames = [synth.make_df17(0xA00000 + i, synth.make_id_me(f"PIPE{i:04d}")) for i in range(3)]
+    offsets = [b * 20000 + 300 + k * 2900 for b in range(n_blocks) for k in range(6)]
+    offsets = sorted(offsets + [(b + 1) * 20000 - 120 for b in range(n_blocks)])
+    n = n_blocks * 20000 + 7000
+    iq = synth.modulate([frames[i % 3] for i in range(len(offsets))], offsets, n, noise_std=30.0, seed=14)
+    return lambda: (iq[i : i + 20000] for i in range(0, n, 20000)), len(offsets)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 4])
+def test_stream_fetch_is_depth_invariant(cuda_device, depth):  # noqa: F811
+    """pipeline.Fetcher's stream form (pinned uploads, a copy stream that
+    waits on each block's event): run_stream and run_stream_sharded on the
+    card give depth 0's packets and stats at every depth, each block fetched
+    once, and the packets are the CPU's."""
+    from airjax_torch import runner
+    from airjax_torch.parallel.mesh import Mesh
+
+    blocks, n_frames = _pipelined_stream()
+
+    def run(device, d):
+        got, got_sh = [], []
+        st = runner.run_stream(blocks(), got.append, device=device, pipeline_depth=d)
+        st_sh = runner.run_stream_sharded(blocks(), got_sh.append, mesh=Mesh([device] * 2), pipeline_depth=d)
+        assert st.fetches == st.blocks
+        stats = {k: v for k, v in st.as_dict().items() if k not in ("stages", "msamples_per_s")}
+        return [p.packet for p in got], stats, [p.packet for p in got_sh], st_sh.good
+
+    serial = run(cuda_device, 0)
+    assert run(cuda_device, depth) == serial == run("cpu", depth)
+    assert len(serial[0]) == serial[1]["good"] == n_frames
+
+
+def test_fetcher_reuses_a_staging_buffer_after_its_event(cuda_device):  # noqa: F811
+    f = pipeline.Fetcher(cuda_device)
+    a = np.ones((1000, 2), np.int16)
+    staged = f.stage(a)
+    assert staged.is_pinned()
+    total = f.upload(staged).sum(dtype=torch.int64)
+    ticket = f.launched(staged)
+    out = f.fetch({"x": total}, ticket)
+    f.done(ticket)
+    assert int(out["x"]) == 2000 and f.stage(a[:500]).data_ptr() == staged.data_ptr()

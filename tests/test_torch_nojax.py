@@ -37,7 +37,10 @@ for name in ("airjax_torch.kernels.block_decode", "airjax_torch.kernels.fields",
              "airjax_torch.track.state", "airjax_torch.ui.tui", "airjax_torch.ui.web",
              "airjax_torch.kernels.shard_gather", "airjax_torch.parallel.mesh", "airjax_torch.parallel.halo",
              "airjax_torch.parallel.channels", "airjax_torch.analytics", "airjax_torch.parallel.multihost",
-             "airjax_torch.golden", "airjax_torch.visualise", "airjax_torch.observability"):
+             "airjax_torch.golden", "airjax_torch.visualise", "airjax_torch.observability",
+             "airjax_torch.native", "airjax_torch.sdr", "airjax_torch.ui.projection", "airjax_torch.ui.bindings_gen",
+             "airjax_torch.tools.fuzz_parity", "airjax_torch.tools.fuzz_extended", "airjax_torch.tools.soak",
+             "airjax_torch.tools.dryrun_multichip"):
     assert name in names, names
 for name in names:
     importlib.import_module(name)
@@ -84,6 +87,15 @@ from airjax_torch.config import PipelineConfig
 parity, _ = pipeline.decode_capture_parity(iq, PipelineConfig(block_len=4000), fused=False, device="cpu")
 assert [(c, o, f) for c, o, f, _ in parity] == golden.decode_capture_playback(iq, chunk=4000) == [(0, 300, frame)]
 assert "preamble @ 7" in visualise.dump_preamble(golden.magnitude(iq[:16]), offset=7)
+from airjax_torch import native
+assert native.decode_chunk(iq[:4000])[0] == [(300, frame, False)]
+ring = native.Ring(100, 2)
+assert ring.push(iq[:100]) and ring.pop().shape == (100, 2) and ring.pop() is None
+got = []
+runner.run_stream(iter([iq[:4000], iq[4000:]]), got.append, device="cpu", pipeline_depth=2, prefetch_depth=1)
+assert [p.packet for p in got] == [frame], got
+from airjax_torch.ui import bindings_gen, projection
+assert len(bindings_gen.generated_files()) == 3 and projection.recenter(10, 10) == (5, 5)
 with observability.trace("/dev/null", enabled=False):
     pass
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "airjax")]
