@@ -43,6 +43,7 @@ _I64 = ctypes.c_longlong
 _SIGNATURES = {
     "airjax_magdet": (ctypes.c_int, [_P, _I64, _I64, _P, _P, _I64, ctypes.c_int, ctypes.c_int, _P]),
     "airjax_magdet_bits": (ctypes.c_int, [_P, _I64, _I64, _P, _P, _I64, _P, ctypes.c_int, _P]),
+    "airjax_chunked_count": (ctypes.c_int, [_P, _I64, _I64, _I64, _P, _P]),
     "airjax_compact": (ctypes.c_int, [_P, _P, _I64, _I64, _P, _P, _P, _P, _P, _P]),
     "airjax_magdet_stencil": (ctypes.c_int, [_P, _I64, _I64, _P, _P, ctypes.c_int, _P]),
     "airjax_candidates": (ctypes.c_int, [_P, _I64, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]),
@@ -51,7 +52,7 @@ _SIGNATURES = {
         ctypes.c_int, [_P, _P, _I64, _P, _I64, _I64, *[_P] * 17, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]),
     "airjax_fields": (ctypes.c_int, [_P, _P, _I64, _P, _P, _P]),
     "airjax_shard_gather": (
-        ctypes.c_int, [_P, ctypes.c_int, _I64, _I64, _I64, _I64, _P, ctypes.c_int, ctypes.c_int, _I64, _P]),
+        ctypes.c_int, [_P, ctypes.c_int, _I64, _I64, _I64, _I64, _P, ctypes.c_int, ctypes.c_int, _I64, _P, _P, _P]),
     "airjax_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 

@@ -81,12 +81,13 @@ candidate_kernel(const uint32_t* __restrict__ words, long long n_words,
 
 // Copies the 88 syndromes (uint32, host memory) into every copy of
 // c_syndromes on the current device: this file's, block_decode.cu's and
-// fields.cu's.
-// Called once per device before the first launch of either kernel.
+// fields.cu's, and the short CRC's 32 into shard_gather.cu's.
+// Called once per device before the first launch of any of these kernels.
 extern "C" int airjax_load_syndromes(const void* host) {
   int rc = load_syndromes(host);
   if (rc == 0) rc = load_block_decode_syndromes(host);
-  return rc != 0 ? rc : load_fields_syndromes(host);
+  if (rc == 0) rc = load_fields_syndromes(host);
+  return rc != 0 ? rc : load_shard_gather_syndromes(host);
 }
 
 // words: (n_words,) u32 packed compares; offsets: (n_cand,) int32, invalid

@@ -201,7 +201,9 @@ __device__ __forceinline__ void store_classes(bool* classes, long long stride, l
 
 }  // namespace
 
-// Load block_decode.cu's and fields.cu's copies of the syndromes (defined
-// there); airjax_load_syndromes calls them after loading candidate.cu's.
+// Load block_decode.cu's and fields.cu's copies of the syndromes and
+// shard_gather.cu's of the short CRC's (defined there);
+// airjax_load_syndromes calls them after loading candidate.cu's.
 int load_block_decode_syndromes(const void* host);
 int load_fields_syndromes(const void* host);
+int load_shard_gather_syndromes(const void* host);

@@ -2,7 +2,12 @@
 // one launch. The A/B baseline and second oracle of the block-decode
 // kernel's F flag (csrc/block_decode.cu), which computes the same fields
 // from the words it holds in registers, so that a batched pass is two
-// launches; no decode path launches this kernel.
+// launches, and of the shard-gather kernel's F flag (csrc/shard_gather.cu),
+// which computes them for the gathered rows of a sharded batched step. The
+// paths that launch it are those where it is the only launch: the fields
+// of an analysis' hits (airjax_torch/analytics.py::analyze_capture) and of
+// the rows a multi-process decode merged across its ranks
+// (airjax_torch/parallel/multihost.py::attach_candidate_fields).
 //
 // No Pallas ancestor: on the TPU, XLA fuses airjax/protocol/fields.py::
 // extract_fields (:36-143) into the decode program

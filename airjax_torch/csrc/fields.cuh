@@ -1,8 +1,9 @@
-// The protocol fields of one slot, shared by the fields kernel (fields.cu)
-// and the block-decode kernel's F flag (block_decode.cu), so that the two
-// cannot drift apart: airjax/protocol/fields.py::extract_fields (:36-143)
-// of the repaired frame and airjax/protocol/shortframe.py::
-// extract_short_fields_from_raw (:337-349) of the raw one.
+// The protocol fields of one slot, shared by the fields kernel (fields.cu),
+// the block-decode kernel's F flag (block_decode.cu) and the shard-gather
+// kernel's F flag (shard_gather.cu), so that they cannot drift apart:
+// airjax/protocol/fields.py::extract_fields (:36-143) of the repaired frame
+// and airjax/protocol/shortframe.py::extract_short_fields_from_raw
+// (:337-349) of the raw one.
 //
 // Layout (kernels/fields.py): row r of the int32 (rows, K) buffer is
 // ints[r * K + k], LONG_ROWS then SHORT_ROWS; the byte buffer holds the
@@ -23,13 +24,24 @@ constexpr int kShortRows = 15;
 // src/adsb/msgs.rs:172-177, the reference's 64-char callsign table.
 __constant__ char c_chars[65] = "#ABCDEFGHIJKLMNOPQRSTUVWXYZ#####_###############0123456789######";
 
+// The callsign character of a 6-bit code, as c_chars holds it, computed:
+// a lookup whose index differs between lanes is one constant-cache read
+// per distinct index, eight a slot.
+__device__ __forceinline__ unsigned char callsign_char(uint32_t v) {
+  if (v >= 1 && v <= 26) return static_cast<unsigned char>('A' - 1 + v);
+  if (v >= 48 && v <= 57) return static_cast<unsigned char>(v);
+  return v == 32 ? '_' : '#';
+}
+
 __device__ __forceinline__ int gray2bin(int g) {
   g ^= g >> 4;
   g ^= g >> 2;
   return g ^ (g >> 1);
 }
 
-// The long fields of slot k from frame bytes b[0..10].
+// The long fields of slot k from frame bytes b[0..10]; the callsign from
+// c_chars, or with kComputedChars from callsign_char.
+template <bool kComputedChars = false>
 __device__ __forceinline__ void store_long_fields(int32_t* __restrict__ ints, uint8_t* __restrict__ bytes,
                                                   long long K, long long k, const int* b) {
   const int b4 = b[4], m1 = b[5], m2 = b[6], m3 = b[7], m4 = b[8], m5 = b[9], m6 = b[10];
@@ -64,10 +76,17 @@ __device__ __forceinline__ void store_long_fields(int32_t* __restrict__ ints, ui
   bytes[8 * K + k] = alt_mode_25;
   const uint32_t hi24 = (m1 << 16) | (m2 << 8) | m3, lo24 = (m4 << 16) | (m5 << 8) | m6;
   uchar4 lo, hi;
-  lo.x = c_chars[(hi24 >> 18) & 0x3F], lo.y = c_chars[(hi24 >> 12) & 0x3F];
-  lo.z = c_chars[(hi24 >> 6) & 0x3F], lo.w = c_chars[hi24 & 0x3F];
-  hi.x = c_chars[(lo24 >> 18) & 0x3F], hi.y = c_chars[(lo24 >> 12) & 0x3F];
-  hi.z = c_chars[(lo24 >> 6) & 0x3F], hi.w = c_chars[lo24 & 0x3F];
+  if constexpr (kComputedChars) {
+    lo.x = callsign_char((hi24 >> 18) & 0x3F), lo.y = callsign_char((hi24 >> 12) & 0x3F);
+    lo.z = callsign_char((hi24 >> 6) & 0x3F), lo.w = callsign_char(hi24 & 0x3F);
+    hi.x = callsign_char((lo24 >> 18) & 0x3F), hi.y = callsign_char((lo24 >> 12) & 0x3F);
+    hi.z = callsign_char((lo24 >> 6) & 0x3F), hi.w = callsign_char(lo24 & 0x3F);
+  } else {
+    lo.x = c_chars[(hi24 >> 18) & 0x3F], lo.y = c_chars[(hi24 >> 12) & 0x3F];
+    lo.z = c_chars[(hi24 >> 6) & 0x3F], lo.w = c_chars[hi24 & 0x3F];
+    hi.x = c_chars[(lo24 >> 18) & 0x3F], hi.y = c_chars[(lo24 >> 12) & 0x3F];
+    hi.z = c_chars[(lo24 >> 6) & 0x3F], hi.w = c_chars[lo24 & 0x3F];
+  }
   uint8_t* cs = bytes + 8 * k;  // (K, 8) callsign codes
   reinterpret_cast<uchar4*>(cs)[0] = lo;
   reinterpret_cast<uchar4*>(cs)[1] = hi;

@@ -52,8 +52,9 @@
 // a shift by s stays one aligned 32-bit load.
 //
 // The decode paths run csrc/front.cu's magdet_bits_kernel, which emits the
-// gate as bits with a count per tile; magdet_kernel stays as its oracle
-// and as the u8 mask of pipeline._count_chunked_detections.
+// gate as bits with a count per tile (and, in its count mode, the fused
+// parity decode's detection count); magdet_kernel stays as its oracle and
+// the A/B baseline of both.
 //
 // The exact magnitude is mag_from_word (magnitude.cuh).
 

@@ -39,14 +39,42 @@
 // the compiler must assume may alias, makes every load wait for the one
 // before it.
 //
+// Flag F (with_fields: the batched sinks' sharded steps) also writes the
+// protocol fields of the C rows, as airjax/parallel/halo.py (:417-423,
+// :613-620) runs extract_fields (and, extended, extract_short_fields_from_
+// raw) over the replicated buffer: the `ints` (rows, C) and `bytes` buffers
+// of kernels/fields.py::field_views, through csrc/fields.cuh, the code of
+// the block-decode kernel's F flag and of csrc/fields.cu. A row's fields
+// come from the bytes its copy loads: copy_frames also keeps bytes 0-10 of
+// each frame (and 0-6 of the raw frame) in shared memory, after the step's
+// loads, and once the block has copied its rows a thread a row computes
+// them there, so that each byte is read from global memory once and the
+// fields' stores coalesce across a warp's rows. The zero rows get the
+// fields of an all-zero frame. The F outputs are a parameter of their own
+// after Out, so that the instantiations without F keep their code. Four
+// choices come from device times on the card (PERF.md): the callsign
+// characters are computed, since a table lookup whose index differs
+// between lanes is one constant-cache read per distinct index; the short
+// CRC reads its 32 syndromes from shared memory, filled at the start,
+// since after the fronts have streamed the IQ through L2 its constant
+// reads missed and cost more than the rest of F; a warp's field stores
+// start on a 32-row boundary; and where counting every shard's rows is
+// cheap (D * K <= kCheapCount) more blocks share the zero rows.
+//
 // Bound: memory traffic, the flags of all D*K slots (2 B a slot, 7 B
 // extended), the offsets of the slots they pass, the other columns of the
 // rows written and C output rows (19 B a row DF17, 45 B extended, one more
 // with recovered2): ~0.27 MB at D = 4, K = 2048, C = 8192, about 0.08 us on
-// an H100's 3.35 TB/s.
+// an H100's 3.35 TB/s. F adds the fields of the C rows, 105 B a row DF17
+// and 166 B extended: 0.86 MB (0.26 us) at D = 4, K = 2048, C = 8192 and
+// 5.4 MB (1.6 us) at C = 32,768 extended.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+
+#include "fields.cuh"
 
 namespace {
 
@@ -58,9 +86,14 @@ constexpr int kRankRows = 4;                   // consecutive rows a thread rank
 constexpr int kStep = kThreads * kRankRows;    // rows a block ranks: a tile
 constexpr int kCopy = 8;                       // frame bytes a thread loads before it stores them
 constexpr long long kZeroRows = 8192;          // rows of C a zeroing block is launched for
+constexpr long long kZeroRowsF = 1024;         // the same under F, where counting is cheap
+constexpr long long kCheapCount = 32768;       // shard rows (D * K) a block counts cheaply
 constexpr int kMaxZeroBlocks = 128;
 constexpr int kFrameBytes = 14;
 constexpr int kClasses = 6;
+constexpr int kLongBytes = 11;                 // frame bytes the long fields read
+constexpr int kShortBytes = 7;                 // raw frame bytes the short fields read
+constexpr int kShortBits = 32;                 // data bits of a short frame the CRC covers
 
 // One shard's block-decode outputs, K slots each (bools as bytes).
 struct Shard {
@@ -97,6 +130,19 @@ struct Out {
   int32_t* n_det;
   uint8_t* overflow;
 };
+
+// Flag F's outputs: the fields of the C rows (kernels/fields.py::
+// field_views), ints (24 or 24 + 15, C) i32 and bytes (9 or 10) * C u8,
+// 4-byte aligned.
+struct Fields {
+  int32_t* ints;
+  uint8_t* bytes;
+};
+
+// F's short CRC: bit j of a 32-bit message has the syndrome of data bit
+// j + 56 of an 88-bit one. This file's copy, filled by
+// airjax_load_syndromes (candidate.cu) through load_shard_gather_syndromes.
+__constant__ uint32_t c_short_syndromes[kShortBits];
 
 // Exclusive prefix of v over the block; *total gets the block's sum. Every
 // thread of the block must call it.
@@ -178,9 +224,12 @@ __device__ __forceinline__ int count_rows(const Shard& sh, long long k, long lon
 }
 
 // n_bytes bytes of a step's selected frames, in list order, to dst: byte b
-// is byte b % 14 of the frame of row r0 + list[b / 14].
+// is byte b % 14 of the frame of row r0 + list[b / 14]. With kKeep > 0
+// (flag F), byte j < kKeep of frame i also goes to stage[i * row + at + j],
+// stored after the group's loads.
+template <int kKeep = 0>
 __device__ __forceinline__ void copy_frames(uint8_t* dst, const uint8_t* src, long long r0, const int* list,
-                                            int n_bytes) {
+                                            int n_bytes, uint8_t* stage = nullptr, int row = 0, int at = 0) {
   for (int b0 = threadIdx.x; b0 < n_bytes; b0 += kCopy * kThreads) {
     uint8_t v[kCopy];
 #pragma unroll
@@ -191,16 +240,47 @@ __device__ __forceinline__ void copy_frames(uint8_t* dst, const uint8_t* src, lo
     }
 #pragma unroll
     for (int u = 0; u < kCopy; ++u) {
-      if (b0 + u * kThreads < n_bytes) dst[b0 + u * kThreads] = v[u];
+      const int b = b0 + u * kThreads;
+      if (b < n_bytes) {
+        dst[b] = v[u];
+        if constexpr (kKeep > 0) {
+          const int i = b / kFrameBytes, j = b - i * kFrameBytes;
+          if (j < kKeep) stage[i * row + at + j] = v[u];
+        }
+      }
     }
   }
 }
 
+// The fields of output row d from its staged bytes: s[0..10] of the frame
+// and, extended, s[11..17] of the raw frame; syn: c_short_syndromes in
+// shared memory. The short CRC is the XOR of the syndromes of the set bits.
+template <bool kExtended>
+__device__ __forceinline__ void store_row_fields(const Fields& fo, long long c, long long d, const uint8_t* s,
+                                                 const uint32_t* syn) {
+  int b[kLongBytes];
+#pragma unroll
+  for (int i = 0; i < kLongBytes; ++i) b[i] = s[i];
+  store_long_fields<true>(fo.ints, fo.bytes, c, d, b);
+  if constexpr (kExtended) {
+    const uint8_t* r = s + kLongBytes;
+    const uint32_t w = (static_cast<uint32_t>(r[0]) << 24) | (r[1] << 16) | (r[2] << 8) | r[3];
+    uint32_t crc = 0;
+#pragma unroll
+    for (int i = 0; i < kShortBits; ++i) {
+      if ((w >> (31 - i)) & 1u) crc ^= syn[i];
+    }
+    store_short_fields(fo.ints, fo.bytes, c, d, w, (r[4] << 16) | (r[5] << 8) | r[6], crc);
+  }
+}
+
 // The n selected rows of a step (rows r0 + list[i], selections masks[i]) to
-// output rows base .. base + n - 1.
-template <bool kExtended, bool kR2>
-__device__ __forceinline__ void copy_rows(const Out& out, const Shard& sh, long long r0, long long base, int n,
-                                          const int* list, const uint8_t* masks, int32_t shard_base) {
+// output rows base .. base + n - 1; under F also their fields. Every
+// thread of the block calls it (F waits at a barrier).
+template <bool kExtended, bool kR2, bool kF>
+__device__ __forceinline__ void copy_rows(const Out& out, const Fields& fo, const uint32_t* syn, long long c,
+                                          const Shard& sh, long long r0, long long base, int n, const int* list,
+                                          const uint8_t* masks, int32_t shard_base) {
   for (int i = threadIdx.x; i < n; i += kThreads) {
     const long long r = r0 + list[i];
     const int32_t offset = __ldg(sh.offsets + r) + shard_base;
@@ -226,12 +306,29 @@ __device__ __forceinline__ void copy_rows(const Out& out, const Shard& sh, long 
     }
     if constexpr (kR2) out.recovered2[d] = recovered2;
   }
-  copy_frames(out.frames + base * kFrameBytes, sh.frames, r0, list, n * kFrameBytes);
-  if constexpr (kExtended) copy_frames(out.frames_raw + base * kFrameBytes, sh.frames_raw, r0, list, n * kFrameBytes);
+  if constexpr (kF) {
+    // The bytes the fields read, a row of kRow bytes a selected row.
+    constexpr int kRow = kExtended ? kLongBytes + kShortBytes : kLongBytes;
+    __shared__ uint8_t stage[kStep * kRow];
+    copy_frames<kLongBytes>(out.frames + base * kFrameBytes, sh.frames, r0, list, n * kFrameBytes, stage, kRow, 0);
+    if constexpr (kExtended) {
+      copy_frames<kShortBytes>(out.frames_raw + base * kFrameBytes, sh.frames_raw, r0, list, n * kFrameBytes, stage,
+                               kRow, kLongBytes);
+    }
+    __syncthreads();
+    // A warp's rows start on a 32-row boundary of the output, so that its
+    // stores fill whole sectors of each field's column.
+    for (int i = threadIdx.x - static_cast<int>(base & 31); i < n; i += kThreads) {
+      if (i >= 0) store_row_fields<kExtended>(fo, c, base + i, stage + i * kRow, syn);
+    }
+  } else {
+    copy_frames(out.frames + base * kFrameBytes, sh.frames, r0, list, n * kFrameBytes);
+    if constexpr (kExtended) copy_frames(out.frames_raw + base * kFrameBytes, sh.frames_raw, r0, list, n * kFrameBytes);
+  }
 }
 
-template <bool kExtended, bool kR2>
-__device__ __forceinline__ void zero_row(const Out& out, long long d) {
+template <bool kExtended, bool kR2, bool kF>
+__device__ __forceinline__ void zero_row(const Out& out, const Fields& fo, long long c, long long d) {
   out.offsets[d] = 0;
   if constexpr (kExtended) {
     out.classmask[d] = 0;
@@ -246,18 +343,32 @@ __device__ __forceinline__ void zero_row(const Out& out, long long d) {
 #pragma unroll
   for (int i = 0; i < kFrameBytes; ++i) out.frames[d * kFrameBytes + i] = 0;
   if constexpr (kR2) out.recovered2[d] = 0;
+  if constexpr (kF) {  // the fields of an all-zero frame
+    const int b[kLongBytes] = {};
+    store_long_fields<true>(fo.ints, fo.bytes, c, d, b);
+    if constexpr (kExtended) store_short_fields(fo.ints, fo.bytes, c, d, 0u, 0, 0u);
+  }
 }
 
-// base0 is the first shard's global offset (0 in one process).
-template <bool kExtended, bool kR2>
+// base0 is the first shard's global offset (0 in one process); fo is read
+// under F alone.
+template <bool kExtended, bool kR2, bool kF>
 __global__ void __launch_bounds__(kThreads)
 shard_gather_kernel(const Shards shards, int n_shards, long long k, long long c, long long block,
-                    long long max_offset, const Out out, long long base0) {
+                    long long max_offset, const Out out, long long base0, const Fields fo) {
   __shared__ int counts[kMaxShards];
   __shared__ int warp_sums[kWarps];
   __shared__ int list[kStep];
   __shared__ uint8_t masks[kStep];
   const int me = blockIdx.x;
+  // F's short CRC reads its syndromes from shared memory, loaded here so
+  // that a miss of the constant cache overlaps the count below.
+  const uint32_t* syn = nullptr;
+  if constexpr (kF && kExtended) {
+    __shared__ uint32_t short_syndromes[kShortBits];
+    if (threadIdx.x < kShortBits) short_syndromes[threadIdx.x] = c_short_syndromes[threadIdx.x];
+    syn = short_syndromes;
+  }
 
   // The tile of rows this block ranks, if any: tile t is rows
   // (t % tiles) * kStep .. + kStep - 1 of shard t / tiles.
@@ -310,13 +421,22 @@ shard_gather_kernel(const Shards shards, int n_shards, long long k, long long c,
     __syncthreads();
     const long long room = c - base;
     const int n_out = room <= 0 ? 0 : room < chunk ? static_cast<int>(room) : chunk;
-    copy_rows<kExtended, kR2>(out, sh, r0, base, n_out, list, masks, static_cast<int32_t>(shard_base));
+    copy_rows<kExtended, kR2, kF>(out, fo, syn, c, sh, r0, base, n_out, list, masks,
+                                  static_cast<int32_t>(shard_base));
   }
 
-  // The rows past the total are zero; the blocks share them.
-  for (long long d = total + static_cast<long long>(me) * kThreads + threadIdx.x; d < c;
-       d += static_cast<long long>(gridDim.x) * kThreads) {
-    zero_row<kExtended, kR2>(out, d);
+  // The rows past the total are zero; the blocks share them. Under F a
+  // warp's rows start on a 32-row boundary (whole sectors of each column).
+  if constexpr (kF) {
+    for (long long d = (total & ~31LL) + static_cast<long long>(me) * kThreads + threadIdx.x; d < c;
+         d += static_cast<long long>(gridDim.x) * kThreads) {
+      if (d >= total) zero_row<kExtended, kR2, kF>(out, fo, c, d);
+    }
+  } else {
+    for (long long d = total + static_cast<long long>(me) * kThreads + threadIdx.x; d < c;
+         d += static_cast<long long>(gridDim.x) * kThreads) {
+      zero_row<kExtended, kR2, kF>(out, fo, c, d);
+    }
   }
 
   // The scalars: a lane a shard, summed over the first warp.
@@ -339,25 +459,49 @@ shard_gather_kernel(const Shards shards, int n_shards, long long k, long long c,
   }
 }
 
-template <bool kExtended, bool kR2>
+template <bool kExtended, bool kR2, bool kF>
 void launch(const Shards& shards, int n_shards, long long k, long long c, long long block, long long max_offset,
-            const Out& out, long long first_shard, cudaStream_t stream) {
+            const Out& out, long long first_shard, const Fields& fo, cudaStream_t stream) {
   const long long tiles = n_shards * ((k + kStep - 1) / kStep);
-  const long long zero_blocks = (c + kZeroRows - 1) / kZeroRows;
+  long long zero_blocks = (c + kZeroRows - 1) / kZeroRows;
+  // Under F a zero row also writes its fields (105 or 166 B): more blocks
+  // share them where a block's count of every shard's rows is cheap.
+  if (kF && n_shards * k <= kCheapCount) zero_blocks = std::max(zero_blocks, (c + kZeroRowsF - 1) / kZeroRowsF);
   const long long blocks = tiles + (zero_blocks < kMaxZeroBlocks ? zero_blocks : kMaxZeroBlocks);
   const int grid = static_cast<int>(blocks > 0 ? blocks : 1);  // block 0 writes the scalars
-  shard_gather_kernel<kExtended, kR2><<<grid, kThreads, 0, stream>>>(shards, n_shards, k, c, block, max_offset, out,
-                                                                      first_shard * block);
+  shard_gather_kernel<kExtended, kR2, kF><<<grid, kThreads, 0, stream>>>(shards, n_shards, k, c, block, max_offset,
+                                                                          out, first_shard * block, fo);
+}
+
+template <bool kExtended, bool kR2>
+void launch_f(const Shards& shards, int n_shards, long long k, long long c, long long block, long long max_offset,
+              const Out& out, long long first_shard, const Fields& fo, cudaStream_t stream) {
+  if (fo.ints != nullptr) {
+    launch<kExtended, kR2, true>(shards, n_shards, k, c, block, max_offset, out, first_shard, fo, stream);
+  } else {
+    launch<kExtended, kR2, false>(shards, n_shards, k, c, block, max_offset, out, first_shard, fo, stream);
+  }
 }
 
 }  // namespace
 
+// Copies data bits 56..87's syndromes of the 88 (uint32, host memory) into
+// c_short_syndromes on the current device.
+int load_shard_gather_syndromes(const void* host) {
+  cudaMemcpyToSymbol(c_short_syndromes, static_cast<const uint32_t*>(host) + 56, sizeof(c_short_syndromes));
+  return static_cast<int>(cudaGetLastError());
+}
+
 // shard_ptrs: n_shards * 12 pointers, the fields of `Shard` in order for
 // each shard; out_ptrs: the 12 pointers of `Out`. All on the current device.
 // first_shard: the global index of the first shard (0 in one process).
+// fields_ints, fields_bytes: flag F's outputs (`Fields`), or both null
+// without F; F's extended short CRC reads the syndromes that
+// airjax_load_syndromes loads.
 extern "C" int airjax_shard_gather(const void* const* shard_ptrs, int n_shards, long long k, long long c,
                                    long long block, long long max_offset, void* const* out_ptrs, int extended,
-                                   int recover2, long long first_shard, void* stream) {
+                                   int recover2, long long first_shard, void* fields_ints, void* fields_bytes,
+                                   void* stream) {
   if (n_shards < 1 || n_shards > kMaxShards || first_shard < 0) return static_cast<int>(cudaErrorInvalidValue);
   Shards shards = {};
   for (int s = 0; s < n_shards; ++s) {
@@ -375,13 +519,15 @@ extern "C" int airjax_shard_gather(const void* const* shard_ptrs, int n_shards, 
                 static_cast<int32_t*>(out_ptrs[6]), static_cast<int32_t*>(out_ptrs[7]),
                 static_cast<uint8_t*>(out_ptrs[8]), static_cast<int32_t*>(out_ptrs[9]),
                 static_cast<int32_t*>(out_ptrs[10]), static_cast<uint8_t*>(out_ptrs[11])};
+  const Fields fo{static_cast<int32_t*>(fields_ints), static_cast<uint8_t*>(fields_bytes)};
+  if ((fo.ints == nullptr) != (fo.bytes == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   if (extended) {
-    if (recover2) launch<true, true>(shards, n_shards, k, c, block, max_offset, out, first_shard, s);
-    else launch<true, false>(shards, n_shards, k, c, block, max_offset, out, first_shard, s);
+    if (recover2) launch_f<true, true>(shards, n_shards, k, c, block, max_offset, out, first_shard, fo, s);
+    else launch_f<true, false>(shards, n_shards, k, c, block, max_offset, out, first_shard, fo, s);
   } else {
-    if (recover2) launch<false, true>(shards, n_shards, k, c, block, max_offset, out, first_shard, s);
-    else launch<false, false>(shards, n_shards, k, c, block, max_offset, out, first_shard, s);
+    if (recover2) launch_f<false, true>(shards, n_shards, k, c, block, max_offset, out, first_shard, fo, s);
+    else launch_f<false, false>(shards, n_shards, k, c, block, max_offset, out, first_shard, fo, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

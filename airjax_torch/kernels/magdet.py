@@ -19,8 +19,15 @@ int32 word in pack_cmp_words' layout, the packed compares, and the
 detections per tile of TILE offsets, which is what the compaction kernel
 (kernels/compact.py) reads. Its plain version `magdet_bits_plain` packs
 `magdet_plain`'s mask. `bits_launches` counts its launches. `magdet`
-stays as its oracle and for the u8 mask of
-pipeline._count_chunked_detections.
+stays as its oracle and A/B baseline.
+
+`chunked_detection_count` is the front's count mode (csrc/front.cu,
+kCount): the fused parity decode's detection count
+(airjax/pipeline.py::_count_chunked_detections), the DF17 gate over the
+first n_chunks * chunk samples at the offsets below chunk - WINDOW of
+each chunk, with no bits written: one launch and a sum of its tile
+counts. Its plain version `chunked_detection_count_plain` masks
+`magdet_bits_plain`'s words. `count_launches` counts its launches.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import torch
 from airjax_torch._dispatch import check_launch, check_tensor, use_kernel
 from airjax_torch.dsp.demod import (
     DF17_LOWS,
+    WINDOW,
     detect,
     detect_preamble_only,
     n_words,
@@ -40,6 +48,7 @@ from airjax_torch.dsp.magnitude import magnitude_u16
 
 launches = 0
 bits_launches = 0
+count_launches = 0
 GATES = {"df17": 0, "preamble": 1}  # the kernel's Gate values
 TILE = 8192  # offsets per tile count; csrc/front.cu and csrc/compact.cu kTile
 
@@ -84,6 +93,40 @@ def magdet_bits(
     if use_kernel(iq):
         return _bits_cuda(iq, n_off, gate)
     return magdet_bits_plain(iq, n_off, gate)
+
+
+def in_chunk_words(n_off: int, chunk: int, device) -> torch.Tensor:
+    """(ceil(n_off/32),) int32 words in the det words' layout: bit 31-k of
+    word w set where offset 32w+k < n_off lies below chunk - WINDOW in its
+    chunk."""
+    o = torch.arange(n_det_words(n_off) * 32, device=device)
+    return pack_msb_words((o < n_off) & (o % chunk < chunk - WINDOW), n_det_words(n_off))
+
+
+def chunked_detection_count_plain(iq: torch.Tensor, chunk: int, n_chunks: int) -> torch.Tensor:
+    """Plain torch version: magdet_bits_plain's det words over the first
+    n_chunks * chunk samples, ANDed with in_chunk_words, popcounted per
+    tile, summed."""
+    n_scan = n_chunks * chunk - WINDOW
+    det_words, _, _ = magdet_bits_plain(iq[: n_chunks * chunk], n_scan)
+    bits = (det_words & in_chunk_words(n_scan, chunk, iq.device)).to(torch.int64) & 0xFFFFFFFF
+    per_word = ((bits[:, None] >> torch.arange(32, device=iq.device)) & 1).sum(dim=1)
+    return per_word.sum(dtype=torch.int32)
+
+
+def chunked_detection_count(iq: torch.Tensor, chunk: int, n_chunks: int) -> torch.Tensor:
+    """(L, 2) int16 IQ with L >= n_chunks * chunk -> () int32: the DF17
+    detections at the offsets o < n_chunks * chunk - WINDOW with o mod chunk
+    < chunk - WINDOW (airjax/pipeline.py::_count_chunked_detections). The
+    samples past n_chunks * chunk are never read."""
+    if chunk <= WINDOW or n_chunks < 1:
+        raise ValueError(f"chunked_detection_count: chunk {chunk} (> {WINDOW}), n_chunks {n_chunks} (>= 1)")
+    check_iq(iq, n_chunks * chunk - WINDOW)
+    if iq.shape[0] < n_chunks * chunk:
+        raise ValueError(f"iq: {iq.shape[0]} samples, fewer than {n_chunks} chunks of {chunk}")
+    if use_kernel(iq):
+        return _count_cuda(iq, chunk, n_chunks)
+    return chunked_detection_count_plain(iq, chunk, n_chunks)
 
 
 def magdet_plain(
@@ -178,3 +221,19 @@ def _bits_cuda(
     check_launch(rc, "magdet_bits kernel")
     bits_launches += 1
     return det_words, words, counts
+
+
+def _count_cuda(iq: torch.Tensor, chunk: int, n_chunks: int) -> torch.Tensor:
+    global count_launches
+    from airjax_torch._build import library
+
+    lib = library()
+    n_samples = n_chunks * chunk
+    n_scan = n_samples - WINDOW
+    counts = torch.empty(n_tiles(n_scan), dtype=torch.int32, device=iq.device)
+    with torch.cuda.device(iq.device):
+        rc = lib.airjax_chunked_count(iq.data_ptr(), n_samples, n_scan, chunk, counts.data_ptr(),
+                                      torch.cuda.current_stream().cuda_stream)
+    check_launch(rc, "chunked detection count (front, count mode)")
+    count_launches += 1
+    return counts.sum(dtype=torch.int32)

@@ -24,9 +24,17 @@ index of the first dict: a process of the multi-process decode
 (parallel/multihost.py) gathers its own shards into rows that are already
 global (0 in one process).
 
+With `with_fields` the dict also holds the rows' protocol fields, as
+airjax's builders with `with_fields` (:417-423, :613-620) run
+extract_fields (and, extended, extract_short_fields_from_raw) over the
+whole C-row buffer, zero rows included: `fields` (and `short_fields`), in
+kernels/fields.py::field_views' layout. On the card they are the kernel's
+flag F, in the same launch; its plain version runs
+kernels/fields.py::block_fields_plain over the gathered rows.
+
 `shard_gather` launches the kernel when the shards lie on one CUDA device
 and runs `shard_gather_plain` when they lie on the CPU. `launches` counts
-kernel launches.
+kernel launches, `fields_launches` those with F.
 """
 
 from __future__ import annotations
@@ -34,10 +42,13 @@ from __future__ import annotations
 import torch
 
 from airjax_torch._dispatch import check_launch, use_kernel
+from airjax_torch.kernels import candidate
 from airjax_torch.kernels.candidate import CLASSES
+from airjax_torch.kernels.fields import block_fields_plain, field_sizes, field_views
 from airjax_torch.protocol.crc import FRAME_BYTES
 
 launches = 0
+fields_launches = 0
 MAX_SHARDS = 32  # csrc/shard_gather.cu kMaxShards
 MASK_KEYS = CLASSES  # airjax/parallel/halo.py _EXT_MASK_KEYS, in its order
 _DF17_KEYS = ("offsets", "valid", "good", "recovered", "frames", "n_detections", "overflow")
@@ -58,11 +69,11 @@ def _selection(shard: dict, index: int, block: int, max_offset: int, extended: b
 
 def shard_gather_plain(
     shards: list[dict], block: int, max_offset: int, capacity: int, *, extended: bool = False,
-    recover2: bool = False, first_shard: int = 0,
-) -> dict[str, torch.Tensor]:
+    recover2: bool = False, first_shard: int = 0, with_fields: bool = False,
+) -> dict:
     """Plain torch version: each shard's selected slots (nonzero), their
     rows concatenated in shard order, the first C of them at the front of a
-    zero (C,) buffer."""
+    zero (C,) buffer; with_fields, block_fields_plain of its frames."""
     rows: dict[str, list[torch.Tensor]] = {}
     for i, shard in enumerate(shards, first_shard):
         mask = _selection(shard, i, block, max_offset, extended)
@@ -88,16 +99,22 @@ def shard_gather_plain(
     out["n_candidates" if extended else "n_good"] = torch.tensor(total, dtype=torch.int32, device=dev)
     out["n_detections"] = torch.stack([s["n_detections"] for s in shards]).sum(dtype=torch.int32)
     out["overflow"] = torch.stack([s["overflow"] for s in shards]).any() | (total > capacity)
+    if with_fields:
+        fields, short = block_fields_plain(out["frames"], out["frames_raw"] if extended else None)
+        out["fields"] = fields
+        if extended:
+            out["short_fields"] = short
     return out
 
 
 def shard_gather(
     shards: list[dict], block: int, max_offset: int, capacity: int, *, extended: bool = False,
-    recover2: bool = False, first_shard: int = 0,
-) -> dict[str, torch.Tensor]:
+    recover2: bool = False, first_shard: int = 0, with_fields: bool = False,
+) -> dict:
     """The D shards' block-decode dicts (capacity K each; shard s covers
     global offsets (first_shard + s) * block + [0, block)) -> airjax's compact dict of
-    capacity C = `capacity` (module docstring). The dicts are those of
+    capacity C = `capacity` (module docstring), with_fields also its
+    `fields` (and, extended, `short_fields`). The dicts are those of
     pipeline.decode_iq_block(_extended), with `recovered2` under recover2."""
     if not shards:
         raise ValueError("shard_gather: no shards")
@@ -112,9 +129,10 @@ def shard_gather(
         if any(shard[key].shape[:1] != (k,) for key in keys if shard[key].dim()):
             raise ValueError("shard_gather: the shards' capacities differ")
     if use_kernel(*(shard[key] for shard in shards for key in keys)):
-        return _shard_gather_cuda(shards, keys, k, block, max_offset, capacity, extended, recover2, first_shard)
+        return _shard_gather_cuda(shards, keys, k, block, max_offset, capacity, extended, recover2, first_shard,
+                                  with_fields)
     return shard_gather_plain(shards, block, max_offset, capacity, extended=extended, recover2=recover2,
-                              first_shard=first_shard)
+                              first_shard=first_shard, with_fields=with_fields)
 
 
 def _pointer(t: torch.Tensor | None, dtype: torch.dtype, shape: tuple) -> int | None:
@@ -127,9 +145,9 @@ def _pointer(t: torch.Tensor | None, dtype: torch.dtype, shape: tuple) -> int | 
 
 def _shard_gather_cuda(
     shards: list[dict], keys: tuple, k: int, block: int, max_offset: int, capacity: int, extended: bool,
-    recover2: bool, first_shard: int = 0,
-) -> dict[str, torch.Tensor]:
-    global launches
+    recover2: bool, first_shard: int = 0, with_fields: bool = False,
+) -> dict:
+    global launches, fields_launches
     import ctypes
 
     from airjax_torch._build import library
@@ -158,11 +176,15 @@ def _shard_gather_cuda(
             _pointer(shard["n_detections"], torch.int32, ()), _pointer(shard["overflow"], torch.bool, ()),
         ]
     c = capacity
-    # One int32 and one byte buffer, sliced into the outputs.
-    n_int = (4 if extended else 1) * c + 2
-    n_byte = c * (2 * FRAME_BYTES + 1 if extended else FRAME_BYTES + 1) + (c if recover2 else 0) + 1
+    # One int32 and one byte buffer, sliced into the outputs; F's fields
+    # sit after the columns in the int32 one and first in the byte one (its
+    # callsign codes take 4-byte stores).
+    f_int, f_byte = field_sizes(c, extended) if with_fields else (0, 0)
+    n_int = (4 if extended else 1) * c + f_int + 2
+    n_byte = f_byte + c * (2 * FRAME_BYTES + 1 if extended else FRAME_BYTES + 1) + (c if recover2 else 0) + 1
     ints = torch.empty(n_int, dtype=torch.int32, device=device)
-    byts = torch.empty(n_byte, dtype=torch.uint8, device=device)
+    all_byts = torch.empty(n_byte, dtype=torch.uint8, device=device)
+    byts = all_byts[f_byte:]
     out = {"offsets": ints[:c]}
     if extended:
         out.update(classmask=byts[:c], df=ints[c : 2 * c], icao_ap_short=ints[2 * c : 3 * c],
@@ -183,11 +205,22 @@ def _shard_gather_cuda(
                   else (None,) * 4),
                 out["recovered2"].data_ptr() if recover2 else None,
                 out[count_key].data_ptr(), out["n_detections"].data_ptr(), out["overflow"].data_ptr()]
+    f_ptrs = (None, None)
+    if with_fields:
+        f_ints = ints[n_int - 2 - f_int : n_int - 2]
+        out["fields"], short = field_views(f_ints, all_byts[:f_byte], c, extended)
+        if extended:
+            out["short_fields"] = short
+        # Pointer arithmetic, not the views' data_ptr(), which is 0 when C is.
+        f_ptrs = (ints.data_ptr() + 4 * (n_int - 2 - f_int), all_byts.data_ptr())
     shard_arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     out_arr = (ctypes.c_void_p * len(out_ptrs))(*out_ptrs)
     with torch.cuda.device(device):
+        if with_fields and extended:
+            candidate.load_syndromes(lib)  # F's short CRC reads this kernel's copy
         rc = lib.airjax_shard_gather(shard_arr, len(shards), k, c, block, max_offset, out_arr, int(extended),
-                                     int(recover2), first_shard, torch.cuda.current_stream().cuda_stream)
+                                     int(recover2), first_shard, *f_ptrs, torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "shard-gather kernel")
     launches += 1
+    fields_launches += with_fields
     return out

@@ -19,9 +19,10 @@ The compact builders (airjax :335, :521) end in one shard-gather launch
 (kernels/shard_gather.py) on the mesh's first device: the selected rows
 of every shard, offset-sorted, in a buffer of C rows. A shard on another
 card sends its dict there first, one copy per buffer the block decode
-wrote. With `with_fields` one kernels/fields.py::block_fields launch
-follows on the gathered frames (and raw frames), as airjax calls
-extract_fields on its replicated buffer (:417-424, :613-621). The dense
+wrote. With `with_fields` the same gather launch also writes the
+gathered rows' fields (its flag F), as airjax calls extract_fields on its
+replicated buffer (:417-424, :613-621): a batched sharded step is a front
+and a block decode a shard and one gather, no fields launch. The dense
 builders (:62, :449) return every shard's K slots, for the A/B.
 
 `tuned_block` pads a shard to the shape airjax tuned on the TPU (block ≡
@@ -37,7 +38,6 @@ import torch
 
 from airjax_torch.dsp.demod import WINDOW
 from airjax_torch.extended import assemble_extended
-from airjax_torch.kernels.fields import block_fields
 from airjax_torch.kernels.shard_gather import MASK_KEYS, shard_gather
 from airjax_torch.parallel.mesh import TIME_AXIS, Mesh
 from airjax_torch.pipeline import decode_iq_block, decode_iq_block_extended, pad_iq_non_detecting, to_host
@@ -186,16 +186,14 @@ def build_sharded_decoder_compact(
     rows on the mesh's first device (kernels/shard_gather.py): offsets,
     recovered, frames, n_good, n_detections, overflow (any shard's, or
     n_good > C: callers regrow and rerun), `recovered2` under recover2,
-    `fields` (block_fields of the frames) with with_fields."""
+    `fields` (extract_fields of the C rows, the gather launch's flag F)
+    with with_fields."""
     n_dev, block, halo = _shape(mesh, n_samples, axis)
     max_offset = n_samples - WINDOW
 
     def step(iq) -> dict:
         outs = _decode_shards(mesh, iq, block, halo, capacity_per_shard, False, recover2)
-        out = shard_gather(outs, block, max_offset, compact_capacity, recover2=recover2)
-        if with_fields:
-            out["fields"], _ = block_fields(out["frames"])
-        return out
+        return shard_gather(outs, block, max_offset, compact_capacity, recover2=recover2, with_fields=with_fields)
 
     return step
 
@@ -224,16 +222,15 @@ def build_sharded_decoder_extended_compact(
     `classmask` (bit i = _EXT_MASK_KEYS[i]; unpack_extended_compact expands
     it): offsets, classmask, df, icao_ap_short, icao_ap_long, frames,
     frames_raw, n_candidates, n_detections, overflow; `recovered2` under
-    recover2; `fields` and `short_fields` with with_fields."""
+    recover2; `fields` and `short_fields` with with_fields (the gather
+    launch's flag F)."""
     n_dev, block, halo = _shape(mesh, n_samples, axis)
     max_offset = n_samples - WINDOW
 
     def step(iq) -> dict:
         outs = _decode_shards(mesh, iq, block, halo, capacity_per_shard, True, recover2)
-        out = shard_gather(outs, block, max_offset, compact_capacity, extended=True, recover2=recover2)
-        if with_fields:
-            out["fields"], out["short_fields"] = block_fields(out["frames"], out["frames_raw"])
-        return out
+        return shard_gather(outs, block, max_offset, compact_capacity, extended=True, recover2=recover2,
+                            with_fields=with_fields)
 
     return step
 

@@ -74,7 +74,7 @@ from airjax_torch.kernels.candidate import (
     decode_candidates_plain,
 )
 from airjax_torch.kernels.compact import compact_bits, compact_mask
-from airjax_torch.kernels.magdet import magdet, magdet_bits
+from airjax_torch.kernels.magdet import chunked_detection_count, magdet_bits
 from airjax_torch.protocol.packet import AdsbPacket
 
 Hit = tuple[int, int, bytes, bool]
@@ -386,13 +386,11 @@ def decode_capture_parity(
 
 def _count_chunked_detections(iq: torch.Tensor, chunk: int, n_chunks: int) -> torch.Tensor:
     """Exact reference-chunked detection count (airjax/pipeline.py:463-482):
-    the whole-stream mask over the first n_chunks * chunk samples,
-    filtered to in-chunk offsets < chunk - WINDOW. `iq` may be longer."""
-    n_scan = n_chunks * chunk - WINDOW
-    det, _ = magdet(iq[: n_chunks * chunk], n_scan)
-    det = torch.nn.functional.pad(det, (0, n_chunks * chunk - n_scan))
-    per_chunk = det.view(n_chunks, chunk)[:, : chunk - WINDOW]
-    return per_chunk.sum(dtype=torch.int32)
+    the whole-stream gate over the first n_chunks * chunk samples, filtered
+    to in-chunk offsets < chunk - WINDOW; one launch of the front's count
+    mode on the card (kernels/magdet.py::chunked_detection_count). `iq` may
+    be longer; its tail is never scanned."""
+    return chunked_detection_count(iq, chunk, n_chunks)
 
 
 def decode_capture_overlap(

@@ -393,8 +393,8 @@ def run_stream_sharded(
     (pipeline.Fetcher), so that step k's copies overlap step k+1's kernels;
     a step that overflows is decoded again with K and C grown 4x. Sinks as
     run_stream: per packet, or a batched one (`on_fields`,
-    `on_extended_block`), whose fields come from one block_fields launch on
-    the gathered rows; recover2 gates as there.
+    `on_extended_block`), whose fields the shard gather writes for the
+    gathered rows in the same launch (its flag F); recover2 gates as there.
 
     `detections` counts each step's last 239 offsets twice, by design: a
     step scans them with the wrapped halo (and masks their hits), the next

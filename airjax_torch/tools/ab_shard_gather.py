@@ -15,7 +15,15 @@ the slots, 95% of them good); extended with D = 4, K = C = 32,768 (33%
 detections, half of them in a class); and extended with D = 1, K = C =
 131,072, the whole-capture analysis. Each case is the profiler's device
 time of `shard_gather_kernel`, 10 calls after a warm-up, three times, and
-the median of 20 CUDA-event pairs around a call. Each turn also prints
+the median of 20 CUDA-event pairs around a call. Where the tree's gather
+has flag F (`with_fields`), each case is also timed with F, and as the
+chain F replaces (the gather, then kernels/fields.py::block_fields: both
+kernels' device time); and each form also "cold", after a 256 MB buffer
+is zeroed before every call (the H100's L2 holds 50 MB, left full of
+dirty lines), and "clean", after a 256 MB buffer is read before every
+call (L2 left full of clean lines), as in a sharded step, where the
+fronts stream the shards' IQ through L2 before the gather runs
+(`device_us` keys: case/form/warm|cold|clean). Each turn also prints
 the registers, stack and spills of the tree's `csrc/shard_gather.cu`
 (`nvcc -Xptxas -v` with the build's flags). Prints one JSON line per turn
 and the card's name and power limit.
@@ -25,7 +33,9 @@ and the card's name and power limit.
 compares the SASS of each instantiation of OLD's `shard_gather_kernel`
 with NEW's of the same modes (and with every flag NEW adds false),
 instructions with addresses and constants masked, as
-tools/block_decode_sass.py does for the block-decode kernel; needs no card.
+tools/block_decode_sass.py does for the block-decode kernel, and prints
+each tree's registers, stack and spills, its F instantiations' included;
+needs no card.
 """
 
 from __future__ import annotations
@@ -76,10 +86,11 @@ def shards(extended: bool, d: int, k: int, det: float, sel: float, device) -> li
 
 
 def ptxas(tree: str) -> list[str]:
-    from airjax_torch import _build
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from block_decode_sass import FLAGS, toolkit
 
     with tempfile.TemporaryDirectory() as tmp:
-        proc = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+        proc = subprocess.run([toolkit("nvcc"), *FLAGS, "-Xptxas", "-v", "-c", "-o",
                                os.path.join(tmp, "sg.o"), os.path.join(tree, "airjax_torch", "csrc", "shard_gather.cu")],
                               capture_output=True, text=True, check=True)
     return [re.sub(r"'_ZN\S*shard_gather_kernel", "'shard_gather_kernel", ln.strip()) for ln in proc.stderr.splitlines()
@@ -88,14 +99,39 @@ def ptxas(tree: str) -> list[str]:
 
 def one(tree: str) -> dict:
     sys.path.insert(0, tree)
+    import inspect
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     import airjax_torch
+    from airjax_torch.kernels.fields import block_fields
     from airjax_torch.kernels.shard_gather import shard_gather
 
     dev = torch.device("cuda")
+    has_f = "with_fields" in inspect.signature(shard_gather).parameters
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     out = {"tree": tree, "package": airjax_torch.__file__, "device_us": {}, "events_us": {}, "ptxas": ptxas(tree)}
+
+    def device_us(fn, names, temp):
+        """Three profiler windows of 10 calls: µs a call of the kernels named."""
+        times = []
+        for _ in range(3):
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    if temp == "cold":
+                        flush.zero_()
+                    elif temp == "clean":
+                        flush.view(torch.int64).sum()
+                    fn()
+                torch.cuda.synchronize()
+            ev = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and any(n in e.name for n in names)]
+            times.append(sum(e.time_range.end - e.time_range.start for e in ev) / 10)
+        return times
+
     for name, extended, d, k, c, det, sel in CASES:
         ins = shards(extended, d, k, det, sel, dev)
         max_offset = d * BLOCK - 240
@@ -103,18 +139,19 @@ def one(tree: str) -> dict:
         def fn(ins=ins, c=c, extended=extended, max_offset=max_offset):
             return shard_gather(ins, BLOCK, max_offset, c, extended=extended)
 
-        times = []
-        for _ in range(3):
-            fn()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(10):
-                    fn()
-                torch.cuda.synchronize()
-            ev = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA and "shard_gather_kernel" in e.name]
-            times.append(sum(e.time_range.end - e.time_range.start for e in ev) / max(len(ev), 1))
-        out["device_us"][name] = times
+        forms = {"gather": (fn, ("shard_gather_kernel",))}
+        if has_f:
+            def with_f(ins=ins, c=c, extended=extended, max_offset=max_offset):
+                return shard_gather(ins, BLOCK, max_offset, c, extended=extended, with_fields=True)
+
+            def chain(fn=fn, extended=extended):
+                g = fn()
+                return block_fields(g["frames"], g["frames_raw"] if extended else None)
+
+            forms.update(F=(with_f, ("shard_gather_kernel",)), chain=(chain, ("shard_gather_kernel", "fields_kernel")))
+        for form, (f, names) in forms.items():
+            for temp in ("warm", "cold", "clean"):
+                out["device_us"][f"{name}/{form}/{temp}"] = device_us(f, names, temp)
         events = []
         for _ in range(20):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -135,6 +172,7 @@ def sass(old: str, new: str) -> int:
     found = []
     with tempfile.TemporaryDirectory() as tmp:
         for i, tree in enumerate((old, new)):
+            print(f"== {tree}\n" + "\n".join(ptxas(tree)))
             obj = os.path.join(tmp, f"{i}.o")
             csrc = os.path.join(tree, "airjax_torch", "csrc")
             subprocess.run([toolkit("nvcc"), *FLAGS, f"-I{csrc}", "-c", "-o", obj, os.path.join(csrc, "shard_gather.cu")],

@@ -93,19 +93,30 @@ Phases; any failure raises and the exit code is nonzero:
      else on the card); the shard-gather kernel (csrc/shard_gather.cu)
      against its plain version on the steps' shards and on random ones (D
      1 and 4, both modes, with and without R2, C below and above the
-     total), timed at the step's shapes; analyze_capture (overlap and
+     total), timed at the step's shapes; the gather's flag F (the fields of
+     the gathered rows in the same launch) against its plain version and
+     against the gather then the fields kernel on the same cases; the
+     sharded batched steps (with_fields: DF17, extended, each with and
+     without recover2) each profiled (a front and a block decode a shard,
+     one gather with F, no fields kernel), their dicts == the plain
+     version's == the gather + fields kernel's, and F against that chain
+     in turns at the step's shapes; analyze_capture (overlap and
      devices=1) and analyze_capture_extended on the first 2^25 samples of
      phase 10's traffic, their fixes == the per-packet tracker's at the same
      offsets, one fields launch an analysis; decode_channels on 8 channels
-     of 2^21 samples; run_stream_sharded with BatchTracker and
-     ExtendedBatchTracker on 4 shards, the tables == run_stream's; MS/s of
+     of 2^21 samples; run_stream_sharded with BatchTracker, BatchTracker
+     --recover2 and ExtendedBatchTracker on 4 shards, the tables ==
+     run_stream's, a gather with F and no fields launch a step; MS/s of
      each path;
  12. the multi-process decode (parallel/multihost.py): one process on 4
      shards, 2 gloo worker processes on card 0, NCCL a rank a card; every
      rank == the one process;
  13. the golden oracle == decode_capture_parity fused and per chunk on 2 M
-     samples of phase 10's traffic; adsb --dump-preamble card == CPU; adsb
-     --trace names the kernels;
+     samples of phase 10's traffic, the fused form's detection count one
+     launch of the front's count mode (csrc/front.cu) and none of
+     csrc/magdet.cu; the count mode == its plain version == the first
+     front's mask count on 2 M and 2^24 samples, timed in turns against it;
+     adsb --dump-preamble card == CPU; adsb --trace names the kernels;
  14. the pipelined stream (run_stream's pipeline_depth, pipeline.Fetcher):
      phase 6's stream at depths 0, 1, 2 and 4 (the embedded frames, in
      order), ExtendedBatchTracker, BatchTracker --recover2 and
@@ -1000,20 +1011,22 @@ def counted():
     dict holds the launches made inside."""
     from airjax_torch.kernels import block_decode, candidate, compact, fields, magdet, shard_gather
 
-    magdet.launches = magdet.bits_launches = block_decode.launches = compact.launches = candidate.launches = 0
-    fields.launches = block_decode.fields_launches = shard_gather.launches = 0
+    magdet.launches = magdet.bits_launches = magdet.count_launches = block_decode.launches = 0
+    compact.launches = candidate.launches = 0
+    fields.launches = block_decode.fields_launches = shard_gather.launches = shard_gather.fields_launches = 0
     got: dict[str, int] = {}
     yield got
     got.update(magdet_bits=magdet.bits_launches, block_decode=block_decode.launches,
                block_decode_fields=block_decode.fields_launches, compact_bits=compact.launches,
                candidate=candidate.launches, magdet_front=magdet.launches, fields=fields.launches,
-               shard_gather=shard_gather.launches)
+               shard_gather=shard_gather.launches, shard_gather_fields=shard_gather.fields_launches,
+               chunked_count=magdet.count_launches)
 
 
 # A block decode's launches: the front and the block-decode kernel once each;
 # a batched one's: the same, the block decode with F.
 ONE_PASS = {"magdet_bits": 1, "block_decode": 1, "block_decode_fields": 0, "compact_bits": 0, "candidate": 0,
-            "magdet_front": 0, "fields": 0, "shard_gather": 0}
+            "magdet_front": 0, "fields": 0, "shard_gather": 0, "shard_gather_fields": 0, "chunked_count": 0}
 BATCHED_PASS = {**ONE_PASS, "block_decode_fields": 1}
 
 
@@ -1821,6 +1834,47 @@ def gather_work(shards: list[dict], out: dict, extended: bool) -> tuple[int, int
     return n_bytes, 2 * (d * k * flags + passed) + total * payload
 
 
+def gather_fields_work(shards: list[dict], out: dict, extended: bool) -> tuple[int, int]:
+    """gather_work plus flag F: the fields of the C rows written (105 B a
+    row, 166 extended) and computed (fields_work's operations); the frames
+    they come from are the bytes the gather copies, read once."""
+    g_bytes, g_ops = gather_work(shards, out, extended)
+    c = out["offsets"].shape[0]
+    f_bytes, f_ops = fields_work(c, extended)
+    return g_bytes + f_bytes - c * (21 if extended else 14), g_ops + f_ops
+
+
+def flat(out: dict) -> dict:
+    """A dict with its field dicts spread out ("fields.df", ...)."""
+    got = {}
+    for key, v in out.items():
+        if isinstance(v, dict):
+            got.update({f"{key}.{f}": t for f, t in v.items()})
+        else:
+            got[key] = v
+    return got
+
+
+def dict_err(got: dict, want: dict, what: str) -> int:
+    """max_abs_err over two (flat) dicts with the same keys."""
+    got, want = flat(got), flat(want)
+    check(sorted(got) == sorted(want), f"{what}: the keys differ: {sorted(set(got) ^ set(want))}")
+    return max_abs_err((got[key], want[key]) for key in want)
+
+
+def gather_then_fields(args: tuple, **kw) -> dict:
+    """The gather without F, then the fields kernel (csrc/fields.cu) over its
+    C rows: the chain flag F replaces, its baseline and second oracle."""
+    from airjax_torch.kernels.fields import block_fields
+    from airjax_torch.kernels.shard_gather import shard_gather
+
+    out = shard_gather(*args, **kw)
+    out["fields"], short = block_fields(out["frames"], out["frames_raw"] if kw.get("extended") else None)
+    if kw.get("extended"):
+        out["short_fields"] = short
+    return out
+
+
 def check_shard_gather(dev: torch.device, real: list[tuple[str, list, int, int, int, bool]]) -> int:
     """The shard-gather kernel against its plain version: random shard
     outputs (K = 2048, D 1 and 4, both modes, with and without R2, C below
@@ -1857,33 +1911,42 @@ def check_shard_gather(dev: torch.device, real: list[tuple[str, list, int, int, 
                 cases.append((f"random, D {d}, C {c}", shards, block, d * block - 240 - 77, c, extended))
             cases.append((f"random, D {d} from shard 2, C {d * k}", shards, block, (2 + d) * block - 240 - 77,
                           d * k, extended))
-    err = 0
+    err = f_err = 0
     for name, shards, block, max_offset, c, extended in cases:
         first = 2 if "from shard 2" in name else 0
         for r2 in (False, True) if "recovered2" in shards[0] else (False,):
-            got = shard_gather(shards, block, max_offset, c, extended=extended, recover2=r2, first_shard=first)
-            want = shard_gather_plain(shards, block, max_offset, c, extended=extended, recover2=r2,
-                                      first_shard=first)
-            check(sorted(got) == sorted(want), f"shard gather keys differ on {name}")
-            e = max_abs_err((got[key], want[key]) for key in want)
+            kw = dict(extended=extended, recover2=r2, first_shard=first)
+            got = shard_gather(shards, block, max_offset, c, **kw)
+            want = shard_gather_plain(shards, block, max_offset, c, **kw)
+            e = dict_err(got, want, f"shard gather, {name}")
             check(e == 0, f"shard-gather kernel disagrees with plain on {name}, R2 {r2} (max abs err {e})")
             err = max(err, e)
+            # Flag F: against its plain version and against the gather then the fields kernel.
+            got = shard_gather(shards, block, max_offset, c, with_fields=True, **kw)
+            e = max(dict_err(got, shard_gather_plain(shards, block, max_offset, c, with_fields=True, **kw),
+                             f"shard gather F, {name}"),
+                    dict_err(got, gather_then_fields((shards, block, max_offset, c), **kw), f"F chain, {name}"))
+            check(e == 0, f"shard-gather kernel's F disagrees on {name}, R2 {r2} (max abs err {e})")
+            f_err = max(f_err, e)
         total = int(want["n_candidates" if extended else "n_good"])
-        print(f"  shard gather == plain, with and without R2: {name}, {'extended' if extended else 'DF17'}, "
-              f"total {total}" + (" > C" if total > c else ""))
+        print(f"  shard gather == plain, with and without R2, with F == plain == gather + fields kernel: {name}, "
+              f"{'extended' if extended else 'DF17'}, total {total}" + (" > C" if total > c else ""))
     torch.cuda.synchronize()
-    return err
+    return err, f_err
 
 
-def sharded_step_profile(name: str, step, shards: list, d: int, n_off: int, k: int, gate: str) -> dict:
+def sharded_step_profile(name: str, step, shards: list, d: int, n_off: int, k: int, gate: str,
+                         with_fields: bool = False) -> dict:
     """One sharded step (pre-sharded input): its launches (a front and a
-    block decode a shard, one shard gather, nothing else), its time by CUDA
-    events, and under the profiler the device time of each kernel against
-    its bound -> {kernel: (launches a step, device µs a step, bound µs a step)}."""
+    block decode a shard, one shard gather, with_fields its flag F, nothing
+    else: no fields kernel), its time by CUDA events, and under the
+    profiler the device time of each kernel against its bound ->
+    {kernel: (launches a step, device µs a step, bound µs a step)}."""
     with counted() as n:
         step(shards)
         torch.cuda.synchronize()
-    check(n == {**ONE_PASS, "magdet_bits": d, "block_decode": d, "shard_gather": 1},
+    check(n == {**ONE_PASS, "magdet_bits": d, "block_decode": d, "shard_gather": 1,
+                "shard_gather_fields": int(with_fields)},
           f"{name}: not a front and a block decode a shard and one shard gather: {n}")
     ms = cuda_ms(lambda: step(shards), reps=10)
     want = {"magdet_bits_kernel": d, "block_decode_kernel": d, "shard_gather_kernel": 1}
@@ -1912,6 +1975,99 @@ def sharded_step_profile(name: str, step, shards: list, d: int, n_off: int, k: i
     return table
 
 
+def step_turn(fn, names: tuple[str, ...]) -> tuple[float, float]:
+    """A step under the profiler, 10 steps recorded: (device busy µs a step,
+    µs a step of the kernels named)."""
+    for _ in range(PROFILE_TRIES):
+        per_kernel, busy, seen, _ = device_profile(fn, "shard_gather_kernel")
+        if seen == 10:
+            return busy, sum(us for key, us in per_kernel.items() if any(n in key for n in names))
+        print(f"step_turn: the profiler recorded {seen} of 10 steps; again")
+    check(False, f"step_turn: the profiler dropped steps in {PROFILE_TRIES} windows")
+
+
+def batched_steps(mesh, shards: list, block: int, steps: dict) -> tuple[dict, int]:
+    """The sharded batched steps (with_fields; DF17 and extended, each with
+    and without recover2) at the 4-shard decode's capacities: each profiled
+    (a front and a block decode a shard and one gather with F; no fields
+    kernel in the window), its dict == the plain gather's with the fields
+    on the same shard dicts == the gather then the fields kernel. Then F
+    against that chain at the step's shapes, device µs in turns (F, chain,
+    chain, F), alone and in a step (the step with F against the step
+    without it and then the fields kernel) -> ({extended: the F row of the
+    kernel table}, max abs err)."""
+    from airjax_torch.kernels.fields import block_fields
+    from airjax_torch.kernels.shard_gather import shard_gather, shard_gather_plain
+    from airjax_torch.parallel import halo
+
+    rows, err = {}, 0
+    for extended in (False, True):
+        stats = steps[("4 shards of the card", extended)][1]
+        k, c = stats["capacity_per_shard"], stats["compact_capacity"]
+        build = halo.build_sharded_decoder_extended_compact if extended else halo.build_sharded_decoder_compact
+        mode = "extended" if extended else "DF17"
+        step_us = None
+        for r2 in (False, True):
+            name = f"{mode}{' --recover2' if r2 else ''} batched, {SHARDS} shards of {block}"
+            step = build(mesh, block * SHARDS, k, c, with_fields=True, recover2=r2)
+            table = sharded_step_profile(name, step, shards, SHARDS, block, k, "preamble" if extended else "df17",
+                                         with_fields=True)
+            step_us = step_us or table["shard_gather_kernel"][1]
+            outs = halo._decode_shards(mesh, shards, block, halo._halo_size(block), k, extended, r2)
+            args = (outs, block, block * SHARDS - 240, c)
+            got = step(shards)
+            e = max(dict_err(got, shard_gather_plain(*args, extended=extended, recover2=r2, with_fields=True), name),
+                    dict_err(got, gather_then_fields(args, extended=extended, recover2=r2), name))
+            check(e == 0, f"{name}: the step's dict differs from the plain version's or the chain's (max abs err {e})")
+            err = max(err, e)
+            print(f"  {name}: the step's dict == the plain gather with fields == the gather + fields kernel")
+        outs = halo._decode_shards(mesh, shards, block, halo._halo_size(block), k, extended)
+        args = (outs, block, block * SHARDS - 240, c)
+
+        def with_f(args=args, extended=extended):
+            return shard_gather(*args, extended=extended, with_fields=True)
+
+        def chain(args=args, extended=extended):
+            return gather_then_fields(args, extended=extended)
+
+        f_us, chain_us = [], []
+        for turn in ("F", "chain", "chain", "F"):
+            if turn == "F":
+                f_us.append(device_us(with_f, ("shard_gather_kernel",)))
+            else:
+                chain_us.append(device_us(chain, ("shard_gather_kernel", "fields_kernel")))
+        f_step = build(mesh, block * SHARDS, k, c, with_fields=True)
+        bare_step = build(mesh, block * SHARDS, k, c)
+
+        def chain_step(extended=extended):
+            out = bare_step(shards)
+            out["fields"], short = block_fields(out["frames"], out["frames_raw"] if extended else None)
+            return out
+
+        in_step = {"F": [], "chain": []}
+        for turn in ("F", "chain", "chain", "F"):
+            fn = (lambda: f_step(shards)) if turn == "F" else chain_step
+            busy, kernels = step_turn(fn, ("shard_gather_kernel", "fields_kernel"))
+            in_step[turn].append({"busy_us": busy, "gather_and_fields_us": kernels, "ms": cuda_ms(fn, reps=10)})
+        b_ms, b_by = bound(*gather_fields_work(outs, with_f(), extended))
+        row = {"ms": cuda_ms(with_f), "chain_ms": cuda_ms(chain),
+               "plain_ms": cuda_ms(lambda: shard_gather_plain(*args, extended=extended, with_fields=True)),
+               "device_us": statistics.median(f_us), "device_us_turns": f_us, "step_device_us": step_us,
+               "chain_device_us": statistics.median(chain_us), "chain_device_us_turns": chain_us,
+               "step_turns": in_step,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "shape": f"D {SHARDS}, K {k}, C {c}"}
+        rows[extended] = row
+        print(f"shard gather with F, {mode} ({row['shape']}): device us in turns F {f_us[0]:.2f}, gather + fields "
+              f"kernel {chain_us[0]:.2f}, {chain_us[1]:.2f}, F {f_us[1]:.2f}; in a step {step_us:.2f}; by events F "
+              f"{row['ms']:.4f} ms, gather + fields kernel {row['chain_ms']:.4f} ms; plain {row['plain_ms']:.4f} ms; "
+              f"bound {b_ms * 1e3:.3f} us ({b_by})")
+        for turn, runs in in_step.items():
+            print(f"  a batched step, {'gather with F' if turn == 'F' else 'gather + fields kernel'}, in turns: "
+                  + "; ".join(f"{r['ms'] * 1e3:.1f} us by events, device busy {r['busy_us']:.1f} us, gather and "
+                              f"fields {r['gather_and_fields_us']:.2f} us" for r in runs))
+    return rows, err
+
+
 def phase_sharded(dev: torch.device, tracker_iq: np.ndarray, capture) -> tuple[list[dict], dict[str, int]]:
     """Phase 11: the halo-sharded decode of a 2^26-sample capture (DF17 and
     extended) on 4 shards of the card and on make_mesh(1), against
@@ -1932,7 +2088,7 @@ def phase_sharded(dev: torch.device, tracker_iq: np.ndarray, capture) -> tuple[l
     from airjax_torch.track.aircraft import handle_aircraft_update
     from airjax_torch.track.batch import BatchTracker, ExtendedBatchTracker
 
-    launches = {"shard_gather": 0, "fields": 0, "fields_extended": 0}
+    launches = {"shard_gather": 0, "fields": 0, "shard_gather_fields": 0}
 
     def add(n: dict) -> None:
         launches["shard_gather"] += n["shard_gather"]
@@ -1940,7 +2096,7 @@ def phase_sharded(dev: torch.device, tracker_iq: np.ndarray, capture) -> tuple[l
     def shard_launches_ok(name: str, n: dict, d: int) -> None:
         check(n["shard_gather"] >= 1 and n["magdet_bits"] == n["block_decode"] == d * n["shard_gather"]
               and n["compact_bits"] == n["candidate"] == n["magdet_front"] == n["fields"] == 0
-              and n["block_decode_fields"] == 0,
+              and n["block_decode_fields"] == n["shard_gather_fields"] == 0,
               f"{name}: not a front and a block decode a shard and a shard gather a step: {n}")
 
     iq, offsets, frames = capture
@@ -2016,7 +2172,9 @@ def phase_sharded(dev: torch.device, tracker_iq: np.ndarray, capture) -> tuple[l
         print(f"shard gather, {'extended' if extended else 'DF17'} ({rows[extended]['shape']}): kernel "
               f"{rows[extended]['ms']:.4f} ms by events, {rows[extended]['device_us']:.2f} us device; plain "
               f"{rows[extended]['plain_ms']:.4f} ms; bound {b_ms * 1e3:.3f} us ({b_by})")
-    err = check_shard_gather(dev, real)
+    err, f_err = check_shard_gather(dev, real)
+    f_rows, f_check = batched_steps(mesh4, shards, block, steps)
+    f_err = max(f_err, f_check)
 
     # The analyses on the first 2^25 samples of the tracker traffic.
     sub = tracker_iq[:ANALYTICS_SAMPLES]
@@ -2077,19 +2235,22 @@ def phase_sharded(dev: torch.device, tracker_iq: np.ndarray, capture) -> tuple[l
     def blocks():
         return (sub[i : i + CHUNK] for i in range(0, len(sub), CHUNK))
 
-    for name, tracker, extended in (("BatchTracker", BatchTracker, False),
-                                    ("ExtendedBatchTracker", ExtendedBatchTracker, True)):
+    for name, tracker, extended, r2 in (("BatchTracker", BatchTracker, False, False),
+                                        ("BatchTracker --recover2", BatchTracker, False, True),
+                                        ("ExtendedBatchTracker", ExtendedBatchTracker, True, False)):
         single = tracker()
-        run_stream(blocks(), single, extended=extended, device=dev)
+        run_stream(blocks(), single, extended=extended, recover2=r2, device=dev)
         sharded = tracker()
         with counted() as n:
             t0 = time.perf_counter()
-            stats = run_stream_sharded(blocks(), sharded, mesh=Mesh([dev] * SHARDS), extended=extended).as_dict()
+            stats = run_stream_sharded(blocks(), sharded, mesh=Mesh([dev] * SHARDS), extended=extended,
+                                       recover2=r2).as_dict()
             wall = time.perf_counter() - t0
         add(n)
-        launches["fields_extended" if extended else "fields"] += n["fields"]
-        check(n["shard_gather"] == n["fields"] > 0 and n["magdet_bits"] == SHARDS * n["shard_gather"],
-              f"sharded {name}: not a shard gather and a fields launch a step: {n}")
+        launches["shard_gather_fields"] += n["shard_gather_fields"]
+        check(n["shard_gather"] == n["shard_gather_fields"] > 0 and n["fields"] == 0
+              and n["magdet_bits"] == SHARDS * n["shard_gather"],
+              f"sharded {name}: not a shard gather with F, and no fields launch, a step: {n}")
         check(same_table(table_view(sharded.aircrafts, extended), table_view(single.aircrafts, extended)),
               f"run_stream_sharded, {name}: the table differs from run_stream's")
         print(f"run_stream_sharded, {name}, {SHARDS} shards: the table == run_stream's ({len(single.aircrafts)} "
@@ -2099,7 +2260,10 @@ def phase_sharded(dev: torch.device, tracker_iq: np.ndarray, capture) -> tuple[l
     entry = {"name": "shard_gather", "route": "cuda", "source": "airjax_torch/csrc/shard_gather.cu",
              "replaces": "airjax/parallel/halo.py:259", "launches": None, "path": None, "max_abs_err": err,
              **rows[False], "extended_path": rows[True]}
-    return [entry], launches
+    f_entry = {"name": "shard_gather_fields", "route": "cuda", "source": "airjax_torch/csrc/shard_gather.cu",
+               "replaces": "airjax/parallel/halo.py:417", "launches": None, "path": None, "max_abs_err": f_err,
+               **f_rows[False], "extended_path": f_rows[True]}
+    return [entry, f_entry], launches
 
 
 # Phase 12: the multi-process decode (parallel/multihost.py) on the card.
@@ -2322,11 +2486,72 @@ def phase_multihost(dev: torch.device, capture) -> dict[str, int]:
 GOLDEN_SAMPLES = 2_000_000
 
 
-def phase_oracle(dev: torch.device, tracker_iq: np.ndarray) -> dict[str, int]:
+def count_entry(dev: torch.device, tracker_iq: np.ndarray) -> dict:
+    """The front's count mode (kernels/magdet.py::chunked_detection_count,
+    the fused parity decode's detection count) against its plain version
+    and against the first front's mask count (csrc/magdet.cu, then pad,
+    view and sum: the path it replaced) on the first 2 M and 2^24 samples
+    of the tracker traffic; at 2^24 device µs in turns (count, old, old,
+    count) -> the kernel table's entry."""
+    from airjax_torch.kernels.magdet import chunked_detection_count, chunked_detection_count_plain, magdet, n_tiles
+    from airjax_torch.pipeline import reference_chunk_count
+
+    def old(iq, n_chunks):
+        n_scan = n_chunks * CHUNK - 240
+        det, _ = magdet(iq[: n_chunks * CHUNK], n_scan)
+        det = torch.nn.functional.pad(det, (0, n_chunks * CHUNK - n_scan))
+        return det.view(n_chunks, CHUNK)[:, : CHUNK - 240].sum(dtype=torch.int32)
+
+    err = 0
+    for n in (GOLDEN_SAMPLES, BLOCK):
+        iq = torch.as_tensor(np.ascontiguousarray(tracker_iq[:n])).to(dev)
+        n_chunks = reference_chunk_count(n)
+        got = chunked_detection_count(iq, CHUNK, n_chunks)
+        e = max(max_abs_err([(got, chunked_detection_count_plain(iq, CHUNK, n_chunks))]),
+                max_abs_err([(got, old(iq, n_chunks))]))
+        check(e == 0, f"count mode: {int(got)} detections differ from the plain or first-front count on {n} samples")
+        err = max(err, e)
+        print(f"  count mode == plain == the first front's mask count: {int(got)} detections in {n_chunks} chunks "
+              f"of {n} samples")
+    n_samples, n_off = n_chunks * CHUNK, n_chunks * CHUNK - 240
+
+    def count():
+        return chunked_detection_count(iq, CHUNK, n_chunks)
+
+    def first_front():
+        return old(iq, n_chunks)
+
+    kernel_us, old_us = [], []
+    for turn in ("count", "old", "old", "count"):
+        if turn == "count":
+            kernel_us.append(device_us(count, ("magdet_bits_kernel",)))
+        else:
+            old_us.append(device_us(first_front, ("magdet_kernel",)))
+    b_ms, b_by = bound(4 * n_samples + 4 * n_tiles(n_off), 5 * n_samples + 26 * n_off)
+    row = {"name": "chunked_detection_count", "route": "cuda", "source": "airjax_torch/csrc/front.cu",
+           "replaces": "airjax/pipeline.py:464", "launches": None, "path": None, "max_abs_err": err,
+           "ms": cuda_ms(count),
+           "plain_ms": cuda_ms(lambda: chunked_detection_count_plain(iq, CHUNK, n_chunks), reps=5),
+           "library_ms": None, "device_us": statistics.median(kernel_us), "device_us_turns": kernel_us,
+           "with_sum_device_us": device_us(count), "first_front_device_us": statistics.median(old_us),
+           "first_front_device_us_turns": old_us, "first_front_with_ops_device_us": device_us(first_front),
+           "first_front_ms": cuda_ms(first_front), "bound_ms": b_ms, "bound_by": b_by,
+           "shape": f"{n_chunks} chunks of {CHUNK} samples"}
+    print(f"count mode at {n_samples} samples: device us in turns count {kernel_us[0]:.2f}, first front "
+          f"{old_us[0]:.2f}, {old_us[1]:.2f}, count {kernel_us[1]:.2f}; with the sum {row['with_sum_device_us']:.2f} "
+          f"against the first front with its pad, copy and sum {row['first_front_with_ops_device_us']:.2f}; by events "
+          f"{row['ms']:.4f} ms against {row['first_front_ms']:.4f}; plain {row['plain_ms']:.4f} ms; bound "
+          f"{b_ms * 1e3:.2f} us ({b_by})")
+    return row
+
+
+def phase_oracle(dev: torch.device, tracker_iq: np.ndarray) -> tuple[dict[str, int], dict]:
     """Phase 13: golden.decode_capture_playback of 2 M samples of the
     tracker traffic == decode_capture_parity on the card, fused and per
     chunk (fused=False: a front and a block decode a chunk, plus any chunk
-    decoded again), the two forms' stats equal; `adsb --playback
+    decoded again), the two forms' stats equal; the fused form's detection
+    count one launch of the front's count mode and no first-front launch,
+    the count held to the first front's (count_entry); `adsb --playback
     --dump-preamble` on the card prints what it prints on the CPU
     (`Processed Time` masked); `adsb --trace DIR` writes a trace that names
     the front and block-decode kernels. -> the launches."""
@@ -2346,14 +2571,16 @@ def phase_oracle(dev: torch.device, tracker_iq: np.ndarray) -> dict[str, int]:
             wall = time.perf_counter() - t0
         check([(c, o, f) for c, o, f, _ in hits] == gold, f"decode_capture_parity(fused={fused}) != golden")
         forms[fused] = (stats, n, wall)
-    # The fused form counts the reference-chunked detections with the first
-    # front (_count_chunked_detections): one csrc/magdet.cu launch a capture.
-    check(forms[True][1]["magdet_front"] == 1, f"fused: not one old-front launch a capture: {forms[True][1]}")
+    # The fused form counts the reference-chunked detections with the
+    # front's count mode: one launch a capture, none of csrc/magdet.cu.
+    check(forms[True][1]["chunked_count"] == 1 and forms[True][1]["magdet_front"] == 0,
+          f"fused: not one count-mode launch and no first-front launch a capture: {forms[True][1]}")
     n_chunks = pipeline.reference_chunk_count(len(sub))
     (fstats, _, fwall), (cstats, n, cwall) = forms[True], forms[False]
     check(fstats == cstats, f"the parity stats differ: fused {fstats}, per chunk {cstats}")
     check(n["magdet_bits"] == n["block_decode"] >= n_chunks and (n["magdet_bits"] == n_chunks or cstats["overflow"])
-          and n["compact_bits"] == n["candidate"] == n["magdet_front"] == n["fields"] == n["shard_gather"] == 0,
+          and n["compact_bits"] == n["candidate"] == n["magdet_front"] == n["fields"] == n["shard_gather"] == 0
+          and n["chunked_count"] == 0,
           f"fused=False: not a front and a block decode a chunk ({n_chunks} chunks): {n}")
     print(f"golden oracle: {len(gold)} hits in {n_chunks} chunks == decode_capture_parity fused and per chunk; "
           f"stats equal {json.dumps(fstats)}; golden {GOLDEN_SAMPLES / t_gold / 1e6:.2f} MS/s (host), fused "
@@ -2379,7 +2606,10 @@ def phase_oracle(dev: torch.device, tracker_iq: np.ndarray) -> dict[str, int]:
               f"adsb --trace: the trace names no front or block-decode kernel: {sorted(names)[:10]}")
     print(f"adsb --dump-preamble: the card's {dumps} dumps and packets == the CPU's (Processed Time masked); "
           f"adsb --trace: a trace with {len(names)} kernel names, the front's and the block decode's among them")
-    return {"magdet_bits_chunks": n["magdet_bits"], "magdet_front_parity": forms[True][1]["magdet_front"]}
+    entry = count_entry(dev, tracker_iq)
+    check(int(pipeline._count_chunked_detections(torch.as_tensor(sub).to(dev), CHUNK, n_chunks))
+          == fstats["n_detections"], "the fused parity decode's n_detections is not the count mode's")
+    return {"magdet_bits_chunks": n["magdet_bits"], "chunked_detection_count": forms[True][1]["chunked_count"]}, entry
 
 
 # Phase 14: the pipelined stream (runner's pipeline_depth, pipeline.Fetcher).
@@ -2798,22 +3028,22 @@ def main() -> int:
     kernels += sharded_entries
     multi = phase_multihost(dev, capture)
     del capture
-    oracle = phase_oracle(dev, tracker_iq)
+    oracle, count_row = phase_oracle(dev, tracker_iq)
+    kernels.append(count_row)
     phase_pipelined(dev, stream_capture, block, frames, tracker_iq)
     del stream_capture
     phase_live(dev, tracker_iq)
     phase_tools()
     launches.update({**df17, **ext, **tracker, "block_decode": df17["block_decode"] + ext["block_decode"],
-                     "magdet_front": front_launches["df17"] + oracle["magdet_front_parity"],
-                     "magdet_front_preamble": front_launches["preamble"],
+                     "magdet_front": front_launches["df17"], "magdet_front_preamble": front_launches["preamble"],
                      **sharded, "shard_gather": sharded["shard_gather"] + df17["shard_gather"] + multi["shard_gather"],
-                     "fields_extended": sharded["fields_extended"] + multi["fields_extended"]})
+                     "fields_extended": multi["fields_extended"],
+                     "chunked_detection_count": oracle["chunked_detection_count"]})
     paths = {"magdet_bits": "adsb stream", "magdet_bits_preamble": "adsb --extended stream",
              "block_decode": "adsb stream + adsb --extended stream",
              "compact_bits": "block A/B, staged chain (DF17 + extended)",
              "candidate_crc": "block A/B, staged chain (DF17)", "candidate_extended": "block A/B, staged chain (extended)",
-             "magdet_front": "phase 3 oracle checks (DF17 gate); phase 13 decode_capture_parity(fused=True): "
-                             "_count_chunked_detections, one launch a capture",
+             "magdet_front": "phase 3 oracle checks (DF17 gate); no decode path launches it",
              "magdet_front_preamble": "phase 3 oracle checks (preamble gate)",
              "block_decode_r2": "tracker stream, per-packet table --recover2",
              "block_decode_extended_r2": "tracker stream, per-packet extended table --recover2",
@@ -2821,10 +3051,11 @@ def main() -> int:
              "block_decode_r2_fields": "tracker stream, BatchTracker --recover2",
              "block_decode_extended_fields": "tracker stream, ExtendedBatchTracker",
              "block_decode_extended_r2_fields": "tracker stream, ExtendedBatchTracker --recover2",
-             "fields": "phase 11: analyze_capture (overlap and devices=1), run_stream_sharded --batched "
-                       "(BatchTracker)",
-             "fields_extended": "phase 11: run_stream_sharded --batched --extended (ExtendedBatchTracker); "
-                                "phase 12: multihost decode_capture_extended_batched, every rank and one process",
+             "fields": "phase 11: analyze_capture (overlap and devices=1)",
+             "fields_extended": "phase 12: multihost decode_capture_extended_batched, every rank and one process",
+             "shard_gather_fields": "phase 11: run_stream_sharded --batched (BatchTracker, BatchTracker --recover2, "
+                                    "ExtendedBatchTracker), a launch a step",
+             "chunked_detection_count": "phase 13: decode_capture_parity(fused=True), one launch a capture",
              "shard_gather": "phase 11: decode_capture_sharded(_extended) on 4 shards and make_mesh(1), "
                              "analyze_capture(devices=1), analyze_capture_extended, the sharded batched streams; "
                              "phase 6: adsb --devices 1; phase 12: multihost decode_capture(_extended, "

@@ -1,4 +1,5 @@
-// Stand-ins for the CUDA built-ins that csrc/shard_gather.cu uses, so that
+// Stand-ins for the CUDA built-ins that csrc/shard_gather.cu (and the
+// header it includes, csrc/fields.cuh) uses, so that
 // its source compiles with a host C++20 compiler and runs on the CPU, on one
 // host thread: a CUDA thread is a fiber (ucontext) with a stack of its own,
 // the blocks run one after another, __syncthreads is a barrier of the block
@@ -13,6 +14,7 @@
 #include <stdint.h>
 #include <stdio.h>
 #include <stdlib.h>
+#include <string.h>
 #include <ucontext.h>
 
 #include <algorithm>
@@ -25,6 +27,11 @@
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __shared__ static
+#define __constant__
+
+struct uchar4 {
+  unsigned char x, y, z, w;
+};
 
 struct EmuDim {
   unsigned x = 0, y = 0, z = 0;
@@ -34,6 +41,11 @@ inline EmuDim threadIdx, blockIdx, gridDim;  // threadIdx: the running fiber's
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline int cudaGetLastError() { return cudaSuccess; }
+template <class T>
+int cudaMemcpyToSymbol(T& symbol, const void* src, size_t n) {
+  memcpy(&symbol, src, n);
+  return cudaSuccess;
+}
 
 struct EmuBarrier {
   int expected = 0, arrived = 0;

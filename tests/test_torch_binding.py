@@ -221,6 +221,7 @@ def test_shard_gather_call(lib, extended, recover2, capacity):
     (name, args), = lib.calls
     assert name == "airjax_shard_gather" and args[-1] == STREAM
     assert args[1:6] == (3, k, capacity, n_off, 3 * n_off - 240) and args[7:9] == (int(extended), int(recover2))
+    assert args[-3:-1] == (None, None)  # no F
     ptrs = list(args[0])
     assert len(ptrs) == 36
     for s, shard in enumerate(shards):
@@ -247,3 +248,53 @@ def test_shard_gather_call(lib, extended, recover2, capacity):
     assert {key: (t.dtype, tuple(t.shape)) for key, t in out.items()} == want
     spans = sorted((t.data_ptr(), t.data_ptr() + t.numel() * t.element_size()) for t in out.values() if t.numel())
     assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+
+
+@pytest.mark.parametrize("extended", [False, True])
+@pytest.mark.parametrize("capacity", [0, 10])
+def test_shard_gather_fields_call(lib, extended, capacity):
+    """with_fields: F's two pointers before the stream, the int32 fields
+    between the columns and the scalars of one buffer, the byte fields
+    first in the other (4-byte aligned), in field_views' layout; the other
+    outputs as without F."""
+    from airjax_torch.kernels import shard_gather
+
+    n_off, k = 2000, 16
+    shards = []
+    for _ in range(2):
+        det_words = torch.zeros(magdet.n_det_words(n_off), dtype=torch.int32)
+        counts = torch.zeros(magdet.n_tiles(n_off), dtype=torch.int32)
+        shards.append(block_decode._block_decode_cuda(det_words, torch.zeros(100, dtype=torch.int32), counts, n_off,
+                                                      k, extended, False))
+    lib.calls.clear()
+    before = (shard_gather.launches, shard_gather.fields_launches)
+    out = shard_gather._shard_gather_cuda(shards, tuple(shards[0]), k, n_off, 2 * n_off - 240, capacity, extended,
+                                          False, 0, True)
+    (name, args), = lib.calls
+    assert name == "airjax_shard_gather" and args[-1] == STREAM
+    assert (shard_gather.launches, shard_gather.fields_launches) == (before[0] + 1, before[1] + 1)
+    f_ints, f_bytes = args[-3:-1]
+    n_int, n_byte = fields.field_sizes(capacity, extended)
+    assert f_ints and f_bytes and f_bytes % 4 == 0  # non-null at C = 0 too
+    long, short = out["fields"], out.get("short_fields")
+    assert sorted(long) == sorted((*fields.LONG_ROWS, "alt_mode_25", "callsign_codes"))
+    assert (short is not None) == extended
+    if capacity:
+        assert f_ints == out["offsets"].data_ptr() + 4 * (4 if extended else 1) * capacity
+        assert long["df"].data_ptr() == f_ints and long["callsign_codes"].data_ptr() == f_bytes
+        count_key = "n_candidates" if extended else "n_good"
+        assert out[count_key].data_ptr() == f_ints + 4 * n_int  # the scalars follow the fields
+        assert out["classmask" if extended else "recovered"].data_ptr() == f_bytes + n_byte
+    assert all(t.shape[0] == capacity for t in {**long, **(short or {})}.values())
+
+
+def test_chunked_count_call(lib):
+    from airjax_torch.dsp.demod import WINDOW
+
+    iq = _iq(5 * 1000 + 77)
+    before = magdet.count_launches
+    total = magdet._count_cuda(iq, 1000, 5)
+    (name, args), = lib.calls
+    assert name == "airjax_chunked_count" and args[-1] == STREAM
+    assert args[:4] == (iq.data_ptr(), 5000, 5000 - WINDOW, 1000)
+    assert magdet.count_launches == before + 1 and total.dtype == torch.int32 and total.shape == ()

@@ -651,6 +651,103 @@ def test_shard_gather_kernel_first_shard_matches_plain(cuda_device, extended):  
             assert_same_dict(pipeline.to_host(want), pipeline.to_host(got))
 
 
+def _same_gather(want: dict, got: dict) -> None:
+    """Two gathered dicts (with_fields: their field dicts too), key by key."""
+    want, got = pipeline.to_host(want), pipeline.to_host(got)
+    for key in ("fields", "short_fields"):
+        if key in want:
+            assert_same_dict(want.pop(key), got.pop(key))
+    assert_same_dict(want, got)
+
+
+@pytest.mark.parametrize("recover2", [False, True])
+@pytest.mark.parametrize("extended", [False, True])
+@pytest.mark.parametrize("d", [1, 4])
+def test_shard_gather_fields_kernel_matches_plain(cuda_device, d, extended, recover2):  # noqa: F811
+    """The gather's flag F against its plain version and against the gather
+    then the fields kernel: C 0, below the total (an overflow), and above
+    it (zero rows), K from 0 to past a tile; one launch, no fields.cu."""
+    from airjax_torch.kernels import fields as fields_mod
+
+    for k, block, first in ((0, 600, 0), (37, 600, 0), (2100, 1 << 16, 0), (1500, 1 << 16, 3)):
+        shards = _gather_shards(d, k, block, seed=d + 11 * k, extended=extended, device=cuda_device)
+        max_offset = (first + d) * block - 240 - 19
+        for c in (0, 5, d * k // 2, d * k + 9):
+            kw = dict(extended=extended, recover2=recover2, first_shard=first)
+            before = (shard_gather_mod.launches, shard_gather_mod.fields_launches, fields_mod.launches)
+            got = shard_gather_mod.shard_gather(shards, block, max_offset, c, with_fields=True, **kw)
+            after = (shard_gather_mod.launches, shard_gather_mod.fields_launches, fields_mod.launches)
+            assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 0)
+            want = shard_gather_mod.shard_gather_plain(shards, block, max_offset, c, with_fields=True, **kw)
+            chain = shard_gather_mod.shard_gather(shards, block, max_offset, c, **kw)
+            chain["fields"], short = fields_mod.block_fields(chain["frames"], chain["frames_raw"] if extended else None)
+            if extended:
+                chain["short_fields"] = short
+            torch.cuda.synchronize()
+            _same_gather(want, got)
+            _same_gather(chain, got)
+
+
+@pytest.mark.parametrize("recover2", [False, True])
+@pytest.mark.parametrize("extended", [False, True])
+def test_sharded_batched_step_on_card(cuda_device, extended, recover2):  # noqa: F811
+    """A with_fields step on 4 shards of the card: 4 fronts, 4 block decodes
+    and one gather with F, no fields-kernel launch; its dict == the same
+    step on 4 CPU shards."""
+    from airjax_torch.kernels import fields as fields_mod
+    from airjax_torch.parallel import halo
+    from airjax_torch.parallel.mesh import Mesh
+
+    block = halo.tuned_block(1 << 16)
+    iq = _mixed(4 * block, 6) if extended else _traffic(4 * block, 6, spacing=2999)[0]
+    build = halo.build_sharded_decoder_extended_compact if extended else halo.build_sharded_decoder_compact
+    for c in (16, 1024):  # an overflow, then zero rows
+        before = (*_counts()[:2], shard_gather_mod.launches, shard_gather_mod.fields_launches, fields_mod.launches)
+        got = build(Mesh([cuda_device] * 4), 4 * block, 512, c, with_fields=True, recover2=recover2)(iq)
+        after = (*_counts()[:2], shard_gather_mod.launches, shard_gather_mod.fields_launches, fields_mod.launches)
+        assert tuple(a - b for a, b in zip(after, before)) == (4, 4, 1, 1, 0)
+        want = build(Mesh(["cpu"] * 4), 4 * block, 512, c, with_fields=True, recover2=recover2)(iq)
+        _same_gather(want, got)
+
+
+def _count_with_magdet(iq: torch.Tensor, chunk: int, n_chunks: int) -> int:
+    """The chunked detection count from the first front's u8 mask
+    (csrc/magdet.cu), padded, viewed by chunk and summed."""
+    n_scan = n_chunks * chunk - 240
+    det, _ = magdet_mod.magdet(iq[: n_chunks * chunk], n_scan)
+    det = torch.nn.functional.pad(det, (0, n_chunks * chunk - n_scan))
+    return int(det.view(n_chunks, chunk)[:, : chunk - 240].sum())
+
+
+@pytest.mark.parametrize("kind", ["random", "small", "traffic"])
+@pytest.mark.parametrize("chunk, n_chunks, extra", [(20000, 1, 5000), (20000, 7, 20000), (4096, 9, 13),
+                                                    (250, 40, 7), (20000, 839, 1)])
+def test_chunked_detection_count_kernel_matches_plain(cuda_device, kind, chunk, n_chunks, extra):  # noqa: F811
+    """The front's count mode against its plain version and the first
+    front's mask count, from an aligned base and from one 4 bytes past a
+    16-byte boundary; one count launch, no other kernel of the wrappers."""
+    n = n_chunks * chunk + extra
+    iq = torch.as_tensor(_iq(n + 1, n, kind)).to(cuda_device)
+    for x in (iq[:n], iq[1:]):
+        before = (magdet_mod.count_launches, magdet_mod.bits_launches, magdet_mod.launches)
+        got = magdet_mod.chunked_detection_count(x, chunk, n_chunks)
+        after = (magdet_mod.count_launches, magdet_mod.bits_launches, magdet_mod.launches)
+        assert tuple(a - b for a, b in zip(after, before)) == (1, 0, 0)
+        want = magdet_mod.chunked_detection_count_plain(x, chunk, n_chunks)
+        assert got.dtype == torch.int32 and got.shape == () and got.device == x.device
+        assert int(got) == int(want) == _count_with_magdet(x, chunk, n_chunks)
+
+
+def test_fused_parity_decode_counts_with_the_count_mode(cuda_device):  # noqa: F811
+    """decode_capture_parity(fused=True) on the card: no first-front launch,
+    one count-mode launch; its stats == the CPU's."""
+    iq = _mixed(11 * 20000 + 333, 8)
+    before = (magdet_mod.count_launches, magdet_mod.launches)
+    got = pipeline.decode_capture_parity(iq, device=cuda_device)
+    assert (magdet_mod.count_launches - before[0], magdet_mod.launches - before[1]) == (1, 0)
+    assert got == pipeline.decode_capture_parity(iq, device="cpu") and got[1]["n_detections"] > 0
+
+
 def test_multihost_and_parity_on_card_match_cpu(cuda_device):  # noqa: F811
     """One process's multihost decodes on 4 shards of the card == on 4 CPU
     shards; the per-chunk parity decode on the card == the fused one ==

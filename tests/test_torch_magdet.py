@@ -87,3 +87,81 @@ def test_cpu_runs_the_plain_version_and_counts_no_launch():
     det_p, words_p = magdet_plain(iq, 2500)
     assert magdet_mod.launches == before
     assert torch.equal(det, det_p) and torch.equal(words, words_p)
+
+
+# ---- the fused parity decode's chunked detection count (the front's count mode)
+
+
+def _chunked_iq(n: int, chunk: int, seed: int) -> np.ndarray:
+    """Noise with DF17 frames at random offsets and at the edges the count
+    filters on: the last in-chunk offsets (chunk - 241 .. chunk - 239 of a
+    chunk), a chunk's first offsets, and offsets either side of a 32-offset
+    word boundary. Chunks too short for a frame and its neighbours take one
+    frame every other chunk, at in-chunk offset 0 .. 9."""
+    from airjax_torch.io import synth
+
+    rng = np.random.default_rng(seed)
+    frame = synth.make_df17(0x40621D, synth.make_id_me("CHUNKS1"))
+    if chunk < 2 * 240:
+        offsets = [c * chunk + (c // 2) % 10 for c in range(0, n // chunk, 2)]
+    else:
+        edges = [c * chunk + d for c in range(1, n // chunk + 1) for d in (-241, -240, -239, 0, 1)]
+        words = [32 * w + d for w in rng.integers(1, n // 32, 8) for d in (-1, 0, 31)]
+        offsets = [*edges, *words, *rng.integers(0, n - 240, 20)]
+    offsets = sorted({int(o) for o in offsets if 0 <= o <= n - 240})
+    return synth.modulate([frame] * len(offsets), offsets, n, noise_std=50.0, seed=seed)
+
+
+@pytest.mark.parametrize("n, chunk", [
+    (20000 + 5000, 20000),        # one chunk and a tail
+    (3 * 20000, 20000),           # an exact multiple: the last full chunk is dropped, iq is a chunk longer
+    (2 * 20000 + 777, 20000),     # two chunks and a tail
+    (8 * 4096 + 13, 4096),        # chunks of whole words
+    (40 * 250 + 7, 250),          # chunks of 10 in-chunk offsets: a word spans two chunk ends
+    (9 * 1000 + 999, 1000),
+])
+def test_chunked_detection_count_equals_airjax(n, chunk):
+    """chunked_detection_count (its plain version here) == airjax's
+    _count_chunked_detections on the same IQ, with n_chunks from
+    reference_chunk_count and `iq` longer than n_chunks * chunk."""
+    from airjax.pipeline import _count_chunked_detections as jax_count
+    from airjax_torch.pipeline import _count_chunked_detections, reference_chunk_count
+
+    iq = _chunked_iq(n, chunk, n)
+    n_chunks = reference_chunk_count(n, chunk)
+    assert n_chunks >= 1 and n > n_chunks * chunk
+    want = int(jax_count(jnp.asarray(iq), chunk, n_chunks))
+    before = magdet_mod.count_launches
+    got = magdet_mod.chunked_detection_count(torch.as_tensor(iq), chunk, n_chunks)
+    assert magdet_mod.count_launches == before
+    assert got.dtype == torch.int32 and got.shape == () and int(got) == want > 0
+    assert int(_count_chunked_detections(torch.as_tensor(iq), chunk, n_chunks)) == want
+    # The tail past n_chunks * chunk is never read.
+    tail = iq.copy()
+    tail[n_chunks * chunk :] = 0
+    assert int(magdet_mod.chunked_detection_count(torch.as_tensor(tail), chunk, n_chunks)) == want
+
+
+@pytest.mark.parametrize("n", [19000, 20000])
+def test_parity_decode_below_one_chunk_counts_as_airjax(n):
+    """A capture of at most one chunk: no reference chunk, nothing counted,
+    the fused parity decode's stats equal airjax's."""
+    from airjax.pipeline import decode_capture_parity as jax_parity
+    from airjax_torch.pipeline import decode_capture_parity
+
+    iq = _chunked_iq(n, 20000, 3)
+    want = jax_parity(iq)
+    got = decode_capture_parity(iq, device="cpu")
+    assert got == want and got[1]["n_detections"] == 0
+
+
+def test_chunked_detection_count_rejects():
+    iq = torch.as_tensor(_iq(3000, 1))
+    with pytest.raises(ValueError):
+        magdet_mod.chunked_detection_count(iq, 240, 2)  # no in-chunk offset
+    with pytest.raises(ValueError):
+        magdet_mod.chunked_detection_count(iq, 1000, 4)  # fewer samples than the chunks
+    with pytest.raises(ValueError):
+        magdet_mod.chunked_detection_count(iq, 1000, 0)
+    with pytest.raises(ValueError):
+        magdet_mod.chunked_detection_count(iq.to(torch.int32), 1000, 2)

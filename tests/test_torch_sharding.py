@@ -281,6 +281,45 @@ def test_compact_step_recover2_and_fields_equal_airjax(meshes, extended):
     assert int(got["recovered2"].sum()) > 0
 
 
+def _same_with_fields(want: dict, got: dict, extended: bool) -> None:
+    """A with_fields dict, its field dicts and the rest, key by key."""
+    want, got = dict(want), dict(got)
+    for key in ("fields", "short_fields") if extended else ("fields",):
+        assert_same_dict(want.pop(key), got.pop(key))
+    assert_same_dict(want, got)
+
+
+@pytest.mark.parametrize("recover2", [False, True])
+@pytest.mark.parametrize("extended", [False, True])
+def test_compact_step_fields_overflow_and_zero_rows_equal_airjax(meshes, extended, recover2):
+    """The with_fields steps, whole dicts, against airjax's on every
+    format: C below the total (the step overflows; the fields of its C
+    rows), that C regrown 4x as the callers regrow it, and C above the
+    total (the zero rows hold the fields of an all-zero frame)."""
+    rng = np.random.default_rng(21)
+    block = halo.tuned_block(4096)
+    n = block * 8
+    kinds = [synth.make_df17(0x400000 + i, synth.make_id_me(f"FLD{i:05d}")) for i in range(4)] + [
+        DF11, DF4, DF5, POS_FRAME]
+    offsets = sorted({300 * int(o) for o in rng.choice(n // 300 - 1, 14, replace=False)} | {block - 100})
+    sent = [kinds[i % len(kinds)] for i in range(len(offsets))]
+    sent = [synth.flip_bit(synth.flip_bit(f, 30), 70) if len(f) == 14 and i % 3 == 0 else f
+            for i, f in enumerate(sent)]
+    iq = synth.modulate(sent, offsets, n, seed=23)
+    jbuild = jhalo.build_sharded_decoder_extended_compact if extended else jhalo.build_sharded_decoder_compact
+    tbuild = halo.build_sharded_decoder_extended_compact if extended else halo.build_sharded_decoder_compact
+    count_key = "n_candidates" if extended else "n_good"
+    total = int(tbuild(meshes[1], n, 64, 8 * 64, recover2=recover2)(iq)[count_key])
+    assert total >= 4
+    overflowed = []
+    for c in (total // 2, 4 * (total // 2), total + 20):
+        want = jax.device_get(jbuild(meshes[0], n, 64, c, with_fields=True, recover2=recover2)(jnp.asarray(iq)))
+        got = pipeline.to_host(tbuild(meshes[1], n, 64, c, with_fields=True, recover2=recover2)(iq))
+        _same_with_fields(want, got, extended)
+        overflowed.append(bool(got["overflow"]))
+    assert overflowed == [True, False, False]
+
+
 @pytest.mark.parametrize("extended", [False, True])
 def test_dense_step_equals_airjax(meshes, extended):
     iq, _ = _capture(8, 1000)
@@ -463,6 +502,34 @@ def test_shard_gather_plain_first_shard_equals_airjax_composition(first_shard, e
         assert int(got["offsets"][0]) >= first_shard * block
     with pytest.raises(ValueError, match="first shard"):
         sg.shard_gather(tshards, block, max_offset, 8, extended=extended, recover2=True, first_shard=-1)
+
+
+@pytest.mark.parametrize("first_shard", [0, 2])
+@pytest.mark.parametrize("extended", [False, True])
+@pytest.mark.parametrize("recover2", [False, True])
+def test_shard_gather_plain_with_fields_equals_airjax_composition(first_shard, extended, recover2):
+    """shard_gather_plain(with_fields=True): airjax's composition then
+    extract_fields (and, extended, extract_short_fields_from_raw) over the
+    whole C-row buffer, zero rows included, for C below and above the
+    total, and as a process's shards from global index first_shard."""
+    from airjax.protocol.fields import extract_fields
+    from airjax.protocol.shortframe import extract_short_fields_from_raw
+
+    d, k, block = 3, 40, 600
+    max_offset = (first_shard + d) * block - 240 - 37
+    shards = _random_shards(d, k, block, seed=7 + first_shard + 2 * extended + recover2, extended=extended)
+    empty = {key: np.zeros_like(v) for key, v in shards[0].items()}
+    tshards = [{key: torch.as_tensor(v) for key, v in s.items()} for s in shards]
+    for c in (5, d * k + 7):
+        want = _airjax_gather([empty] * first_shard + shards, block, max_offset, c, extended, recover2)
+        want["fields"] = jax.device_get(extract_fields(jnp.asarray(want["frames"])))
+        if extended:
+            want["short_fields"] = jax.device_get(extract_short_fields_from_raw(jnp.asarray(want["frames_raw"])))
+        got = sg.shard_gather_plain(tshards, block, max_offset, c, extended=extended, recover2=recover2,
+                                    first_shard=first_shard, with_fields=True)
+        _same_with_fields(want, got, extended)
+        assert sg.shard_gather(tshards, block, max_offset, c, extended=extended, recover2=recover2,
+                               first_shard=first_shard, with_fields=True).keys() == got.keys()
 
 
 def test_shard_gather_checks_its_inputs():
