@@ -7,7 +7,7 @@ Every public function here names its airjax counterpart by file and line
 and returns the same output, bit for bit, on the same int16 IQ:
 
   airjax.dsp.magnitude              -> airjax_torch.dsp.magnitude
-  airjax.dsp.demod (decode paths)   -> airjax_torch.dsp.demod
+  airjax.dsp.demod                  -> airjax_torch.dsp.demod
   airjax.kernels.magdet (Pallas)    -> airjax_torch.kernels.magdet + csrc/front.cu
                                        (decode paths), csrc/magdet.cu (oracle)
   (XLA-fused compact_detections)    -> airjax_torch.kernels.compact + csrc/compact.cu
@@ -21,7 +21,7 @@ and returns the same output, bit for bit, on the same int16 IQ:
   airjax.extended (per packet)      -> airjax_torch.extended
   airjax.pipeline                   -> airjax_torch.pipeline
   airjax.runner (per-packet sinks)  -> airjax_torch.runner
-  airjax.config (DF17 fields)       -> airjax_torch.config
+  airjax.config                     -> airjax_torch.config
   airjax.io.synth / source / c16    -> airjax_torch.io.synth / source / c16
   airjax.ui.stream                  -> airjax_torch.ui.stream
   airjax.cli (adsb)                 -> airjax_torch.cli
@@ -30,6 +30,12 @@ and returns the same output, bit for bit, on the same int16 IQ:
                                        multihost over torch.distributed)
   airjax.golden / visualise         -> airjax_torch.golden / visualise
   airjax.observability              -> airjax_torch.observability (torch.profiler)
+  tools/ (fuzzers, soak, replay,
+    SNR sweep, multichip dry run)   -> airjax_torch/tools/
+
+Every public name of every airjax module has its counterpart in the port
+module of the same path, less a few TPU-only names
+(tests/test_torch_names.py).
 
 Device rule (airjax_torch._dispatch): a kernel wrapper given CPU tensors
 runs the kernel's plain torch version; given CUDA tensors it launches the

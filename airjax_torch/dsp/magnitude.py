@@ -13,6 +13,10 @@ Two differences from airjax, both forced by torch's CPU integer support:
     torch's CPU build has no `gt`, `minimum` or `>>` for uint32. Every
     downstream comparison is the same on int32 as on the unsigned forms.
 
+The `_u32` functions return airjax's uint32 values and dtype: they compute
+in int64 as the others do and convert at the end (torch has the
+conversion to uint32 on every device). No decode path reads them.
+
 The CUDA front kernel (csrc/magdet.cu, mag_from_word) computes the same
 value in uint32 registers.
 """
@@ -44,3 +48,21 @@ def magnitude_u16(iq: torch.Tensor) -> torch.Tensor:
     Named for its airjax counterpart; the values fit uint16 (<= 46340).
     """
     return isqrt(squared_magnitude(iq))
+
+
+def squared_magnitude_u32(iq: torch.Tensor) -> torch.Tensor:
+    """(..., 2) int16 I/Q -> (...) uint32 re^2+im^2, exact (max 2^31)
+    (airjax/dsp/magnitude.py:29-35)."""
+    return squared_magnitude(iq).to(torch.uint32)
+
+
+def isqrt_u32(s: torch.Tensor) -> torch.Tensor:
+    """Elementwise exact floor(sqrt(s)) -> uint32, for uint32 or int64
+    0 <= s <= 2^31 (airjax/dsp/magnitude.py:38-44)."""
+    return isqrt(s.to(torch.int64)).to(torch.uint32)
+
+
+def magnitude_u32(iq: torch.Tensor) -> torch.Tensor:
+    """(..., 2) int16 I/Q -> (...) uint32 magnitudes, bit-exact vs the
+    reference (airjax/dsp/magnitude.py:47-49)."""
+    return isqrt(squared_magnitude(iq)).to(torch.uint32)

@@ -4,6 +4,9 @@ Byte-identical to airjax/io/synth.py for the same arguments (that module
 imports jax through airjax.protocol). The makers of the other downlink
 formats are in airjax_torch.protocol.shortframe, as in airjax.
 
+`modulate_device` builds a capture on the device in torch ops, for
+workloads too large to make on the host (airjax/io/synth.py:400-437).
+
 Modulation matches what the detector and slicer expect:
   preamble: pulses at half-us samples {0, 2, 7, 9} of 16
   bit 1 -> (pulse, gap), bit 0 -> (gap, pulse)
@@ -12,7 +15,9 @@ Modulation matches what the detector and slicer expect:
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from airjax_torch.dsp.demod import dynamic_start
 from airjax_torch.protocol import acas
 from airjax_torch.protocol import shortframe as sf
 from airjax_torch.protocol.crc import crc24
@@ -369,6 +374,64 @@ def modulate(
     np.rint(iq, out=iq)
     np.clip(iq, -32768, 32767, out=iq)
     return iq.astype(np.int16)
+
+
+def modulate_device(
+    frames: list[bytes],
+    offsets: list[int],
+    total_len: int,
+    amplitude: float = 10000.0,
+    noise_std: float = 60.0,
+    seed: int = 0,
+    *,
+    device: torch.device | str = "cuda",
+) -> torch.Tensor:
+    """`modulate` on the device -> (total_len, 2) int16 tensor on `device`
+    (airjax/io/synth.py:400-437): float32 Gaussian noise of `noise_std` on
+    both rails, each 14-byte frame's pulse train times `amplitude` added
+    to I at its offset, then rounded half to even and clipped to int16.
+
+    The noise comes from a torch.Generator of `device` seeded with `seed`,
+    so one seed gives one capture on every call; the CPU's and a card's
+    streams differ, and neither is JAX's or numpy's (airjax's is not
+    bit-identical to `modulate` either). With noise_std=0 the capture
+    equals airjax's bit for bit wherever each sample's sum of pulses,
+    k * amplitude, is exact in float32 (always for the default amplitude).
+
+    Each frame starts where airjax's dynamic_slice starts it
+    (dsp/demod.py::dynamic_start: a negative offset counts from the end,
+    then the start is clamped into [0, total_len - 240]): a frame that
+    does not fit is moved, not refused (the host `modulate` raises).
+    Overlapping pulses are counted per sample in int32 (no float atomics,
+    so the sum has no order), then added once."""
+    if not frames:
+        raise ValueError("modulate_device needs at least one frame")
+    if any(len(f) != FRAME_BITS // 8 for f in frames):
+        raise ValueError(f"modulate_device takes {FRAME_BITS // 8}-byte frames only")
+    if len(offsets) != len(frames):
+        raise ValueError(f"{len(frames)} frames but {len(offsets)} offsets")
+    if total_len < WINDOW:
+        raise ValueError(f"total_len {total_len} is shorter than a frame's {WINDOW} samples")
+    device = torch.device(device)
+    raw = torch.frombuffer(bytearray(b"".join(map(bytes, frames))), dtype=torch.uint8)
+    raw = raw.view(len(frames), -1).to(device)
+    bits = (raw.to(torch.int64)[:, :, None] >> torch.arange(7, -1, -1, device=device)) & 1
+    # A frame's 116 pulses: the preamble's 4, then bit k at 16 + 2k if 1,
+    # at 16 + 2k + 1 if 0.
+    data = PREAMBLE_LEN + 2 * torch.arange(FRAME_BITS, device=device) + (1 - bits.reshape(len(frames), -1))
+    preamble = torch.tensor(PREAMBLE_PULSES, device=device).expand(len(frames), -1)
+    starts = dynamic_start(torch.as_tensor(np.asarray(offsets, dtype=np.int64), device=device), total_len, WINDOW)
+    touched = (starts[:, None] + torch.cat([preamble, data], dim=1)).reshape(-1)
+    count = torch.zeros(total_len, dtype=torch.int32, device=device)
+    count.index_add_(0, touched, torch.ones_like(touched, dtype=torch.int32))
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    iq = torch.empty((total_len, 2), dtype=torch.float32, device=device).normal_(0.0, noise_std, generator=gen)
+    rail = iq[:, 0]
+    rail[touched] = rail[touched] + count[touched].to(torch.float32) * amplitude
+    del count  # freed before the int16 result is allocated: a lower peak
+    return iq.round_().clamp_(-32768, 32767).to(torch.int16)
 
 
 def flip_bit(frame: bytes, bit_index: int) -> bytes:

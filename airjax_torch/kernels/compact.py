@@ -31,7 +31,7 @@ launches = 0
 Compacted = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def compact_mask(det: torch.Tensor, capacity: int) -> Compacted:
+def compact_for_gather(det: torch.Tensor, capacity: int) -> Compacted:
     """compact_detections of a (n_off,) mask, plus the offsets the
     candidate stage reads: the plain chains' compaction."""
     offsets, valid, n_det = compact_detections(det, capacity)
@@ -41,9 +41,9 @@ def compact_mask(det: torch.Tensor, capacity: int) -> Compacted:
 def compact_bits_plain(
     det_words: torch.Tensor, tile_counts: torch.Tensor, n_off: int, capacity: int
 ) -> Compacted:
-    """Plain torch version: unpack the bits, then compact_mask. The tile
+    """Plain torch version: unpack the bits, then compact_for_gather. The tile
     counts are the kernel's index; the plain version needs none."""
-    return compact_mask(unpack_msb_words(det_words, n_off), capacity)
+    return compact_for_gather(unpack_msb_words(det_words, n_off), capacity)
 
 
 def compact_bits(

@@ -15,7 +15,13 @@ accumulator, so a card must never run two of them at once).
 `make_mesh(n)` takes the first n cards and raises when fewer exist, as
 airjax does; it never falls back to the CPU. A decode over several
 processes (airjax's jax.distributed) is parallel/multihost.py: each
-process holds a `Mesh` of its own shards.
+process holds a `Mesh` of its own shards; `init_distributed` joins the
+job from the environment.
+
+airjax's `time_sharding` and `replicated` (jax NamedShardings) have no
+counterpart: the port places shards by hand (halo.shard_iq puts each
+shard on its device, and the shard gather writes one buffer on the
+mesh's first device).
 """
 
 from __future__ import annotations
@@ -76,3 +82,12 @@ def make_mesh(n_devices: int | None = None, device: torch.device | str = "cuda",
     if n > have or n < 1:
         raise ValueError(f"requested {n} devices, have {have}")
     return Mesh([torch.device("cuda", i) for i in range(n)], axis)
+
+
+def init_distributed() -> None:
+    """Join a multi-process job from the environment (MASTER_ADDR,
+    WORLD_SIZE, RANK) through multihost.init(); a no-op for a process
+    alone, as airjax's (airjax/parallel/mesh.py:39-50)."""
+    from airjax_torch.parallel import multihost  # multihost imports this module
+
+    multihost.init()

@@ -9,7 +9,8 @@
 front kernel (csrc/front.cu: detection bits, packed compares, detections
 per tile), then the block-decode kernel (csrc/block_decode.cu: the ordered
 compaction, the candidate decode and the dict in one launch) — the dataflow
-of airjax's `decode_iq_block_kernel` (:140-171) with the dense word layout.
+of airjax's `decode_iq_block_kernel` (:140-171) with the dense word layout;
+the port's `decode_iq_block_kernel` is that decode under airjax's name.
 On the CPU the same wrappers run their plain versions. `decode_mags_block`
 is the plain torch chain from magnitudes on either device, the counterpart
 of airjax's XLA path (:59-108).
@@ -58,6 +59,7 @@ import torch
 from airjax_torch.config import DEFAULT_CONFIG, PipelineConfig
 from airjax_torch.dsp.demod import (
     WINDOW,
+    compact_detections,
     detect,
     detect_preamble_only,
     pack_cmp_words,
@@ -73,7 +75,7 @@ from airjax_torch.kernels.candidate import (
     decode_candidates_extended_plain,
     decode_candidates_plain,
 )
-from airjax_torch.kernels.compact import compact_bits, compact_mask
+from airjax_torch.kernels.compact import compact_bits, compact_for_gather
 from airjax_torch.kernels.magdet import chunked_detection_count, magdet_bits
 from airjax_torch.protocol.packet import AdsbPacket
 
@@ -85,6 +87,14 @@ def _check_block(n_samples: int, n_off: int) -> None:
         raise ValueError(f"n_off={n_off} needs {n_off + WINDOW - 1} samples, got {n_samples}")
 
 
+def compact_mask(det: torch.Tensor, capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The True positions of a (n,) mask in ascending slots, through
+    compact_detections (airjax/pipeline.py:48-56): (indices (capacity,)
+    int32, empty slots n; n_true () int32, every True counted)."""
+    offsets, _, n_det = compact_detections(det, capacity)
+    return offsets, n_det
+
+
 def decode_mags_block(
     mags: torch.Tensor, n_off: int, capacity: int, recover2: bool = False
 ) -> dict[str, torch.Tensor]:
@@ -93,7 +103,7 @@ def decode_mags_block(
     adds the 2-bit repair and `recovered2`."""
     _check_block(mags.shape[0], n_off)
     return candidate_dict(
-        compact_mask(detect(mags, n_off), capacity), pack_cmp_words(mags), capacity,
+        compact_for_gather(detect(mags, n_off), capacity), pack_cmp_words(mags), capacity,
         functools.partial(decode_candidates_plain, recover2=recover2),
     )
 
@@ -106,6 +116,26 @@ def decode_iq_block(
     _check_block(iq.shape[0], n_off)
     det_words, words, counts = magdet_bits(iq, n_off)
     return decode_block_bits(det_words, words, counts, n_off, capacity, recover2=recover2)
+
+
+def decode_mags_block_r2(mags: torch.Tensor, n_off: int, capacity: int) -> dict[str, torch.Tensor]:
+    """decode_mags_block with the 2-bit repair (airjax/pipeline.py:119-129):
+    the plain chain from magnitudes, `recovered2` marking the frames a
+    unique double flip validated; callers gate them."""
+    return decode_mags_block(mags, n_off, capacity, recover2=True)
+
+
+def decode_iq_block_kernel(iq: torch.Tensor, n_off: int, capacity: int) -> dict[str, torch.Tensor]:
+    """airjax's decode on its Pallas front (airjax/pipeline.py:140-171),
+    here on the Hopper front: the front kernel, then the block-decode
+    kernel, the same two launches and dict as decode_iq_block.
+
+    It takes airjax's kernel-padded input as it comes ((n + EXTRA, 2) int16,
+    n a multiple of the TPU's tile, from airjax's pad_for_kernel) and
+    decodes its first n_off offsets, whose windows end before the padding
+    can matter. It has no `interpret` argument: Pallas' interpret mode has no
+    CUDA meaning, and on the CPU the kernels' plain versions run."""
+    return decode_iq_block(iq, n_off, capacity)
 
 
 def decode_iq_block_r2(iq: torch.Tensor, n_off: int, capacity: int) -> dict[str, torch.Tensor]:
@@ -136,7 +166,7 @@ def decode_mags_block_extended(
     on either device (airjax/pipeline.py:174-273)."""
     _check_block(mags.shape[0], n_off)
     return candidate_dict_extended(
-        compact_mask(detect_preamble_only(mags, n_off), capacity), pack_cmp_words(mags), capacity,
+        compact_for_gather(detect_preamble_only(mags, n_off), capacity), pack_cmp_words(mags), capacity,
         functools.partial(decode_candidates_extended_plain, recover2=recover2),
     )
 

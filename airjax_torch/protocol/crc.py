@@ -9,7 +9,8 @@ Syndromes are pairwise distinct, so that j is unique, and a flip in the
 CRC field can never validate (the reference compares against the original
 packet CRC).
 
-The tables are built here in numpy (the airjax module imports jax);
+The tables are built here in numpy (the airjax module imports jax) and
+read through `crc_matrix()` and `syndromes()`, as in airjax;
 `load_tables` turns any such numpy pair — ours or airjax's — into the
 tensors the torch functions take.
 """
@@ -62,6 +63,18 @@ def _tables() -> tuple[np.ndarray, np.ndarray]:
         for k in range(CRC_BITS):
             matrix[j, k] = (s >> (CRC_BITS - 1 - k)) & 1
     return matrix, syndromes
+
+
+def crc_matrix() -> np.ndarray:
+    """(88, 24) uint8: row j is crc24 of the unit message e_j, MSB first
+    (airjax/protocol/crc.py:79-80)."""
+    return _tables()[0]
+
+
+def syndromes() -> np.ndarray:
+    """(88,) uint32: S_j = crc24(e_j), the single-bit repair syndromes
+    (airjax/protocol/crc.py:83-84)."""
+    return _tables()[1]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,6 +130,16 @@ def crc_check_and_recover(
     flip[..., :DATA_BITS] = match
     corrected = torch.where(found[..., None], bits112 ^ flip, bits112)
     return corrected, ok | found, found
+
+
+def bytes_to_bits(frame_bytes: np.ndarray | bytes) -> np.ndarray:
+    """(..., 14) uint8 or bytes -> (..., 112) {0,1} uint8, MSB first; a
+    host helper (airjax/protocol/crc.py:192-197)."""
+    if isinstance(frame_bytes, (bytes, bytearray)):
+        arr = np.frombuffer(bytes(frame_bytes), dtype=np.uint8)
+    else:
+        arr = np.asarray(frame_bytes, dtype=np.uint8)
+    return np.unpackbits(arr, axis=-1)
 
 
 def bits_to_bytes(bits: torch.Tensor) -> torch.Tensor:

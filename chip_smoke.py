@@ -131,7 +131,18 @@ Phases; any failure raises and the exit code is nonzero:
      native ring; native.decode_chunk == decode_capture_parity on the card;
  16. airjax_torch/tools as processes, all at once: fuzz_parity,
      fuzz_extended (and --recover2) at 20 iterations, soak 10 s, soak --sdr
-     5 s, dryrun_multichip on Mesh([card 0] * 4); each exits 0.
+     5 s, dryrun_multichip on Mesh([card 0] * 4); each exits 0. Then the
+     SNR sweep at BASELINE config 2's size (8 SNRs x 8 captures), --golden,
+     --extended --golden and --recover2 at once: each exits 0, wall times
+     printed;
+ 17. modulate_device at phase 4's shape and frames: one seed one capture,
+     decode_iq_block finds every frame at its offset, noise_std=0 on the
+     card == the CPU's, timed by CUDA events and profiled against its
+     bound and against the host `modulate`, its peak memory; the last
+     airjax names the port took on (u32 magnitudes, slice_bits, the sparse
+     byte reader, pack_cmp_words_reduce, compact_detections' tiles,
+     compact_mask, decode_mags_block_r2) on the card == the CPU, and
+     decode_iq_block_kernel == decode_iq_block in the same two launches.
 `chip_smoke.py --cards` (4 or more cards): the mesh paths across cards,
 dryrun_multichip on make_mesh(4), and phase 12 with NCCL across 4 cards.
 Phase 3 also holds the block-decode kernel's recover2 (R2) instantiations
@@ -2886,6 +2897,168 @@ def phase_tools() -> None:
         }, dict(os.environ), tmp)
 
 
+def phase_sweeps() -> None:
+    """Phase 16, second part: airjax_torch/tools/snr_sweep.py at its default
+    size (BASELINE config 2: 8 SNRs x 8 captures of 24,001 samples) with
+    --golden, --extended --golden and --recover2, the three at once after
+    the other tools; each exits 0 (its curve equals the golden decoder's,
+    or recover2's is a pure gain) and prints its wall time."""
+    sweep = "airjax_torch/tools/snr_sweep.py"
+    with tempfile.TemporaryDirectory() as tmp:
+        run_tools({
+            "snr_sweep --golden": [sweep, "--golden"],
+            "snr_sweep --extended --golden": [sweep, "--extended", "--golden"],
+            "snr_sweep --recover2": [sweep, "--recover2"],
+        }, dict(os.environ), tmp)
+
+
+# Phase 17: the last airjax names on the card.
+def device_ops(fn, calls: int = 10) -> tuple[float, int, list[str]]:
+    """(device µs a call, device events a call, their names) of fn, torch
+    ops, under torch.profiler; a window whose event count is no multiple
+    of `calls` is profiled again (PROFILE_TRIES windows, then it fails)."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        events = device_events(fn, calls)
+        if events and len(events) % calls == 0:
+            names = sorted({e.name[:60] for e in events})
+            return sum(e.time_range.end - e.time_range.start for e in events) / calls, len(events) // calls, names
+        print(f"device_ops: the profiler dropped events ({len(events)} in {calls} calls); again")
+    check(False, f"device_ops: the profiler dropped events in {PROFILE_TRIES} windows")
+
+
+def phase_names(dev: torch.device, frames: list[bytes], offsets: np.ndarray) -> None:
+    """Phase 17: modulate_device at bench.py's shape (2^24 + 1024 samples,
+    phase 4's 1024 DF17 frames at multiples of 300, noise 60): the same
+    capture on two calls, decode_iq_block finds every frame at its offset,
+    noise_std=0 on the card == the CPU's; timed by CUDA events against the
+    host `modulate`, profiled against its bound (the int16 capture written
+    once). Then the port's other counterparts of airjax names that no
+    decode path runs, on the card against their CPU results: the u32 magnitudes, slice_bits (its clamps), the sparse
+    byte reader, pack_cmp_words_reduce, compact_detections at several
+    tiles, pipeline.compact_mask, decode_mags_block_r2, and
+    decode_iq_block_kernel == decode_iq_block in the same two launches."""
+    from airjax_torch import config, pipeline
+    from airjax_torch.dsp import demod, magnitude
+    from airjax_torch.io import synth
+    from airjax_torch.parallel import mesh
+    from airjax_torch.protocol import crc
+
+    t_phase = time.perf_counter()
+    n = BLOCK + HALO
+    n_off = BLOCK - 240
+    offs = list(map(int, offsets))
+
+    def make():
+        return synth.modulate_device(frames, offs, n, noise_std=60.0, seed=0, device=dev)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    cap = make()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    check(cap.shape == (n, 2) and cap.dtype == torch.int16 and cap.device.type == dev.type, "modulate_device's tensor")
+    check(torch.equal(cap, make()), "modulate_device: two calls with one seed differ")
+    check(not torch.equal(cap, synth.modulate_device(frames, offs, n, seed=1, device=dev)),
+          "modulate_device: another seed gave the same capture")
+    q = cap[:, 1].double()
+    print(f"modulate_device: Q mean {float(q.mean()):.4f}, std {float(q.std()):.4f} (noise_std 60)")
+    check(abs(float(q.mean())) < 0.1 and abs(float(q.std()) / 60.0 - 1.0) < 0.01, "modulate_device's noise")
+    with counted() as launches:
+        out = pipeline.to_host(pipeline.decode_iq_block(cap, n_off, CAPACITY))
+    check(launches == ONE_PASS, f"decode of modulate_device's capture: {launches}")
+    good = out["good"]
+    check(int(out["n_good"]) == len(frames) and out["offsets"][good].tolist() == offs
+          and [bytes(r) for r in out["frames"][good]] == frames,
+          f"modulate_device's capture decoded to {int(out['n_good'])} frames, not the {len(frames)} embedded")
+    quiet = synth.modulate_device(frames, offs, n, noise_std=0.0, device=dev)
+    check(torch.equal(quiet.cpu(), synth.modulate_device(frames, offs, n, noise_std=0.0, device="cpu")),
+          "modulate_device(noise_std=0): the card's capture != the CPU's")
+
+    ms = cuda_ms(make, reps=20, warmup=3)
+    dev_us, n_events, names = device_ops(make)
+    t0 = time.perf_counter()
+    synth.modulate(frames, offs, n, noise_std=60.0, seed=0)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    b_ms, b_by = bound(2 * 2 * n, 0)
+    print(f"modulate_device, {n} samples, {len(frames)} frames: {ms:.4f} ms by events (median of 20), "
+          f"{dev_us:.2f} µs device, {n_events} device events a call ({', '.join(names)}); bound "
+          f"{b_ms * 1e3:.2f} µs ({b_by}, the int16 capture once); peak memory {peak / 2**20:.1f} MiB "
+          f"({peak / n:.2f} B a sample); host modulate {host_ms:.1f} ms (one call)")
+
+    # The other names, on a 2^20-sample head of the capture, card against CPU.
+    head = cap[: (1 << 20) + 1024]
+    head_cpu = head.cpu()
+    mags, mags_cpu = magnitude.magnitude_u16(head), magnitude.magnitude_u16(head_cpu)
+    h_off = (1 << 20) - 240
+    det = demod.detect(mags, h_off)
+    rng = np.random.default_rng(17)
+    cand = np.concatenate([np.nonzero(det.cpu().numpy())[0], rng.integers(0, h_off, 200),
+                           [h_off + 239, head.shape[0], -1, -300]])
+    plane = torch.as_tensor(rng.integers(0, 256, 1 << 20, dtype=np.uint8))
+    sq = magnitude.squared_magnitude_u32(head_cpu)
+    pairs = {
+        "squared_magnitude_u32": (magnitude.squared_magnitude_u32(head), sq),
+        "isqrt_u32": (magnitude.isqrt_u32(sq.to(dev)), magnitude.isqrt_u32(sq)),
+        "magnitude_u32": (magnitude.magnitude_u32(head), magnitude.magnitude_u32(head_cpu)),
+        "slice_bits": (demod.slice_bits(mags, cand), demod.slice_bits(mags_cpu, cand)),
+        "slice_bits_sparse_bytes": (demod.slice_bits_sparse_bytes(plane.to(dev), cand[cand < (1 << 16)]),
+                                    demod.slice_bits_sparse_bytes(plane, cand[cand < (1 << 16)])),
+        "pack_cmp_words_reduce": (demod.pack_cmp_words_reduce(mags), demod.pack_cmp_words_reduce(mags_cpu)),
+        "compact_mask": (pipeline.compact_mask(det, 512), pipeline.compact_mask(det.cpu(), 512)),
+        "decode_mags_block_r2": (pipeline.to_host(pipeline.decode_mags_block_r2(mags, h_off, 512)),
+                                 pipeline.to_host(pipeline.decode_mags_block_r2(mags_cpu, h_off, 512))),
+    }
+    for tile in (1, 7, 512, 1 << 21):
+        pairs[f"compact_detections tile {tile}"] = (demod.compact_detections(det, 256, tile=tile),
+                                                    demod.compact_detections(det.cpu(), 256))
+    for name, (got, want) in pairs.items():
+        got = list(got.values()) if isinstance(got, dict) else got if isinstance(got, tuple) else [got]
+        want = list(want.values()) if isinstance(want, dict) else want if isinstance(want, tuple) else [want]
+        for g, w in zip(got, want):
+            g = torch.as_tensor(g)
+            check(g.dtype == torch.as_tensor(w).dtype and torch.equal(g.cpu(), torch.as_tensor(w)),
+                  f"{name}: the card's result != the CPU's")
+    check(crc.crc_matrix().shape == (88, 24) and crc.syndromes().dtype == np.uint32
+          and np.array_equal(np.packbits(crc.bytes_to_bits(np.frombuffer(b"".join(frames), np.uint8)
+                                                             .reshape(-1, 14)), axis=-1),
+                             np.frombuffer(b"".join(frames), np.uint8).reshape(-1, 14)), "the CRC helpers")
+    cfg = config.PipelineConfig(gain_db=40.0, web_port=9000)
+    check((cfg.window_len, cfg.halo, cfg.bytes_per_frame) == (demod.WINDOW, demod.WINDOW - 1, 14), "PipelineConfig")
+    check(mesh.init_distributed() is None, "init_distributed")
+
+    # The SNR sweep's capture (24,001 samples): its parity decode against
+    # the host's share, the pad to a 2^22-sample scan block and the upload.
+    sweep_iq = synth.modulate([frames[0]] * 8, [300 + 2925 * i for i in range(8)], 24001, snr_db=10.0, seed=1)
+    sweep_cfg = config.PipelineConfig(block_len=24000)
+
+    def upload():
+        torch.as_tensor(pipeline.pad_iq_non_detecting(sweep_iq[:24000], 1 << 22)).to(dev)
+        torch.cuda.synchronize()
+
+    t_parity, t_upload = [], []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        pipeline.decode_capture_parity(sweep_iq, sweep_cfg, device=dev)
+        t_parity.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        upload()
+        t_upload.append(time.perf_counter() - t0)
+    print(f"snr_sweep's capture (24,001 samples): decode_capture_parity {statistics.median(t_parity) * 1e3:.3f} ms, "
+          f"of which the pad to 2^22 samples and its upload {statistics.median(t_upload) * 1e3:.3f} ms "
+          f"(host clock, median of 10)")
+
+    with counted() as launches:
+        got = pipeline.to_host(pipeline.decode_iq_block_kernel(cap, n_off, CAPACITY))
+    check(launches == ONE_PASS, f"decode_iq_block_kernel: not the front and the block decode once each: {launches}")
+    check(all(np.array_equal(got[k], out[k]) for k in out) and sorted(got) == sorted(out),
+          "decode_iq_block_kernel != decode_iq_block")
+    print(f"phase 17: {len(pairs)} results of the A16 functions on the card == the CPU's; decode_iq_block_kernel == "
+          f"decode_iq_block in {launches['magdet_bits']} + {launches['block_decode']} launches; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
 # The multi-card run (`chip_smoke.py --cards`, a host of 4 or more cards).
 def packet_view(packet) -> tuple:
     """A packet's class and fields but its wall-clock stamp."""
@@ -3034,6 +3207,8 @@ def main() -> int:
     del stream_capture
     phase_live(dev, tracker_iq)
     phase_tools()
+    phase_sweeps()
+    phase_names(dev, frames, offsets)
     launches.update({**df17, **ext, **tracker, "block_decode": df17["block_decode"] + ext["block_decode"],
                      "magdet_front": front_launches["df17"], "magdet_front_preamble": front_launches["preamble"],
                      **sharded, "shard_gather": sharded["shard_gather"] + df17["shard_gather"] + multi["shard_gather"],

@@ -27,6 +27,27 @@ def test_tables_equal_airjax():
     assert len(np.unique(s_t)) == tcrc.DATA_BITS  # the repair's uniqueness
 
 
+def test_public_tables_equal_airjax():
+    """crc_matrix() and syndromes(): airjax's arrays, element for element,
+    with airjax's dtypes."""
+    for ours, theirs in ((tcrc.crc_matrix(), jcrc.crc_matrix()), (tcrc.syndromes(), jcrc.syndromes())):
+        assert isinstance(ours, np.ndarray) and ours.dtype == theirs.dtype and ours.shape == theirs.shape
+        np.testing.assert_array_equal(ours, theirs)
+    assert tcrc.crc_matrix().shape == (88, 24) and tcrc.syndromes().dtype == np.uint32
+
+
+@pytest.mark.parametrize("kind", ["bytes", "bytearray", "one", "batch", "batch3"])
+def test_bytes_to_bits_equals_airjax(kind):
+    rng = np.random.default_rng(len(kind))
+    arr = rng.integers(0, 256, size={"one": (14,), "batch": (9, 14), "batch3": (2, 3, 14)}.get(kind, (14,)),
+                       dtype=np.uint8)
+    arg = {"bytes": bytes(arr), "bytearray": bytearray(arr)}.get(kind, arr)
+    ours, theirs = tcrc.bytes_to_bits(arg), jcrc.bytes_to_bits(arg)
+    assert ours.dtype == theirs.dtype == np.uint8 and ours.shape == theirs.shape == arr.shape[:-1] + (112,)
+    np.testing.assert_array_equal(ours, theirs)
+    np.testing.assert_array_equal(tcrc.bits_to_bytes(torch.as_tensor(ours)).numpy(), arr)
+
+
 def test_load_tables_round_trips():
     tab = tcrc.load_tables(*jcrc._tables(), device="cpu")
     assert tab.matrix.dtype == torch.float32 and tab.syndromes.dtype == torch.int32

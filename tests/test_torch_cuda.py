@@ -816,3 +816,51 @@ def test_fetcher_reuses_a_staging_buffer_after_its_event(cuda_device):  # noqa: 
     out = f.fetch({"x": total}, ticket)
     f.done(ticket)
     assert int(out["x"]) == 2000 and f.stage(a[:500]).data_ptr() == staged.data_ptr()
+
+
+def test_airjax_names_on_card_equal_cpu(cuda_device):  # noqa: F811
+    """The u32 magnitudes, slice_bits (offsets past the end and negative
+    ones too), pack_cmp_words_reduce and pipeline.compact_mask: torch ops on
+    the card, equal to their CPU results."""
+    from airjax_torch.dsp import demod, magnitude
+
+    iq = torch.as_tensor(_random_iq(100_001, 17))
+    rng = np.random.default_rng(17)
+    offsets = torch.as_tensor(np.concatenate([rng.integers(0, 100_001 - 240, 500), [100_000, -1, -40, 0]]))
+    mags = magnitude_u16(iq)
+    for name, fn, args in (
+        ("squared_magnitude_u32", magnitude.squared_magnitude_u32, (iq,)),
+        ("isqrt_u32", magnitude.isqrt_u32, (magnitude.squared_magnitude_u32(iq),)),
+        ("magnitude_u32", magnitude.magnitude_u32, (iq,)),
+        ("slice_bits", demod.slice_bits, (mags, offsets)),
+        ("pack_cmp_words_reduce", demod.pack_cmp_words_reduce, (mags,)),
+        ("compact_mask", pipeline.compact_mask, (torch.as_tensor(rng.random(50_000) < 0.05), 1024)),
+    ):
+        want = fn(*args)
+        got = fn(*(a.to(cuda_device) if torch.is_tensor(a) else a for a in args))
+        for w, g in zip(want if isinstance(want, tuple) else (want,), got if isinstance(got, tuple) else (got,)):
+            assert g.device.type == "cuda" and g.dtype == w.dtype, name
+            assert torch.equal(g.cpu(), w), name
+
+
+def test_decode_iq_block_kernel_is_decode_iq_block(cuda_device):  # noqa: F811
+    """airjax's name for the decode on the front: the same dict as
+    decode_iq_block, through the same two launches (front, block decode)."""
+    n = (1 << 20) + 1024
+    iq_dev = torch.as_tensor(_traffic(n, 18)[0]).to(cuda_device)
+    n_off = (1 << 20) - 240
+    before = _counts()
+    got = pipeline.to_host(pipeline.decode_iq_block_kernel(iq_dev, n_off, 512))
+    assert _counts() == tuple(c + 1 for c in before[:2]) + before[2:]
+    assert_same_dict(pipeline.to_host(pipeline.decode_iq_block(iq_dev, n_off, 512)), got)
+    assert int(got["n_good"]) > 0
+
+
+@pytest.mark.parametrize("offsets", [[0, 300, 300, 300, 300, 5000, 5001], [19_760, 25_000, -1, -300, 777]])
+def test_modulate_device_on_card_equals_cpu_without_noise(cuda_device, offsets):  # noqa: F811
+    frames = [synth.make_df17(0x500000 + i, synth.make_id_me(f"MD{i}")) for i in range(len(offsets))]
+    got = synth.modulate_device(frames, offsets, 20_000, noise_std=0.0, device=cuda_device)
+    assert got.device.type == "cuda" and got.dtype == torch.int16
+    assert torch.equal(got.cpu(), synth.modulate_device(frames, offsets, 20_000, noise_std=0.0, device="cpu"))
+    noisy = synth.modulate_device(frames, offsets, 20_000, seed=9, device=cuda_device)
+    assert torch.equal(noisy, synth.modulate_device(frames, offsets, 20_000, seed=9, device=cuda_device))

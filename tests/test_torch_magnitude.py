@@ -5,8 +5,16 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from airjax.dsp import magnitude as jmag
 from airjax.dsp.magnitude import magnitude_u16 as jax_magnitude_u16
-from airjax_torch.dsp.magnitude import isqrt, magnitude_u16, squared_magnitude
+from airjax_torch.dsp.magnitude import (
+    isqrt,
+    isqrt_u32,
+    magnitude_u16,
+    magnitude_u32,
+    squared_magnitude,
+    squared_magnitude_u32,
+)
 from torch_parity import assert_same
 
 EXTREMES = np.array(
@@ -65,3 +73,40 @@ def test_isqrt_exact_over_range():
     s = np.clip(s, 0, 2**31)
     expected = np.floor(np.sqrt(s.astype(np.float64))).astype(np.int32)
     assert_same(expected, isqrt(torch.as_tensor(s)))
+
+
+def _u32_corners(seed: int) -> np.ndarray:
+    """Random int16 IQ, the int16 extremes, and pairs whose re^2 + im^2
+    sits next to 46340^2 (the largest square under 2^31)."""
+    rng = np.random.default_rng(seed)
+    near = []
+    for re in (46340 // 2, 32767, 32760, 30000, 12345):
+        for d in (-2, -1, 0, 1, 2):
+            im = int(np.floor(np.sqrt(max(46340**2 + d - re * re, 0))))
+            near += [[re, min(im + e, 32767)] for e in (-1, 0, 1)]
+    return np.concatenate([
+        rng.integers(-32768, 32768, size=(4000, 2), dtype=np.int16), EXTREMES,
+        np.asarray(near, dtype=np.int16), -np.asarray(near, dtype=np.int16),
+    ])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_u32_functions_equal_airjax(seed):
+    """squared_magnitude_u32, isqrt_u32 (from uint32 and from int64) and
+    magnitude_u32: airjax's values, and its dtype, uint32."""
+    iq = _u32_corners(seed)
+    s_j = np.asarray(jmag.squared_magnitude_u32(jnp.asarray(iq)))
+    s_t = squared_magnitude_u32(torch.as_tensor(iq))
+    assert s_t.dtype == torch.uint32 and str(s_t.numpy().dtype) == str(s_j.dtype) == "uint32"
+    np.testing.assert_array_equal(s_t.numpy(), s_j)
+    assert int(s_t.numpy().max()) == 2**31
+    k_j = np.asarray(jmag.isqrt_u32(jnp.asarray(s_j)))
+    for s in (s_t, s_t.to(torch.int64)):
+        k_t = isqrt_u32(s)
+        assert k_t.dtype == torch.uint32
+        np.testing.assert_array_equal(k_t.numpy(), k_j)
+    m_j = np.asarray(jmag.magnitude_u32(jnp.asarray(iq)))
+    m_t = magnitude_u32(torch.as_tensor(iq))
+    assert m_t.dtype == torch.uint32 and m_j.dtype == np.uint32
+    np.testing.assert_array_equal(m_t.numpy(), m_j)
+    assert int(m_t.numpy().max()) == 46340

@@ -40,7 +40,7 @@ for name in ("airjax_torch.kernels.block_decode", "airjax_torch.kernels.fields",
              "airjax_torch.golden", "airjax_torch.visualise", "airjax_torch.observability",
              "airjax_torch.native", "airjax_torch.sdr", "airjax_torch.ui.projection", "airjax_torch.ui.bindings_gen",
              "airjax_torch.tools.fuzz_parity", "airjax_torch.tools.fuzz_extended", "airjax_torch.tools.soak",
-             "airjax_torch.tools.dryrun_multichip"):
+             "airjax_torch.tools.dryrun_multichip", "airjax_torch.tools.snr_sweep"):
     assert name in names, names
 for name in names:
     importlib.import_module(name)
@@ -98,6 +98,10 @@ from airjax_torch.ui import bindings_gen, projection
 assert len(bindings_gen.generated_files()) == 3 and projection.recenter(10, 10) == (5, 5)
 with observability.trace("/dev/null", enabled=False):
     pass
+dev_iq = synth.modulate_device([frame], [300], 4000, device="cpu").numpy()
+assert [h[2] for h in pipeline.decode_capture_overlap(dev_iq, device="cpu")[0]] == [frame]
+from airjax_torch.tools import snr_sweep
+assert snr_sweep.sweep(snrs_db=(20.0,), captures_per_snr=1, device="cpu")["curve"][0]["decode_rate"] == 1.0
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "airjax")]
 print("modules", len(names))
 """

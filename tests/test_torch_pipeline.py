@@ -14,9 +14,11 @@ from airjax import golden
 from airjax import pipeline as jp
 from airjax.config import DEFAULT_CONFIG
 from airjax_torch import config as tconfig
-from airjax.kernels.magdet import EXTRA, TILE
+from airjax.kernels.magdet import EXTRA, TILE, pad_for_kernel
 from airjax_torch import pipeline as tp
 from airjax_torch.dsp.magnitude import magnitude_u16
+from airjax_torch.kernels import block_decode as block_decode_mod
+from airjax_torch.kernels import magdet as magdet_mod
 from airjax_torch.io import synth
 from torch_parity import assert_same_dict
 
@@ -48,6 +50,67 @@ def test_decode_iq_block_equals_airjax_and_pallas_path():
     assert int(got["n_good"]) == 6 and int(got["recovered"].sum()) == 2
     plain = tp.to_host(tp.decode_mags_block(magnitude_u16(torch.as_tensor(iq)), n_off, 64))
     assert_same_dict(want, plain)
+
+
+def test_decode_iq_block_kernel_equals_airjax_on_a_padded_block(monkeypatch):
+    """airjax's kernel-padded input (pad_for_kernel of a TILE-sample
+    capture) through the port's decode_iq_block_kernel == airjax's
+    (Pallas, interpret mode) == the port's decode_iq_block: the same two
+    wrappers, each once."""
+    offsets = [0, 1000, 9000, 20000, 40000, 60000, TILE - 241]
+    iq, _ = _traffic(TILE, offsets, 8, flips={2: 30, 4: 99})
+    padded, n_dom = pad_for_kernel(jnp.asarray(iq))
+    assert padded.shape == (TILE + EXTRA, 2) and n_dom == TILE
+    n_off = TILE - 240
+    want = jax.device_get(jp.decode_iq_block_kernel(padded, n_off, 64, interpret=True))
+    block = torch.as_tensor(np.array(padded))
+    front, decode = magdet_mod.bits_launches, block_decode_mod.launches
+    calls = []
+    real_bits, real_decode = tp.magdet_bits, tp.decode_block_bits
+    monkeypatch.setattr(tp, "magdet_bits", lambda *a, **kw: calls.append("front") or real_bits(*a, **kw))
+    monkeypatch.setattr(tp, "decode_block_bits",
+                        lambda *a, **kw: calls.append("block decode") or real_decode(*a, **kw))
+    got = tp.to_host(tp.decode_iq_block_kernel(block, n_off, 64))
+    monkeypatch.undo()
+    assert calls == ["front", "block decode"]
+    assert (magdet_mod.bits_launches, block_decode_mod.launches) == (front, decode)  # the CPU launches nothing
+    assert_same_dict(want, got)
+    assert_same_dict(tp.to_host(tp.decode_iq_block(block, n_off, 64)), got)
+    assert int(got["n_good"]) == 6 and int(got["recovered"].sum()) == 1
+
+
+@pytest.mark.parametrize("density", [0.02, 0.3])
+def test_compact_mask_equals_airjax(density):
+    """(indices, n_true), airjax's pair; at 0.3 past the capacity."""
+    det = np.random.default_rng(int(density * 100)).random(5000) < density
+    want = jp.compact_mask(jnp.asarray(det), 512)
+    got = tp.compact_mask(torch.as_tensor(det), 512)
+    assert len(got) == 2
+    for w, g in zip(want, got):
+        w = np.asarray(w)
+        assert g.dtype == torch.int32 and w.dtype == np.int32
+        np.testing.assert_array_equal(w, g.numpy())
+    assert (int(got[1]) > 512) == (density == 0.3)
+
+
+def test_decode_mags_block_r2_equals_airjax():
+    """Frames with 2-bit flips in bits 5-87 (the DF17 gate holds), one
+    with a 1-bit flip and clean ones: airjax's dict, `recovered2` too."""
+    rng = np.random.default_rng(12)
+    offsets = [100 + 700 * i for i in range(8)]
+    frames = []
+    for i in range(len(offsets)):
+        f = synth.make_df17(0x7C1000 + i, synth.make_id_me(f"RTWO{i}"))
+        for b in (rng.choice(np.arange(5, 88), 2, replace=False) if i % 2 else ([] if i != 2 else [40])):
+            f = synth.flip_bit(f, int(b))
+        frames.append(f)
+    iq = synth.modulate(frames, offsets, 6000, seed=12)
+    n_off = 6000 - 240
+    want = jax.device_get(jp.decode_mags_block_r2(jp.magnitude_u16(jnp.asarray(iq)), n_off, 32))
+    got = tp.to_host(tp.decode_mags_block_r2(magnitude_u16(torch.as_tensor(iq)), n_off, 32))
+    assert_same_dict(want, got)
+    assert int(got["recovered2"].sum()) >= 3 and int(got["n_good"]) == 8
+    assert_same_dict(tp.to_host(tp.decode_iq_block_r2(torch.as_tensor(iq), n_off, 32)), got)
 
 
 @pytest.mark.parametrize("amplitude", [2, 300])

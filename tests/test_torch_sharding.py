@@ -541,3 +541,17 @@ def test_shard_gather_checks_its_inputs():
     shards[1] = {key: (v[:4] if v.dim() else v) for key, v in shards[1].items()}
     with pytest.raises(ValueError, match="capacities differ"):
         sg.shard_gather(shards, 300, 100, 8)
+
+
+def test_init_distributed_alone_is_a_no_op(monkeypatch):
+    """airjax's init_distributed is a no-op in a process alone; so is the
+    port's: with no MASTER_ADDR it joins no group and returns None."""
+    import torch.distributed as dist
+
+    from airjax_torch.parallel import mesh as tmesh
+
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    assert tmesh.init_distributed() is None
+    assert not dist.is_initialized()
+    assert tmesh.init_distributed() is None and not dist.is_initialized()

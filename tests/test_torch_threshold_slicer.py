@@ -63,3 +63,11 @@ def test_per_offset_highs_at_the_derate_edges():
     got = threshold_slice_bits(torch.as_tensor(mags.astype(np.int32)), torch.as_tensor(offsets), torch.as_tensor(highs))
     for a, b in zip(want, got):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+def test_windows_outside_the_block_start_where_airjax_starts_them():
+    """Offsets past L - 240 and below -16: airjax's dynamic_slice counts a
+    negative start from the end, then clamps it into the block."""
+    mags = np.random.default_rng(10).permutation(1000)
+    offsets = np.array([-1, -16, -17, -40, -500, -1016, -1017, -3000, 761, 990, 5000])
+    _both(mags, offsets, 500, 0.9)

@@ -1,8 +1,13 @@
 """The port's tiers of the root tools on the CPU (airjax_torch/tools/): the
 two parity fuzzers, the soak in its modes (the live one through the fake
 SoapySDR) and the multi-device dry run, each for a few iterations or
-seconds, exit 0; each fuzzer exits 1 when a tier's decode is made wrong."""
+seconds, exit 0; each fuzzer exits 1 when a tier's decode is made wrong.
+The SNR sweep's curves equal airjax's tools/snr_sweep.py's, point for
+point, in its three modes with the golden check; it exits 1 when the
+decode loses a frame the golden decoder finds."""
 
+import importlib.util
+import json
 import pathlib
 import subprocess
 import sys
@@ -12,7 +17,7 @@ import pytest
 from airjax_torch import native, pipeline
 from airjax_torch.io import synth
 from airjax_torch.io.c16 import save_c16
-from airjax_torch.tools import dryrun_multichip, fuzz_extended, fuzz_parity, soak
+from airjax_torch.tools import dryrun_multichip, fuzz_extended, fuzz_parity, snr_sweep, soak
 
 CPU = ["--torch-device", "cpu"]
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -90,9 +95,49 @@ def test_dryrun_multichip_on_cpu_shards(n, capsys):
     assert capsys.readouterr().out.startswith(f"dryrun_multichip ok: {n} shards")
 
 
+def _airjax_snr_sweep():
+    """airjax's tools/snr_sweep.py, loaded from its path (tools/ is no
+    package)."""
+    spec = importlib.util.spec_from_file_location("airjax_snr_sweep", REPO / "tools" / "snr_sweep.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+SWEEP_SIZE = {"snrs_db": (4.0, 8.0, 14.0), "captures_per_snr": 2, "check_golden": True}
+
+
+@pytest.mark.parametrize("mode", ["df17", "recover2", "extended"])
+def test_snr_sweep_equals_airjax(mode):
+    theirs = _airjax_snr_sweep()
+    if mode == "extended":
+        want = theirs.sweep_extended(**SWEEP_SIZE)
+        got = snr_sweep.sweep_extended(**SWEEP_SIZE, device="cpu")
+    else:
+        kw = {"frames_per_capture": 4, "recover2": mode == "recover2", **SWEEP_SIZE}
+        want, got = theirs.sweep(**kw), snr_sweep.sweep(**kw, device="cpu")
+    assert got == want
+    assert got["curve"][-1] != got["curve"][0]  # the sizes reach both ends of the curve
+
+
+def test_snr_sweep_exits_1_when_the_decode_loses_a_frame(monkeypatch, capsys):
+    real = snr_sweep.decode_capture_parity
+
+    def dropped(*a, **kw):
+        hits, stats = real(*a, **kw)
+        return hits[1:], stats
+
+    assert snr_sweep.main(["--captures", "1", "--golden", *CPU]) == 0
+    assert json.loads(capsys.readouterr().out)["curve"][-1]["golden_decode_rate"] == 1.0
+    monkeypatch.setattr(snr_sweep, "decode_capture_parity", dropped)
+    assert snr_sweep.main(["--captures", "1", "--golden", *CPU]) == 1
+    assert "diverged from the golden decoder" in capsys.readouterr().err
+
+
 def test_tools_run_as_scripts():
     """Each tool runs from a checkout by its path, as the README gives it."""
-    for argv in (["fuzz_parity.py", "--iters", "2"], ["dryrun_multichip.py", "2"]):
+    for argv in (["fuzz_parity.py", "--iters", "2"], ["dryrun_multichip.py", "2"],
+                 ["snr_sweep.py", "--captures", "1", "--extended"]):
         proc = subprocess.run([sys.executable, f"airjax_torch/tools/{argv[0]}", *argv[1:], *CPU],
                               capture_output=True, text=True, timeout=300, cwd=REPO)
         assert proc.returncode == 0, proc.stderr
