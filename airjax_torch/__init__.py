@@ -9,9 +9,10 @@ and returns the same output, bit for bit, on the same int16 IQ:
   airjax.dsp.magnitude              -> airjax_torch.dsp.magnitude
   airjax.dsp.demod                  -> airjax_torch.dsp.demod
   airjax.kernels.magdet (Pallas)    -> airjax_torch.kernels.magdet + csrc/front.cu
-                                       (decode paths), csrc/magdet.cu (oracle)
+                                       (decode paths), csrc/planes.cu (planes),
+                                       csrc/magdet.cu (oracle, planes baseline)
   (XLA-fused compact_detections)    -> airjax_torch.kernels.compact + csrc/compact.cu
-  airjax.kernels.stencil3 (Pallas)  -> airjax_torch.kernels.stencil3 + csrc/magdet.cu
+  airjax.kernels.stencil3 (Pallas)  -> airjax_torch.kernels.stencil3 + csrc/planes.cu
   airjax.protocol.crc               -> airjax_torch.protocol.crc
   (XLA-fused slice + CRC)           -> airjax_torch.kernels.candidate + csrc/candidate.cu
   airjax.protocol.shortframe        -> airjax_torch.protocol.shortframe (CRC, makers)

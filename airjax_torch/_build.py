@@ -46,6 +46,7 @@ _SIGNATURES = {
     "airjax_chunked_count": (ctypes.c_int, [_P, _I64, _I64, _I64, _P, _P]),
     "airjax_compact": (ctypes.c_int, [_P, _P, _I64, _I64, _P, _P, _P, _P, _P, _P]),
     "airjax_magdet_stencil": (ctypes.c_int, [_P, _I64, _I64, _P, _P, ctypes.c_int, _P]),
+    "airjax_planes": (ctypes.c_int, [_P, _I64, _I64, _P, _P, ctypes.c_int, ctypes.c_int, _P]),
     "airjax_candidates": (ctypes.c_int, [_P, _I64, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]),
     "airjax_load_syndromes": (ctypes.c_int, [_P]),
     "airjax_block_decode": (

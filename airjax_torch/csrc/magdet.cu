@@ -1,12 +1,16 @@
-// Front kernel: int16 IQ -> exact magnitude -> preamble gate per offset +
-// PPM pair compares, in one pass. Magnitudes live only in shared memory;
-// they never reach device memory.
+// The first front kernel: int16 IQ -> exact magnitude -> preamble gate per
+// offset + PPM pair compares, in one pass. Magnitudes live only in shared
+// memory; they never reach device memory.
 //
-// Replaces airjax/kernels/magdet.py::_magdet_packed_kernel (magdet_packed,
-// :200-277) in mode PACKED and ::_magdet_kernel (magdet_fused, :97-165) in
-// mode planes. Its plain torch version is airjax_torch/kernels/magdet.py::
-// magdet_plain (magnitude_u16 -> detect or detect_preamble_only,
-// pack_cmp_words).
+// The first port of airjax/kernels/magdet.py::_magdet_packed_kernel
+// (magdet_packed, :200-277) in mode PACKED and ::_magdet_kernel
+// (magdet_fused, :97-165) in mode planes. Its plain torch version is
+// airjax_torch/kernels/magdet.py::magdet_plain (magnitude_u16 -> detect or
+// detect_preamble_only, pack_cmp_words). Mode PACKED is
+// kernels/magdet.py::magdet(packed=True); mode planes, and the stencil
+// variants below, are reached only through kernels/magdet.py::
+// magdet_planes_baseline: csrc/planes.cu redesigned both for Hopper, and
+// these forms are its A/B baseline and second oracle.
 //
 //   mag[i]  = isqrt(re^2 + im^2)                   exact, uint32
 //   det[i]  = min(highs) >= max(lows): the preamble taps (+0..+15), and
@@ -34,11 +38,12 @@
 // output that is written (a written det needs i+25 < L, a compare i+1 < L).
 //
 // magdet_stencil_kernel holds the other formulations of the DF17 stencil,
-// in the planes contract, for a same-run A/B against the flat int32 one.
-// It replaces airjax/kernels/stencil3.py::magdet_tree (:203-250; bodies
-// _tree_kernel_i32 :148, _tree_kernel_i16 :157, _flat_kernel_i16 :169,
-// tree _tree_det_cmp :105); its plain version is airjax_torch/kernels/
-// stencil3.py::magdet_tree_plain. On the TPU every shift cost a lane
+// in the planes contract: the first port of airjax/kernels/stencil3.py::
+// magdet_tree (:203-250; bodies _tree_kernel_i32 :148, _tree_kernel_i16
+// :157, _flat_kernel_i16 :169, tree _tree_det_cmp :105), whose
+// kernels/stencil3.py::magdet_tree now launches csrc/planes.cu's forms;
+// its plain version is airjax_torch/kernels/stencil3.py::
+// magdet_tree_plain. On the TPU every shift cost a lane
 // rotation; here a shift is a shared-memory index, so what the variants
 // trade is shared-memory traffic and min/max count per offset:
 //   flat32: 26 taps, 22 min/max per offset            (magdet_kernel)
@@ -53,8 +58,8 @@
 //
 // The decode paths run csrc/front.cu's magdet_bits_kernel, which emits the
 // gate as bits with a count per tile (and, in its count mode, the fused
-// parity decode's detection count); magdet_kernel stays as its oracle and
-// the A/B baseline of both.
+// parity decode's detection count); magdet_kernel's mode PACKED stays as
+// its oracle and the A/B baseline of both.
 //
 // The exact magnitude is mag_from_word (magnitude.cuh).
 

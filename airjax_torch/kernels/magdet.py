@@ -1,17 +1,27 @@
-"""Front kernel wrapper: int16 IQ -> detection mask + PPM compares.
+"""Front kernel wrappers: int16 IQ -> detection mask + PPM compares.
 
 The port of airjax/kernels/magdet.py (Pallas): `magdet_packed` (:229-277,
-the pallas_call at :250) becomes mode packed, `magdet_fused` (:118-165,
-the pallas_call at :138) mode planes, of one CUDA kernel,
-csrc/magdet.cu. Mode packed emits pack_cmp_words' dense word layout, not
-the TPU's sparse byte plane. The TPU's TILE/EXTRA geometry and
-`pad_for_kernel` are not ported: the kernel masks the ragged edge itself.
-`gate` picks the detector: "df17" (the reference's preamble + DF17 taps,
-the main path) or "preamble" (the preamble alone, for the extended decode
-of every downlink format).
+the pallas_call at :250) becomes mode packed of `magdet`, csrc/magdet.cu,
+and `magdet_fused` (:118-165, the pallas_call at :138) mode planes,
+csrc/planes.cu (Form::kFront). Mode packed emits pack_cmp_words' dense
+word layout, not the TPU's sparse byte plane. The TPU's TILE/EXTRA
+geometry and `pad_for_kernel` are not ported: the kernels mask the ragged
+edge themselves. `gate` picks the detector: "df17" (the reference's
+preamble + DF17 taps, the main path) or "preamble" (the preamble alone,
+for the extended decode of every downlink format).
 
-`magdet` launches the kernel for a CUDA tensor and runs `magdet_plain`
-for a CPU tensor. `launches` counts kernel launches.
+`magdet` launches a kernel for a CUDA tensor and runs `magdet_plain` for
+a CPU tensor. `launches` counts the launches of csrc/magdet.cu (mode
+packed), `planes_launches` those of csrc/planes.cu (mode planes).
+
+csrc/planes.cu is mode planes redesigned for Hopper on csrc/front.cu's
+design (a thread 32 offsets, a register window, paired int16 SIMD,
+16-byte stores);
+it also carries the stencil variants of kernels/stencil3.py as its other
+forms (FORMS). `magdet_planes_baseline` runs the first forms of both,
+csrc/magdet.cu's mode planes and its stencil kernel: the A/B baseline and
+second oracle of csrc/planes.cu, which no decode path or public function
+calls. `baseline_launches` counts its launches.
 
 `magdet_bits` is the front of the decode paths, the same function
 redesigned for Hopper (csrc/front.cu): the gate as bits, 32 offsets per
@@ -47,9 +57,12 @@ from airjax_torch.dsp.demod import (
 from airjax_torch.dsp.magnitude import magnitude_u16
 
 launches = 0
+planes_launches = 0
+baseline_launches = 0
 bits_launches = 0
 count_launches = 0
 GATES = {"df17": 0, "preamble": 1}  # the kernel's Gate values
+FORMS = {"front": 0, "tree32": 1, "tree16": 2, "flat16": 3}  # csrc/planes.cu's Form values
 TILE = 8192  # offsets per tile count; csrc/front.cu and csrc/compact.cu kTile
 
 
@@ -159,6 +172,33 @@ def magdet(
     return magdet_plain(iq, n_off, packed, gate)
 
 
+def magdet_planes_baseline(
+    iq: torch.Tensor, n_off: int, form: str = "front", gate: str = "df17"
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The planes contract of `magdet(packed=False)` through the first
+    Hopper forms: csrc/magdet.cu mode planes (form "front", both gates) or
+    its stencil kernel (tree32, tree16, flat16; the DF17 gate). The A/B
+    baseline and second oracle of csrc/planes.cu; plain versions
+    `magdet_plain(packed=False)` and stencil3.magdet_tree_plain."""
+    check_iq(iq, n_off)
+    check_gate(gate)
+    check_form(form, gate)
+    if use_kernel(iq):
+        return _baseline_cuda(iq, n_off, form, gate)
+    if form == "front":
+        return magdet_plain(iq, n_off, False, gate)
+    from airjax_torch.kernels.stencil3 import magdet_tree_plain
+
+    return magdet_tree_plain(iq, n_off, form)
+
+
+def check_form(form: str, gate: str) -> None:
+    if form not in FORMS:
+        raise ValueError(f"form: expected one of {sorted(FORMS)}, got {form!r}")
+    if form != "front" and gate != "df17":
+        raise ValueError(f"form {form!r} runs the DF17 gate alone, not {gate!r}")
+
+
 def check_gate(gate: str) -> None:
     if gate not in GATES:
         raise ValueError(f"gate: expected one of {sorted(GATES)}, got {gate!r}")
@@ -179,24 +219,63 @@ def check_iq(iq: torch.Tensor, n_off: int) -> None:
 def _magdet_cuda(
     iq: torch.Tensor, n_off: int, packed: bool, gate: str
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    global launches
+    global launches, planes_launches
+    if not packed:
+        planes = _planes_cuda(iq, n_off, "front", gate)
+        planes_launches += 1
+        return planes
     from airjax_torch._build import library
 
     lib = library()
     n_samples = iq.shape[0]
     det = torch.empty(n_off, dtype=torch.uint8, device=iq.device)
-    if packed:
-        out = torch.empty(n_words(n_samples), dtype=torch.int32, device=iq.device)
-    else:
-        out = torch.empty(n_samples - 1, dtype=torch.uint8, device=iq.device)
+    out = torch.empty(n_words(n_samples), dtype=torch.int32, device=iq.device)
     with torch.cuda.device(iq.device):
         rc = lib.airjax_magdet(
             iq.data_ptr(), n_samples, n_off, det.data_ptr(), out.data_ptr(),
-            out.numel(), int(packed), GATES[gate], torch.cuda.current_stream().cuda_stream,
+            out.numel(), 1, GATES[gate], torch.cuda.current_stream().cuda_stream,
         )
     check_launch(rc, "magdet kernel")
     launches += 1
     return det, out
+
+
+def _planes_cuda(iq: torch.Tensor, n_off: int, form: str, gate: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of csrc/planes.cu in `form`; the callers count it."""
+    from airjax_torch._build import library
+
+    lib = library()
+    n_samples = iq.shape[0]
+    det = torch.empty(n_off, dtype=torch.uint8, device=iq.device)
+    cmp = torch.empty(n_samples - 1, dtype=torch.uint8, device=iq.device)
+    with torch.cuda.device(iq.device):
+        rc = lib.airjax_planes(
+            iq.data_ptr(), n_samples, n_off, det.data_ptr(), cmp.data_ptr(), FORMS[form], GATES[gate],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    check_launch(rc, f"planes kernel ({form}, {gate})")
+    return det, cmp
+
+
+def _baseline_cuda(iq: torch.Tensor, n_off: int, form: str, gate: str) -> tuple[torch.Tensor, torch.Tensor]:
+    global baseline_launches
+    from airjax_torch._build import library
+
+    lib = library()
+    n_samples = iq.shape[0]
+    det = torch.empty(n_off, dtype=torch.uint8, device=iq.device)
+    cmp = torch.empty(n_samples - 1, dtype=torch.uint8, device=iq.device)
+    with torch.cuda.device(iq.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if form == "front":
+            rc = lib.airjax_magdet(iq.data_ptr(), n_samples, n_off, det.data_ptr(), cmp.data_ptr(), cmp.numel(), 0,
+                                   GATES[gate], stream)
+        else:
+            rc = lib.airjax_magdet_stencil(iq.data_ptr(), n_samples, n_off, det.data_ptr(), cmp.data_ptr(),
+                                           FORMS[form], stream)
+    check_launch(rc, f"planes baseline ({form}, {gate})")
+    baseline_launches += 1
+    return det, cmp
 
 
 def _bits_cuda(

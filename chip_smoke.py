@@ -10,13 +10,18 @@ Phases; any failure raises and the exit code is nonzero:
      build/airjax_torch/ (timed);
   3. kernel against plain on the card, bit for bit: the bit-emitting
      front (csrc/front.cu, both gates) against its plain version and
-     against the old front's mask packed; the old front in both modes with
-     both gates (DF17, preamble only); the three stencil variants (tree32,
-     tree16, flat16) against their plain versions and against the flat
-     front; all on int16 extremes, small-range noise (ties and detections
-     at every tile edge), the ragged lengths 20239 / 65536+777 / 2^22+13,
-     the block of phase 4, and three of these from a base 4 bytes past a
-     16-byte boundary; the compaction kernel against its plain version on
+     against the old front's mask packed; the old front (csrc/magdet.cu)
+     in mode packed with both gates (DF17, preamble only); the planes
+     kernel (csrc/planes.cu: its front form with both gates, its tree32,
+     tree16 and flat16 forms) against its plain versions, against the
+     first forms it replaced (csrc/magdet.cu mode planes and stencil
+     kernel, kernels/magdet.py::magdet_planes_baseline) and, for the
+     stencil forms, against its front form, one planes launch a call and
+     none of the first forms; the first forms against their plain
+     versions; all on int16 extremes, small-range noise (ties and
+     detections at every tile edge), the ragged lengths 20239 /
+     65536+777 / 2^22+13, the block of phase 4, and three of these from a
+     base 4 bytes past a 16-byte boundary; the compaction kernel against its plain version on
      both blocks' bits, an empty mask, a dense random mask with K below the
      total and with K = n_off, and a ragged n_off; the candidate kernel in
      both modes (DF17 frames, and every downlink format, with 1-bit flips
@@ -42,10 +47,13 @@ Phases; any failure raises and the exit code is nonzero:
   5. two A/Bs in turns, in one run: the block pass through the staged
      chain (front, compaction and candidate kernels, dict ops) against the
      front and the block-decode kernel, for the DF17 and the extended
-     block (pass time, device busy time, idle share); and the
-     front-stencil A/B (airjax's tools/bench_stencil3.py, the path the
-     stencil variants serve): tree32, tree16 and flat16 against the flat
-     front in mode planes on the 2^24-sample block;
+     block (pass time, device busy time, idle share); and the planes A/B
+     (airjax's tools/bench_stencil3.py, the path the planes forms serve)
+     on the 2^24-sample block: each form of csrc/planes.cu (front with
+     both gates, tree32, tree16, flat16), each first form it replaced
+     (csrc/magdet.cu) and magdet_bits (the same gate, bits out), in two
+     turns of CUDA events and two of profiler device time, with GB/s
+     against the planes' 30.05 µs bound;
   6. a 20 M-sample (10 s at 2 MS/s) capture with ~600 frames, some
      straddling the 20,000-sample chunk edges and some corrupted, replayed
      through the CLI (`adsb --playback FILE --fast`): overlap mode emits
@@ -195,7 +203,15 @@ CAPACITY = 2048
 CHUNK = 20000
 STREAM_SAMPLES = 20_000_000  # 10 s at 2 MS/s
 EXT_STREAM_SAMPLES = 4_000_000  # 2 s at 2 MS/s
-VARIANTS = ("tree32", "tree16", "flat16")
+# csrc/planes.cu's rows: (form, gate), and the row of the first form each
+# replaced (csrc/magdet.cu: mode planes, the stencil kernel), its A/B
+# baseline and second oracle.
+PLANES = {"planes_front": ("front", "df17"), "planes_front_preamble": ("front", "preamble"),
+          "planes_tree32": ("tree32", "df17"), "planes_tree16": ("tree16", "df17"),
+          "planes_flat16": ("flat16", "df17")}
+BASELINES = {"planes_front": "magdet_front_planes", "planes_front_preamble": "magdet_front_planes_preamble",
+             "planes_tree32": "magdet_tree_tree32", "planes_tree16": "magdet_tree_tree16",
+             "planes_flat16": "magdet_tree_flat16"}
 
 
 def check(cond: bool, what: str) -> None:
@@ -406,49 +422,96 @@ def library_call():
     return "torch.nonzero", lambda det, k, n_off: torch.nonzero(det)
 
 
-def check_fronts(cases: list[torch.Tensor]) -> tuple[dict, dict, dict, dict]:
-    """The old front (both modes, both gates), the bit-emitting front (both
+def planes_fn(form: str, gate: str):
+    """The public call that launches csrc/planes.cu in `form`:
+    magdet(packed=False) or magdet_tree."""
+    from airjax_torch.kernels.magdet import magdet
+    from airjax_torch.kernels.stencil3 import magdet_tree
+
+    if form == "front":
+        return lambda iq, n_off: magdet(iq, n_off, packed=False, gate=gate)
+    return lambda iq, n_off: magdet_tree(iq, n_off, form)
+
+
+def planes_plain(form: str, gate: str):
+    from airjax_torch.kernels.magdet import magdet_plain
+    from airjax_torch.kernels.stencil3 import magdet_tree_plain
+
+    if form == "front":
+        return lambda iq, n_off: magdet_plain(iq, n_off, packed=False, gate=gate)
+    return lambda iq, n_off: magdet_tree_plain(iq, n_off, form)
+
+
+def planes_counts() -> tuple[int, int]:
+    """(launches of csrc/planes.cu, launches of the first forms)."""
+    from airjax_torch.kernels import magdet as magdet_mod
+    from airjax_torch.kernels import stencil3
+
+    return magdet_mod.planes_launches + stencil3.launches, magdet_mod.baseline_launches
+
+
+def check_fronts(cases: list[torch.Tensor]) -> tuple[dict, dict, dict, dict, dict]:
+    """The old front (mode packed, both gates), the bit-emitting front (both
     gates; against its plain version and against the old front's mask
-    packed) and the stencil variants, on every case -> max abs errors, and
-    the old front's launches by gate."""
+    packed), the planes kernel (csrc/planes.cu, every form and both gates
+    of the front form; against its plain version, the first forms and,
+    for the stencil forms, its front form) and the first forms against
+    their plain versions, on every case -> max abs errors, and the old
+    front's launches by gate. Each planes call launches csrc/planes.cu
+    once and no first form; each baseline call the reverse."""
     from airjax_torch.dsp.demod import pack_msb_words
     from airjax_torch.kernels import magdet as magdet_mod
     from airjax_torch.kernels.magdet import (
-        GATES, magdet, magdet_bits, magdet_bits_plain, magdet_plain, n_det_words, tile_counts)
-    from airjax_torch.kernels.stencil3 import magdet_tree, magdet_tree_plain
+        GATES, magdet, magdet_bits, magdet_bits_plain, magdet_plain, magdet_planes_baseline, n_det_words,
+        tile_counts)
 
     front_err = dict.fromkeys(GATES, 0)
     bits_err = dict.fromkeys(GATES, 0)
-    tree_err = dict.fromkeys(VARIANTS, 0)
+    planes_err = dict.fromkeys(PLANES, 0)
+    baseline_err = dict.fromkeys(PLANES, 0)
     front_launches = dict.fromkeys(GATES, 0)
     for iq in cases:
         n_off = iq.shape[0] - 240
         for gate in GATES:
             before = magdet_mod.launches
-            for packed in (True, False):
-                got = magdet(iq, n_off, packed=packed, gate=gate)
-                want = magdet_plain(iq, n_off, packed=packed, gate=gate)
-                front_err[gate] = max(front_err[gate], max_abs_err(zip(got, want)))
-            det_old, words_old = magdet(iq, n_off, gate=gate)
+            got = magdet(iq, n_off, gate=gate)
+            front_err[gate] = max(front_err[gate], max_abs_err(zip(got, magdet_plain(iq, n_off, gate=gate))))
+            det_old, words_old = got
             old = (pack_msb_words(det_old, n_det_words(n_off)), words_old, tile_counts(det_old))
             got = magdet_bits(iq, n_off, gate)
             err = max(max_abs_err(zip(got, magdet_bits_plain(iq, n_off, gate))), max_abs_err(zip(got, old)))
             bits_err[gate] = max(bits_err[gate], err)
             front_launches[gate] += magdet_mod.launches - before
-        flat = magdet(iq, n_off, packed=False)
-        for v in VARIANTS:
-            got = magdet_tree(iq, n_off, v)
-            err = max(max_abs_err(zip(got, magdet_tree_plain(iq, n_off, v))), max_abs_err(zip(got, flat)))
-            tree_err[v] = max(tree_err[v], err)
+        front = None
+        for name, (form, gate) in PLANES.items():
+            c0 = planes_counts()
+            got = planes_fn(form, gate)(iq, n_off)
+            c1 = planes_counts()
+            base = magdet_planes_baseline(iq, n_off, form, gate)
+            c2 = planes_counts()
+            check((c1[0] - c0[0], c1[1] - c0[1], c2[0] - c1[0], c2[1] - c1[1]) == (1, 0, 0, 1),
+                  f"{name}: a planes call launched {c1[0] - c0[0]} planes and {c1[1] - c0[1]} baseline kernels, "
+                  f"a baseline call {c2[0] - c1[0]} and {c2[1] - c1[1]}")
+            want = planes_plain(form, gate)(iq, n_off)
+            err = max(max_abs_err(zip(got, want)), max_abs_err(zip(got, base)))
+            if name == "planes_front":
+                front = got
+            elif form != "front":
+                err = max(err, max_abs_err(zip(got, front)))
+            planes_err[name] = max(planes_err[name], err)
+            baseline_err[name] = max(baseline_err[name], max_abs_err(zip(base, want)))
     torch.cuda.synchronize()
     check(not any(front_err.values()), f"front kernel disagrees with plain (max abs err {front_err})")
     check(not any(bits_err.values()), f"bit-emitting front disagrees (max abs err {bits_err})")
-    check(not any(tree_err.values()), f"a stencil variant disagrees (max abs err {tree_err})")
+    check(not any(planes_err.values()), f"the planes kernel disagrees (max abs err {planes_err})")
+    check(not any(baseline_err.values()), f"a first planes form disagrees with plain (max abs err {baseline_err})")
     misaligned = sum(1 for iq in cases if iq.data_ptr() % 16)
-    print(f"front kernel == plain on {len(cases)} inputs ({misaligned} at a 4-byte but not 16-byte aligned base), "
-          f"both modes, both gates; the bit-emitting front == its plain version == the front's mask packed, "
-          f"both gates; tree32, tree16, flat16 == plain == flat front on the same inputs")
-    return front_err, bits_err, tree_err, front_launches
+    print(f"front kernel (mode packed) == plain on {len(cases)} inputs ({misaligned} at a 4-byte but not 16-byte "
+          f"aligned base), both gates; the bit-emitting front == its plain version == the front's mask packed, "
+          f"both gates; the planes kernel (csrc/planes.cu: front both gates, tree32, tree16, flat16) == plain == "
+          f"the first forms (csrc/magdet.cu) on the same inputs, the stencil forms == its front form, one planes "
+          f"launch a call and none of the first forms; the first forms == plain")
+    return front_err, bits_err, planes_err, baseline_err, front_launches
 
 
 def compaction_inputs(blocks: list[tuple[torch.Tensor, int, int, str]], rng) -> list[tuple]:
@@ -677,7 +740,8 @@ def phase_kernels(
     block_dev: torch.Tensor, ext_block_dev: torch.Tensor, capacity_ext: int, r2_block_dev: torch.Tensor
 ) -> tuple[list[dict], dict[str, int], dict[str, int]]:
     """Phase 3 -> the kernel table's entries of the decode paths, the
-    stencil variants' max abs errors, and the old front's launches by gate."""
+    planes kernel's and its first forms' max abs errors (PLANES' keys),
+    and the old front's launches by gate."""
     from airjax_torch.dsp.demod import n_words, unpack_msb_words
     from airjax_torch.io import synth
     from airjax_torch.kernels.candidate import (
@@ -706,7 +770,7 @@ def phase_kernels(
     cases.append(torch.as_tensor(rng.integers(-2, 3, size=((1 << 20) + 99, 2), dtype=np.int16)).to(dev))
     cases.append(block_dev)
     cases += [cases[1][1:], cases[3][1:], block_dev[1:]]
-    front_err, bits_err, tree_err, front_launches = check_fronts(cases)
+    front_err, bits_err, planes_err, baseline_err, front_launches = check_fronts(cases)
     n_off = BLOCK - 240
     block_inputs = compaction_inputs(
         [(block_dev, n_off, CAPACITY, "df17"), (ext_block_dev, n_off, capacity_ext, "preamble")], rng)
@@ -838,9 +902,6 @@ def phase_kernels(
                                   compact_work(n_off, capacity_ext)),
         "magdet_front": (lambda: magdet(block_dev, n_off), lambda: magdet_plain(block_dev, n_off), None,
                          ("magdet_kernel",), front_work(L, n_off, "df17", old_packed)),
-        "magdet_front_planes": (lambda: magdet(block_dev, n_off, packed=False),
-                                lambda: magdet_plain(block_dev, n_off, packed=False), None, ("magdet_kernel",),
-                                front_work(L, n_off, "df17", n_off + L - 1)),
         "magdet_front_preamble": (lambda: magdet(ext_block_dev, n_off, gate="preamble"),
                                   lambda: magdet_plain(ext_block_dev, n_off, gate="preamble"), None,
                                   ("magdet_kernel",), front_work(L, n_off, "preamble", old_packed)),
@@ -948,7 +1009,7 @@ def phase_kernels(
         entry("fields_extended", "airjax_torch/csrc/fields.cu", "airjax/protocol/shortframe.py:337",
               fields_err["extended"]),
     ]
-    return entries, tree_err, front_launches, chain_fields_launches
+    return entries, (planes_err, baseline_err), front_launches, chain_fields_launches
 
 
 def r2_work(n_off: int, k: int, extended: bool, out: dict) -> tuple[int, int]:
@@ -1158,49 +1219,91 @@ def phase_block_ab(block_dev: torch.Tensor, ext_block_dev: torch.Tensor,
     return launches
 
 
-def phase_stencil_ab(block_dev: torch.Tensor) -> dict[str, tuple[float, float, int]]:
-    """The front-stencil A/B on the 2^24-sample block, in turns (flat,
-    tree32, tree16, flat16, then the reverse), each a median of CUDA-event
-    passes; the variants' plain versions after. Returns per variant
-    (kernel ms, plain ms, launches in the A/B, device µs)."""
+def phase_planes_ab(block_dev: torch.Tensor) -> dict[str, dict]:
+    """The planes A/B on the 2^24-sample block (airjax's
+    tools/bench_stencil3.py, the path the planes forms serve), in turns:
+    each form of csrc/planes.cu (PLANES), each first form it replaced
+    (csrc/magdet.cu, BASELINES) and magdet_bits (csrc/front.cu: the same
+    gate, bits out, the yardstick of what the planes' bytes cost). Two
+    turns of CUDA-event medians (the list, then the list reversed), then
+    two turns of profiler device time; the plain versions once. Every
+    count is set to 0 just before the A/B. Returns per row: events ms and
+    device µs (means of the turns), plain ms, launches in the A/B."""
+    from airjax_torch.kernels import magdet as magdet_mod
     from airjax_torch.kernels import stencil3
-    from airjax_torch.kernels.magdet import magdet
 
     n_off = BLOCK - 240
-    order = ("flat",) + VARIANTS
-    runs: dict[str, list[float]] = {name: [] for name in order}
-    stencil3.launches = 0
-    launches = dict.fromkeys(VARIANTS, 0)
+    L = block_dev.shape[0]
+    planes_bytes = front_work(L, n_off, "df17", n_off + L - 1)[0]
+    # name: (call, kernel name for device_us, the wrapper's count, bytes moved)
+    runs = {}
+    for name, (form, gate) in PLANES.items():
+        runs[name] = (lambda f=planes_fn(form, gate): f(block_dev, n_off), "planes_kernel",
+                      lambda form=form: magdet_mod.planes_launches if form == "front" else stencil3.launches,
+                      planes_bytes)
+        runs[BASELINES[name]] = (
+            lambda form=form, gate=gate: magdet_mod.magdet_planes_baseline(block_dev, n_off, form, gate),
+            "magdet_kernel" if form == "front" else "magdet_stencil_kernel",
+            lambda: magdet_mod.baseline_launches, planes_bytes)
+    runs["magdet_bits"] = (lambda: magdet_mod.magdet_bits(block_dev, n_off), "magdet_bits_kernel",
+                           lambda: magdet_mod.bits_launches, front_work(L, n_off, "df17", bits_bytes(L, n_off))[0])
+    order = list(runs)
+    ms: dict[str, list[float]] = {name: [] for name in order}
+    device: dict[str, list[float]] = {name: [] for name in order}
+    launches = dict.fromkeys(order, 0)
+    magdet_mod.planes_launches = stencil3.launches = magdet_mod.baseline_launches = magdet_mod.bits_launches = 0
     for name in order + order[::-1]:
-        before = stencil3.launches
-        if name == "flat":
-            runs[name].append(cuda_ms(lambda: magdet(block_dev, n_off, packed=False)))
-        else:
-            runs[name].append(cuda_ms(lambda: stencil3.magdet_tree(block_dev, n_off, name)))
-            launches[name] += stencil3.launches - before
-    ms = {name: statistics.mean(v) for name, v in runs.items()}
-    plain = {v: cuda_ms(lambda: stencil3.magdet_tree_plain(block_dev, n_off, v)) for v in VARIANTS}
-    print("stencil A/B (2^24 samples, mode planes, two turns each): "
-          + ", ".join(f"{name} {ms[name]:.4f} ms ({' / '.join(f'{t:.4f}' for t in runs[name])})" for name in order))
-    print("stencil variants, plain: " + ", ".join(f"{v} {plain[v]:.4f} ms" for v in VARIANTS))
-    # Device time alone (no host launch cost), one kernel per call.
-    device = {}
-    for name in order:
-        fn = (lambda: magdet(block_dev, n_off, packed=False)) if name == "flat" else (
-            lambda: stencil3.magdet_tree(block_dev, n_off, name))
-        before = stencil3.launches
-        for _ in range(PROFILE_TRIES):  # a window that recorded no device activity is profiled again
-            per_kernel, _, _, _ = device_profile(fn, "magdet")
-            if per_kernel:
-                break
-            print(f"stencil A/B, {name}: the profiler recorded no device activity; again")
-        if name != "flat":
-            launches[name] += stencil3.launches - before
-        device[name] = max(per_kernel.values(), default=float("nan"))
-    moved = 4 * block_dev.shape[0] + n_off + block_dev.shape[0] - 1  # IQ in, det and cmp out
-    print("stencil A/B, device time (profiler, 10 calls): " + ", ".join(
-        f"{name} {device[name]:.2f} us ({moved / device[name] / 1e3:.1f} GB/s)" for name in order))
-    return {v: (ms[v], plain[v], launches[v], device[v]) for v in VARIANTS}
+        fn, _, count, _ = runs[name]
+        before, kinds = count(), planes_counts()
+        ms[name].append(cuda_ms(fn))
+        n = count() - before
+        launches[name] += n
+        moved = tuple(b - a for a, b in zip(kinds, planes_counts()))
+        want = (0, 0) if name == "magdet_bits" else (n, 0) if name in PLANES else (0, n)
+        check(n > 0 and moved == want, f"planes A/B {name}: {n} launches, {moved} (planes, first forms)")
+    for name in order + order[::-1]:
+        fn, kernel, count, _ = runs[name]
+        before = count()
+        device[name].append(device_us(fn, (kernel,)))
+        launches[name] += count() - before
+    plain = {}
+    for name, (form, gate) in PLANES.items():
+        plain[name] = plain[BASELINES[name]] = cuda_ms(lambda f=planes_plain(form, gate): f(block_dev, n_off))
+    plain["magdet_bits"] = cuda_ms(lambda: magdet_mod.magdet_bits_plain(block_dev, n_off))
+    print("planes A/B (2^24 samples, in turns; CUDA events ms, median of 20 a turn): " + ", ".join(
+        f"{name} {statistics.mean(ms[name]):.4f} ({' / '.join(f'{t:.4f}' for t in ms[name])})" for name in order))
+    print("planes A/B, device time (profiler, 10 calls a turn; GB/s of the bytes moved once; planes bound "
+          f"{bound(planes_bytes, 0)[0] * 1e3:.2f} us): " + ", ".join(
+              f"{name} {statistics.mean(device[name]):.2f} us ({' / '.join(f'{t:.2f}' for t in device[name])}; "
+              f"{runs[name][3] / statistics.mean(device[name]) / 1e3:.1f} GB/s)" for name in order))
+    print("planes A/B, plain versions: " + ", ".join(f"{name} {plain[name]:.4f} ms" for name in PLANES)
+          + f", magdet_bits {plain['magdet_bits']:.4f} ms")
+    return {name: {"ms": statistics.mean(ms[name]), "device_us": statistics.mean(device[name]),
+                   "plain_ms": plain[name], "launches": launches[name]} for name in order}
+
+
+def planes_rows(ab: dict[str, dict], planes_err: dict, baseline_err: dict, n_samples: int,
+                n_off: int) -> list[dict]:
+    """The kernel table's planes rows: csrc/planes.cu's forms, then the
+    first forms (csrc/magdet.cu), each from the phase 5 A/B with its max
+    abs error from phase 3."""
+    replaces = {"front": "airjax/kernels/magdet.py:138", "tree32": "airjax/kernels/stencil3.py:148",
+                "tree16": "airjax/kernels/stencil3.py:157", "flat16": "airjax/kernels/stencil3.py:169"}
+    rows = []
+    for first, source, errs, path in (
+            (False, "airjax_torch/csrc/planes.cu", planes_err,
+             "phase 5 planes A/B: magdet(packed=False) / magdet_tree on the 2^24 block; no decode path"),
+            (True, "airjax_torch/csrc/magdet.cu", baseline_err,
+             "phase 5 planes A/B: magdet_planes_baseline (the first forms) on the 2^24 block; no decode path")):
+        for name, (form, gate) in PLANES.items():
+            row = BASELINES[name] if first else name
+            b_ms, b_by = bound(*front_work(n_samples, n_off, gate, n_off + n_samples - 1))
+            rows.append({"name": row, "route": "cuda", "source": source,
+                         "replaces": "airjax/dsp/demod.py:70" if gate == "preamble" else replaces[form],
+                         "launches": ab[row]["launches"], "path": path, "max_abs_err": errs[name],
+                         "ms": ab[row]["ms"], "plain_ms": ab[row]["plain_ms"], "library_ms": None,
+                         "device_us": ab[row]["device_us"], "bound_ms": b_ms, "bound_by": b_by})
+    return rows
 
 
 def embedded_class(frame: bytes) -> str:
@@ -3183,11 +3286,12 @@ def main() -> int:
           f"every format, extended capacity {capacity}; {len(r2_frames)} DF17 frames, {len(r2_flipped)} with a "
           f"2-bit flip; made in {time.perf_counter() - t0:.2f} s")
 
-    kernels, tree_err, front_launches, chain_fields = phase_kernels(block_dev, ext_block_dev, capacity, r2_block_dev)
+    kernels, (planes_err, baseline_err), front_launches, chain_fields = phase_kernels(
+        block_dev, ext_block_dev, capacity, r2_block_dev)
     phase_block(block_dev, frames, offsets)
     phase_recover2_block(r2_block_dev, r2_frames, r2_offsets, r2_flipped)
     launches = phase_block_ab(block_dev, ext_block_dev, capacity)
-    ab = phase_stencil_ab(block_dev)
+    ab = phase_planes_ab(block_dev)
     df17, stream_capture = phase_stream(dev)
     phase_extended_block(ext_block_dev, capacity, ext_frames, ext_offsets)
     ext = phase_extended_stream(dev)
@@ -3238,14 +3342,8 @@ def main() -> int:
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["path"] = paths[k["name"]]
-    body = {"tree32": 148, "tree16": 157, "flat16": 169}
-    planes = bound(*front_work(block_dev.shape[0], n_off, "df17", n_off + block_dev.shape[0] - 1))
-    for v in VARIANTS:
-        kernels.insert(5 + VARIANTS.index(v), {
-            "name": f"magdet_tree_{v}", "route": "cuda", "source": "airjax_torch/csrc/magdet.cu",
-            "replaces": f"airjax/kernels/stencil3.py:{body[v]}", "launches": ab[v][2], "path": "stencil A/B",
-            "max_abs_err": tree_err[v], "ms": ab[v][0], "plain_ms": ab[v][1], "library_ms": None,
-            "device_us": ab[v][3], "bound_ms": planes[0], "bound_by": planes[1]})
+    at = [k["name"] for k in kernels].index("magdet_front_preamble") + 1
+    kernels[at:at] = planes_rows(ab, planes_err, baseline_err, block_dev.shape[0], n_off)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build included")
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
 // Stand-ins for the CUDA built-ins that csrc/shard_gather.cu (and the
-// header it includes, csrc/fields.cuh) uses, so that
-// its source compiles with a host C++20 compiler and runs on the CPU, on one
+// header it includes, csrc/fields.cuh) and csrc/planes.cu (with
+// csrc/magnitude.cuh) use, so that
+// their sources compile with a host C++20 compiler and run on the CPU, on one
 // host thread: a CUDA thread is a fiber (ucontext) with a stack of its own,
 // the blocks run one after another, __syncthreads is a barrier of the block
 // and the warp shuffles an exchange through a barrier of the warp (every
@@ -8,11 +9,16 @@
 // fiber runs until it waits at a barrier or ends; the scheduler resumes, in
 // turn, each fiber whose barrier has filled. Every barrier a block still
 // waits at with none of its fibers able to go on aborts the process.
-// tests/test_torch_shard_gather_source.py turns the kernel's
-// `<<<grid, kThreads, 0, stream>>>` launch into emulate(grid, kThreads, ...).
+// tests/test_torch_shard_gather_source.py and tests/test_torch_planes_source.py
+// turn the kernel's `<<<grid, kThreads, 0, stream>>>` launch into
+// emulate(grid, kThreads, ...). The SIMD intrinsics follow their PTX
+// definitions (vmin2/vmax2/vset2 on signed halves), __byte_perm CUDA's
+// (prmt on the low 3 bits of each selector nibble);
+// tests/test_torch_planes_source.py holds each to them.
 #pragma once
 #include <stdint.h>
 #include <stdio.h>
+#include <math.h>
 #include <stdlib.h>
 #include <string.h>
 #include <ucontext.h>
@@ -32,6 +38,33 @@
 struct uchar4 {
   unsigned char x, y, z, w;
 };
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
+};
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return uint4{x, y, z, w}; }
+
+// The signed 16-bit halves of a word: op on each, the results' halves
+// put back in place.
+template <class Op>
+unsigned emu_halves(unsigned a, unsigned b, Op op) {
+  unsigned out = 0;
+  for (int h = 0; h < 2; ++h) {
+    const int x = static_cast<int16_t>(a >> (16 * h)), y = static_cast<int16_t>(b >> (16 * h));
+    out |= (static_cast<unsigned>(op(x, y)) & 0xFFFFu) << (16 * h);
+  }
+  return out;
+}
+inline unsigned __vmins2(unsigned a, unsigned b) { return emu_halves(a, b, [](int x, int y) { return x < y ? x : y; }); }
+inline unsigned __vmaxs2(unsigned a, unsigned b) { return emu_halves(a, b, [](int x, int y) { return x > y ? x : y; }); }
+inline unsigned __vcmpges2(unsigned a, unsigned b) { return emu_halves(a, b, [](int x, int y) { return x >= y ? 0xFFFF : 0; }); }
+inline unsigned __vcmpgts2(unsigned a, unsigned b) { return emu_halves(a, b, [](int x, int y) { return x > y ? 0xFFFF : 0; }); }
+// Byte n of the result: byte (s >> 4n) & 7 of the 8 bytes {y, x}, x the low four.
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const unsigned long long xy = static_cast<unsigned long long>(y) << 32 | x;
+  unsigned out = 0;
+  for (int n = 0; n < 4; ++n) out |= static_cast<unsigned>(xy >> (8 * ((s >> (4 * n)) & 7)) & 0xFF) << (8 * n);
+  return out;
+}
 
 struct EmuDim {
   unsigned x = 0, y = 0, z = 0;
@@ -97,6 +130,16 @@ template <class T>
 T __shfl_down_sync(unsigned, T v, int delta) { return emu_shuffle(v, static_cast<int>(threadIdx.x % 32) + delta); }
 template <class T>
 T __ldg(const T* p) { return *p; }
+// A 16-byte load from an address that is not 16-byte aligned faults on the
+// card; here it aborts.
+inline uint4 __ldg(const uint4* p) {
+  if (reinterpret_cast<uintptr_t>(p) % 16) {
+    fprintf(stderr, "__ldg: a 16-byte load from the misaligned address %p\n", static_cast<const void*>(p));
+    abort();
+  }
+  return *p;
+}
+using std::max;
 using std::min;
 
 inline void emu_entry() {

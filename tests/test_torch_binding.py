@@ -50,11 +50,21 @@ def _iq(n=3000):
 @pytest.mark.parametrize("gate", ["df17", "preamble"])
 @pytest.mark.parametrize("packed", [True, False])
 def test_front_call(lib, gate, packed):
+    """Mode packed: csrc/magdet.cu, counted in `launches`; mode planes:
+    csrc/planes.cu's front form, counted in `planes_launches`."""
+    before = (magdet.launches, magdet.planes_launches, magdet.baseline_launches)
     det, out = magdet._magdet_cuda(_iq(), 2500, packed, gate)
     (name, args), = lib.calls
-    assert name == "airjax_magdet" and args[-1] == STREAM
+    assert args[-1] == STREAM and args[1:3] == (3000, 2500)
     assert args[3] == det.data_ptr() and args[4] == out.data_ptr()
-    assert args[6:8] == (int(packed), magdet.GATES[gate])
+    if packed:
+        assert name == "airjax_magdet" and args[5:8] == (out.numel(), 1, magdet.GATES[gate])
+        assert out.dtype == torch.int32
+    else:
+        assert name == "airjax_planes" and args[5:7] == (magdet.FORMS["front"], magdet.GATES[gate])
+        assert (det.shape, out.shape, out.dtype) == ((2500,), (2999,), torch.uint8)
+    after = (magdet.launches, magdet.planes_launches, magdet.baseline_launches)
+    assert after == (before[0] + packed, before[1] + (not packed), before[2])
 
 
 @pytest.mark.parametrize("gate", ["df17", "preamble"])
@@ -84,10 +94,33 @@ def test_compact_call(lib, capacity):
 
 @pytest.mark.parametrize("variant", list(stencil3.VARIANTS))
 def test_stencil_call(lib, variant):
+    """A variant is its form of csrc/planes.cu (the DF17 gate), counted in
+    stencil3.launches."""
+    before = (stencil3.launches, magdet.planes_launches, magdet.baseline_launches)
     det, cmp = stencil3._tree_cuda(_iq(), 2500, variant)
     (name, args), = lib.calls
-    assert name == "airjax_magdet_stencil" and args[-1] == STREAM
-    assert args[3:6] == (det.data_ptr(), cmp.data_ptr(), stencil3.VARIANTS[variant])
+    assert name == "airjax_planes" and args[-1] == STREAM
+    assert args[1:7] == (3000, 2500, det.data_ptr(), cmp.data_ptr(), magdet.FORMS[variant], magdet.GATES["df17"])
+    assert (stencil3.launches, magdet.planes_launches, magdet.baseline_launches) == (before[0] + 1, *before[1:])
+
+
+@pytest.mark.parametrize("form, gate", [("front", "df17"), ("front", "preamble"), ("tree32", "df17"),
+                                        ("tree16", "df17"), ("flat16", "df17")])
+def test_planes_baseline_call(lib, form, gate):
+    """magdet_planes_baseline: csrc/magdet.cu's mode planes (form front) or
+    its stencil kernel (the variant's code), counted in baseline_launches
+    alone."""
+    before = (magdet.launches, magdet.planes_launches, magdet.baseline_launches, stencil3.launches)
+    det, cmp = magdet._baseline_cuda(_iq(), 2500, form, gate)
+    (name, args), = lib.calls
+    assert args[-1] == STREAM and args[1:5] == (3000, 2500, det.data_ptr(), cmp.data_ptr())
+    if form == "front":
+        assert name == "airjax_magdet" and args[5:8] == (2999, 0, magdet.GATES[gate])
+    else:
+        assert name == "airjax_magdet_stencil" and args[5] == magdet.FORMS[form]
+    assert (det.shape, cmp.shape, det.dtype, cmp.dtype) == ((2500,), (2999,), torch.uint8, torch.uint8)
+    after = (magdet.launches, magdet.planes_launches, magdet.baseline_launches, stencil3.launches)
+    assert after == (before[0], before[1], before[2] + 1, before[3])
 
 
 @pytest.mark.parametrize("extended", [False, True])

@@ -89,10 +89,11 @@ def _counts() -> tuple[int, int, int, int, int]:
 @pytest.mark.parametrize("n", [265, 20239, 65536 + 777, (1 << 20) + 1024])
 @pytest.mark.parametrize("packed", [True, False])
 def test_front_kernel_matches_plain(cuda_device, n, packed):  # noqa: F811
+    """Mode packed launches csrc/magdet.cu, mode planes csrc/planes.cu."""
     iq = torch.as_tensor(_random_iq(n, n)).to(cuda_device)
-    before = magdet_mod.launches
+    before = (magdet_mod.launches, magdet_mod.planes_launches)
     det, out = magdet_mod.magdet(iq, n - 240, packed=packed)
-    assert magdet_mod.launches == before + 1
+    assert (magdet_mod.launches, magdet_mod.planes_launches) == (before[0] + packed, before[1] + (not packed))
     det_p, out_p = magdet_mod.magdet_plain(iq, n - 240, packed=packed)
     torch.cuda.synchronize()
     assert torch.equal(det, det_p) and torch.equal(out, out_p)
@@ -159,6 +160,39 @@ def test_stencil_variant_matches_plain_and_flat_front(cuda_device, variant, kind
     torch.cuda.synchronize()
     assert torch.equal(det, det_p) and torch.equal(cmp, cmp_p)
     assert torch.equal(det, det_f) and torch.equal(cmp, cmp_f)
+
+
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("n, short", [(265, 240), (8193, 25), (8194, 25), (20239, 240), (65536 + 777, 240),
+                                      ((1 << 20) + 1024, 240)])
+@pytest.mark.parametrize("form, gate", [("front", "df17"), ("front", "preamble"), ("tree32", "df17"),
+                                        ("tree16", "df17"), ("flat16", "df17")])
+def test_planes_kernel_matches_plain_and_baseline(cuda_device, form, gate, n, short, misaligned):  # noqa: F811
+    """csrc/planes.cu in each form and gate (through magdet(packed=False)
+    or magdet_tree) == its plain version == the first forms
+    (magdet_planes_baseline), at ragged lengths, at n_off = L - 25 and from
+    a base 4 bytes past a 16-byte boundary; one launch of the new kernel a
+    call and none of the baseline."""
+    for kind in ("random", "small"):
+        raw = torch.as_tensor(_iq(n + 1, n + short, kind)).to(cuda_device)
+        iq = raw[1:] if misaligned else raw[:n]
+        assert (iq.data_ptr() % 16 == 4) == misaligned
+        n_off = n - short
+        before = (magdet_mod.planes_launches, stencil3_mod.launches, magdet_mod.baseline_launches)
+        if form == "front":
+            det, cmp = magdet_mod.magdet(iq, n_off, packed=False, gate=gate)
+            det_p, cmp_p = magdet_mod.magdet_plain(iq, n_off, packed=False, gate=gate)
+        else:
+            det, cmp = stencil3_mod.magdet_tree(iq, n_off, form)
+            det_p, cmp_p = stencil3_mod.magdet_tree_plain(iq, n_off, form)
+        new = (1, 0) if form == "front" else (0, 1)
+        assert (magdet_mod.planes_launches, stencil3_mod.launches, magdet_mod.baseline_launches) == (
+            before[0] + new[0], before[1] + new[1], before[2])
+        det_b, cmp_b = magdet_mod.magdet_planes_baseline(iq, n_off, form, gate)
+        assert magdet_mod.baseline_launches == before[2] + 1
+        torch.cuda.synchronize()
+        assert torch.equal(det, det_p) and torch.equal(cmp, cmp_p)
+        assert torch.equal(det, det_b) and torch.equal(cmp, cmp_b)
 
 
 @pytest.mark.parametrize("n", [265, 20239, 65536 + 777, (1 << 20) + 1024])

@@ -31,7 +31,7 @@ NOT_PORTED = {
     "airjax/kernels/magdet.py::pad_for_kernel": "pads to the TPU tile geometry (B5); the port's fronts take any "
                                                 "length, and pipeline.decode_iq_block_kernel takes its output as is",
     "airjax/kernels/magdet.py::magdet_fused": "ported as the planes mode of kernels/magdet.py::magdet "
-                                              "(csrc/magdet.cu), its docstring says so",
+                                              "(csrc/planes.cu), its docstring says so",
     "airjax/kernels/magdet.py::magdet_packed": "ported as the packed mode of kernels/magdet.py::magdet and, redesigned, "
                                                "as kernels/magdet.py::magdet_bits (csrc/front.cu)",
     "airjax/kernels/stencil3.py::magdet_tree(interpret)": "Pallas interpret mode has no CUDA meaning; on the CPU "

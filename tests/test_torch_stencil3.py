@@ -95,3 +95,40 @@ def test_wrapper_checks_and_counts_no_cpu_launch():
         magdet_tree(iq, 3000 - 24, "tree16")  # the taps would reach past the block
     with pytest.raises(ValueError):
         magdet_tree(iq.to(torch.int32), 2500, "tree32")
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("short", [25, 26, 28, 29, 30])
+def test_plain_at_the_last_offsets_a_block_holds(variant, short):
+    """n_off up to L - 25, the wrapper's limit: the plain tree gives n_off
+    offsets, equal to the flat front's (it raised a size mismatch above
+    L - 29 while it cropped every view to the roll-7 one, as airjax's
+    padded rows allow)."""
+    n = 3001
+    iq_t = torch.as_tensor(_iq(n, 6, -2, 3))
+    det, cmp = magdet_tree(iq_t, n - short, variant)
+    det_f, cmp_f = magdet_plain(iq_t, n - short, packed=False)
+    assert det.shape == (n - short,) and torch.equal(det, det_f) and torch.equal(cmp, cmp_f)
+    assert int(det.sum()) > 0
+
+
+@pytest.mark.parametrize("form, gate", [("front", "df17"), ("front", "preamble"), ("tree32", "df17"),
+                                        ("tree16", "df17"), ("flat16", "df17")])
+def test_planes_baseline_on_the_cpu_is_the_plain_version(form, gate):
+    """kernels/magdet.py::magdet_planes_baseline, the first forms' wrapper:
+    on a CPU tensor the plain version of its form, no launch counted; a
+    stencil form refuses the preamble gate."""
+    from airjax_torch.kernels import magdet as magdet_mod
+
+    iq = torch.as_tensor(_iq(3000, 9, -2, 3))
+    before = (magdet_mod.baseline_launches, magdet_mod.planes_launches, stencil3_mod.launches)
+    det, cmp = magdet_mod.magdet_planes_baseline(iq, 2500, form, gate)
+    det_p, cmp_p = (magdet_plain(iq, 2500, packed=False, gate=gate) if form == "front"
+                    else magdet_tree_plain(iq, 2500, form))
+    assert torch.equal(det, det_p) and torch.equal(cmp, cmp_p)
+    assert (magdet_mod.baseline_launches, magdet_mod.planes_launches, stencil3_mod.launches) == before
+    if form != "front":
+        with pytest.raises(ValueError):
+            magdet_mod.magdet_planes_baseline(iq, 2500, form, "preamble")
+    with pytest.raises(ValueError):
+        magdet_mod.magdet_planes_baseline(iq, 2500, "tree8", gate)
