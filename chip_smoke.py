@@ -150,7 +150,14 @@ Phases; any failure raises and the exit code is nonzero:
      airjax names the port took on (u32 magnitudes, slice_bits, the sparse
      byte reader, pack_cmp_words_reduce, compact_detections' tiles,
      compact_mask, decode_mags_block_r2) on the card == the CPU, and
-     decode_iq_block_kernel == decode_iq_block in the same two launches.
+     decode_iq_block_kernel == decode_iq_block in the same two launches;
+ 18. the measuring harness: airjax_torch.bench.bench() at its default size
+     (R passes in one CUDA graph): the contract's keys, 1024 of 1024 frames
+     a pass, the graph's counts == one eager pass's, the wrappers'
+     launches, one replay profiled (the fronts, the block decodes and the
+     sums' adds, nothing else); n_blocks=2 beside it; then graft_entry,
+     bench_stream, bench_host, bench_extended and scaling_sweep --one-card
+     at small sizes as processes, all at once; each exits 0.
 `chip_smoke.py --cards` (4 or more cards): the mesh paths across cards,
 dryrun_multichip on make_mesh(4), and phase 12 with NCCL across 4 cards.
 Phase 3 also holds the block-decode kernel's recover2 (R2) instantiations
@@ -3162,6 +3169,107 @@ def phase_names(dev: torch.device, frames: list[bytes], offsets: np.ndarray) -> 
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 18: the measuring harness (airjax_torch/bench.py, graft_entry.py, the four measuring tools).
+HARNESS_KEYS = {"metric", "value", "unit", "vs_baseline", "detail"}
+
+
+def graph_replay_kernels(bench, dev: torch.device, blocks, reps: int) -> tuple[dict[str, int], float]:
+    """The device events of one replay of a graph of `reps` bench passes
+    under torch.profiler, by name, and the device's busy µs in it; a window
+    that lost an event is profiled again (PROFILE_TRIES windows, then it
+    fails). The sums the replay left are checked against `reps` eager
+    passes."""
+    step = bench.make_repeat_step(BLOCK, CAPACITY)
+    acc = torch.zeros(2, dtype=torch.int64, device=dev)
+    want = step(blocks, reps, acc).tolist()
+    graph = bench.capture(step, blocks, reps, acc)
+    acc.zero_()
+    graph.replay()
+    check(acc.tolist() == want, f"a replay's sums {acc.tolist()} != {reps} eager passes' {want}")
+    for _ in range(PROFILE_TRIES):
+        names: dict[str, int] = {}
+        events = device_events(graph.replay, 1)
+        for e in events:
+            names[e.name] = names.get(e.name, 0) + 1
+        fronts = sum(n for k, n in names.items() if "magdet_bits_kernel" in k)
+        decodes = sum(n for k, n in names.items() if "block_decode_kernel" in k)
+        if fronts == decodes == reps:
+            return names, busy_us(events)
+        print(f"harness: the profiler dropped events of a replay ({fronts} fronts, {decodes} block decodes); again")
+    check(False, f"harness: the profiler dropped events of a replay in {PROFILE_TRIES} windows")
+
+
+def phase_harness(dev: torch.device) -> None:
+    """Phase 18: airjax_torch.bench.bench() in process at its default size
+    (2^24 + 1024 samples, 1024 frames, R = 2 and 42 in CUDA graphs): the
+    contract's keys, every frame decoded in every pass, the graph's counts a
+    pass == one eager pass's; the launches through the wrappers (the
+    warm-up, the two captures, three eager timings of r_big); a profiler
+    window over one replay of the r_small graph: r_small fronts, r_small
+    block decodes and the sums' 2 * r_small element-wise kernels, nothing
+    else. The same bench with n_blocks=2 (the L2 carry-over between
+    passes). Then graft_entry and the four measuring tools at small sizes,
+    as processes of their own, all at once; each exits 0."""
+    from airjax_torch import bench
+    from airjax_torch.dsp.demod import WINDOW
+    from airjax_torch.pipeline import decode_iq_block
+
+    t_phase = time.perf_counter()
+    r_small, r_big = 2, 42
+    with counted() as launches:
+        result = bench.bench(r_small=r_small, r_big=r_big)
+    detail = result["detail"]
+    check(set(result) == HARNESS_KEYS and result["metric"] == "iq_throughput_msps" and result["value"] > 0
+          and abs(result["vs_baseline"] - result["value"] / 2.0) < 0.1, f"bench: the contract {result}")
+    check(detail["frames_decoded_per_pass"] == detail["frames_embedded"] == 1024,
+          f"bench: {detail['frames_decoded_per_pass']} frames a pass of {detail['frames_embedded']}")
+    passes = 1 + r_small + r_big + 3 * r_big  # warm-up, the two captures, _timed's three eager runs
+    check(launches == {**ONE_PASS, "magdet_bits": passes, "block_decode": passes},
+          f"bench: the wrappers' launches {launches}, {passes} fronts and block decodes expected")
+    blocks, _ = bench.build_workload(BLOCK, 1, device=dev)
+    out = decode_iq_block(blocks[0], BLOCK - WINDOW, CAPACITY)
+    one = (int(out["n_good"]), int(out["n_detections"]))
+    check(one == (detail["frames_decoded_per_pass"], detail["detections_per_pass"]),
+          f"bench: the graph's counts a pass {detail['frames_decoded_per_pass'], detail['detections_per_pass']} "
+          f"!= one eager pass's {one}")
+    names, busy = graph_replay_kernels(bench, dev, blocks, r_small)
+    other = {k: n for k, n in names.items() if "magdet_bits_kernel" not in k and "block_decode_kernel" not in k}
+    check(sum(other.values()) == 2 * r_small and all("elementwise" in k for k in other),
+          f"harness: a replay of {r_small} passes ran other work than the fronts, the block decodes and the "
+          f"sums' adds: {json.dumps(names)}")
+    del blocks, out
+    two = bench.bench(n_blocks=2, r_small=r_small, r_big=r_big)
+    # Pass r decodes block r % 2: its frames a pass are the two blocks' mean.
+    blocks, _ = bench.build_workload(BLOCK, 2, device=dev)
+    goods = [int(decode_iq_block(b, BLOCK - WINDOW, CAPACITY)["n_good"]) for b in blocks]
+    del blocks
+    check(two["detail"]["frames_decoded_per_pass"] == sum(goods[r % 2] for r in range(r_big)) // r_big,
+          f"bench n_blocks=2: {two['detail']}, the blocks' eager passes {goods}")
+    for label, res in (("n_blocks=1", result), ("n_blocks=2", two)):
+        d = res["detail"]
+        print(f"bench {label}: graph {d['seconds_per_pass'] * 1e6:.3f} us/pass, eager "
+              f"{d['eager_seconds_per_pass'] * 1e6:.3f} us/pass (graph / eager "
+              f"{d['eager_seconds_per_pass'] / d['seconds_per_pass']:.2f}x), fixed {d['fixed_overhead_s'] * 1e6:.1f} "
+              f"us; {res['value']} MS/s, {d['decoded_msgs_per_s']} msgs/s")
+    print(f"harness: the bench's launches {launches['magdet_bits']} + {launches['block_decode']} through the "
+          f"wrappers; a replay of {r_small} passes: {json.dumps({k[:60]: n for k, n in names.items()})}, device "
+          f"busy {busy / r_small:.2f} us a pass under the profiler, idle share "
+          f"{1 - busy / r_small / (detail['seconds_per_pass'] * 1e6):.3f} of the graph's slope")
+    print(f"bench: {json.dumps(result)}")
+    tools = "airjax_torch/tools/"
+    with tempfile.TemporaryDirectory() as tmp:
+        run_tools({
+            "graft_entry": ["-m", "airjax_torch.graft_entry"],
+            "bench_stream --blocks 4 --block-len 4194304": [tools + "bench_stream.py", "--blocks", "4",
+                                                           "--block-len", "4194304"],
+            "bench_host --messages 20000": [tools + "bench_host.py", "--messages", "20000"],
+            "bench_extended --r-big 6": [tools + "bench_extended.py", "--r-big", "6"],
+            "scaling_sweep --one-card --per-device 1000000": [tools + "scaling_sweep.py", "--one-card",
+                                                              "--per-device", "1000000"],
+        }, dict(os.environ), tmp)
+    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
+
+
 # The multi-card run (`chip_smoke.py --cards`, a host of 4 or more cards).
 def packet_view(packet) -> tuple:
     """A packet's class and fields but its wall-clock stamp."""
@@ -3313,6 +3421,7 @@ def main() -> int:
     phase_tools()
     phase_sweeps()
     phase_names(dev, frames, offsets)
+    phase_harness(dev)
     launches.update({**df17, **ext, **tracker, "block_decode": df17["block_decode"] + ext["block_decode"],
                      "magdet_front": front_launches["df17"], "magdet_front_preamble": front_launches["preamble"],
                      **sharded, "shard_gather": sharded["shard_gather"] + df17["shard_gather"] + multi["shard_gather"],

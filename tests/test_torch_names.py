@@ -7,7 +7,9 @@ for each public function and method, accept every parameter of airjax's
 (by name; the port may add its own, such as the keyword-only `device`).
 The only exceptions are NOT_PORTED's, each with its reason; a second test
 holds every exception to airjax and to the port, so the list cannot go
-stale.
+stale. The JAX system's measuring harness outside the package (bench.py,
+__graft_entry__.py and four root tools) is held the same way to its twin
+in the port (HARNESS).
 """
 
 import ast
@@ -46,16 +48,36 @@ NOT_PORTED = {
 
 MODULES = sorted(p.relative_to(AIRJAX).as_posix() for p in AIRJAX.rglob("*.py"))
 
+# The harness files of the repository's root, to their twins under airjax_torch/.
+HARNESS = {
+    "bench.py": "bench.py",
+    "__graft_entry__.py": "graft_entry.py",
+    "tools/bench_extended_tpu.py": "tools/bench_extended.py",
+    "tools/bench_stream.py": "tools/bench_stream.py",
+    "tools/bench_host.py": "tools/bench_host.py",
+    "tools/scaling_sweep.py": "tools/scaling_sweep.py",
+}
+
 
 def _public(name: str) -> bool:
     return not name.startswith("_")
 
 
+def _is_main_block(node: ast.stmt) -> bool:
+    """`if __name__ == "__main__":`, whose names are a script's locals."""
+    test = node.test if isinstance(node, ast.If) else None
+    return (isinstance(test, ast.Compare) and isinstance(test.left, ast.Name) and test.left.id == "__name__"
+            and any(isinstance(c, ast.Constant) and c.value == "__main__" for c in test.comparators))
+
+
 def _defs(body: list[ast.stmt]) -> dict[str, ast.AST]:
     """The names a module or class body binds, to their nodes (through
-    top-level if/try blocks; imports bind names too)."""
+    top-level if/try blocks but a script's `__main__` block; imports bind
+    names too)."""
     out: dict[str, ast.AST] = {}
     for node in body:
+        if _is_main_block(node):
+            continue
         if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
             out[node.name] = node
         elif isinstance(node, ast.Assign):
@@ -108,18 +130,21 @@ def _missing_params(where: str, ours: ast.AST, port: ast.AST) -> list[str]:
     return [f"{where}({p})" for p in names if p not in port_names and not port_kwargs]
 
 
-def _gaps(rel: str, port_defs: dict[str, ast.AST] | None = None) -> list[str]:
-    """Every airjax name, member and parameter of module `rel` that the
-    port module of the same path (or one binding `port_defs`) lacks, as
-    NOT_PORTED keys."""
-    key = f"airjax/{rel}::"
-    if port_defs is None and not (PORT / rel).exists():
-        return [f"airjax/{rel} (no port module)"]
+def _gaps(rel: str, port_defs: dict[str, ast.AST] | None = None, root: pathlib.Path = AIRJAX,
+          port_rel: str | None = None) -> list[str]:
+    """Every name, member and parameter of module `rel` under `root`
+    (airjax/ unless given) that the port module `port_rel` (by default of
+    the same path under airjax_torch/; or one binding `port_defs`) lacks,
+    as NOT_PORTED keys."""
+    port_rel = port_rel or rel
+    key = f"{(root / rel).relative_to(REPO).as_posix()}::"
+    if port_defs is None and not (PORT / port_rel).exists():
+        return [f"{key[:-2]} (no port module)"]
     gaps = []
-    for name, node in _module_defs(AIRJAX, rel).items():
+    for name, node in _module_defs(root, rel).items():
         if not _public(name) or isinstance(node, (ast.Import, ast.ImportFrom)):
             continue
-        port = _port_def(rel, name, port_defs)
+        port = _port_def(port_rel, name, port_defs)
         if port is None:
             gaps.append(key + name)
         elif isinstance(node, ast.ClassDef):
@@ -145,15 +170,22 @@ def test_port_module_has_airjax_names(rel):
     assert not unexplained, f"airjax names with no counterpart in airjax_torch/{rel}: {unexplained}"
 
 
+@pytest.mark.parametrize("theirs", sorted(HARNESS))
+def test_harness_twin_has_the_names(theirs):
+    unexplained = [g for g in _gaps(theirs, root=REPO, port_rel=HARNESS[theirs]) if g not in NOT_PORTED]
+    assert not unexplained, f"names of {theirs} with no counterpart in airjax_torch/{HARNESS[theirs]}: {unexplained}"
+
+
 def test_not_ported_entries_are_current():
     """Each exception still names something of airjax that the port still
     lacks."""
     gaps = {g for rel in MODULES for g in _gaps(rel)}
+    gaps |= {g for rel, port_rel in HARNESS.items() for g in _gaps(rel, root=REPO, port_rel=port_rel)}
     for key in NOT_PORTED:
         path, name = key.split("::")
         assert (REPO / path).is_file(), key
         top = name.split("(")[0].split(".")[0]
-        assert top in _module_defs(AIRJAX, path.removeprefix("airjax/")), f"{key}: no longer in airjax"
+        assert top in _module_defs(REPO, path), f"{key}: no longer in {path}"
         assert key in gaps, f"{key}: the port has it now; drop the exception"
     assert set(NOT_PORTED) == gaps
 
