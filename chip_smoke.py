@@ -157,7 +157,15 @@ Phases; any failure raises and the exit code is nonzero:
      launches, one replay profiled (the fronts, the block decodes and the
      sums' adds, nothing else); n_blocks=2 beside it; then graft_entry,
      bench_stream, bench_host, bench_extended and scaling_sweep --one-card
-     at small sizes as processes, all at once; each exits 0.
+     at small sizes as processes, all at once; each exits 0;
+ 19. the pass's cost by nested prefixes (airjax_torch/tools/bench_stages.py,
+     airjax's tools/bench_stages.py) on its capture at 2^24 + 1024 samples:
+     detect (the count-mode front), compact and pack (the bits front and the
+     compaction kernel), full (the front and the block decode): each
+     stage's pair == its plain version's on the same card tensor, the
+     graph's sums == the eager passes', the launches through the wrappers,
+     one replay of the R = 2 graph profiled (the stage's kernels and the
+     sums' small kernels, nothing else); each stage's line printed.
 `chip_smoke.py --cards` (4 or more cards): the mesh paths across cards,
 dryrun_multichip on make_mesh(4), and phase 12 with NCCL across 4 cards.
 Phase 3 also holds the block-decode kernel's recover2 (R2) instantiations
@@ -3173,30 +3181,47 @@ def phase_names(dev: torch.device, frames: list[bytes], offsets: np.ndarray) -> 
 HARNESS_KEYS = {"metric", "value", "unit", "vs_baseline", "detail"}
 
 
-def graph_replay_kernels(bench, dev: torch.device, blocks, reps: int) -> tuple[dict[str, int], float]:
-    """The device events of one replay of a graph of `reps` bench passes
-    under torch.profiler, by name, and the device's busy µs in it; a window
-    that lost an event is profiled again (PROFILE_TRIES windows, then it
-    fails). The sums the replay left are checked against `reps` eager
-    passes."""
-    step = bench.make_repeat_step(BLOCK, CAPACITY)
+def kernel_kind(name: str) -> str:
+    """A device event's kernel, by its name: the count-mode front
+    (magdet_bits_kernel<G, true>), the bits front, the compaction's two
+    kernels, the block decode, or "other"."""
+    if "magdet_bits_kernel" in name:
+        return "count front" if "true>" in name else "bits front"
+    for key, kind in (("compact_scan_kernel", "compaction scan"), ("compact_scatter_kernel", "compaction scatter"),
+                      ("block_decode_kernel", "block decode")):
+        if key in name:
+            return kind
+    return "other"
+
+
+def graph_replay_kernels(bench, step, dev: torch.device, blocks, reps: int,
+                         want: dict[str, int]) -> tuple[dict[str, int], list]:
+    """The device events of one replay of a graph of `reps` passes of
+    `step` under torch.profiler: their count by name, and the events.
+    `want` is the kernels a replay runs by kernel_kind, "other" aside; a
+    window whose kernels differ from it is profiled again (a lost event;
+    PROFILE_TRIES windows, then it fails). The sums the replay left are
+    checked against `reps` eager passes."""
     acc = torch.zeros(2, dtype=torch.int64, device=dev)
-    want = step(blocks, reps, acc).tolist()
+    want_sums = step(blocks, reps, acc).tolist()
     graph = bench.capture(step, blocks, reps, acc)
     acc.zero_()
     graph.replay()
-    check(acc.tolist() == want, f"a replay's sums {acc.tolist()} != {reps} eager passes' {want}")
+    check(acc.tolist() == want_sums, f"a replay's sums {acc.tolist()} != {reps} eager passes' {want_sums}")
     for _ in range(PROFILE_TRIES):
         names: dict[str, int] = {}
         events = device_events(graph.replay, 1)
         for e in events:
             names[e.name] = names.get(e.name, 0) + 1
-        fronts = sum(n for k, n in names.items() if "magdet_bits_kernel" in k)
-        decodes = sum(n for k, n in names.items() if "block_decode_kernel" in k)
-        if fronts == decodes == reps:
-            return names, busy_us(events)
-        print(f"harness: the profiler dropped events of a replay ({fronts} fronts, {decodes} block decodes); again")
-    check(False, f"harness: the profiler dropped events of a replay in {PROFILE_TRIES} windows")
+        kinds: dict[str, int] = {}
+        for name, n in names.items():
+            if kernel_kind(name) != "other":
+                kinds[kernel_kind(name)] = kinds.get(kernel_kind(name), 0) + n
+        if kinds == want:
+            return names, events
+        print(f"replay: {json.dumps(kinds)} against {json.dumps(want)} (a lost event or another kernel); again; "
+              f"{json.dumps({k[:60]: n for k, n in names.items()})}")
+    check(False, f"replay: the kernels of a replay were not {want} in {PROFILE_TRIES} windows")
 
 
 def phase_harness(dev: torch.device) -> None:
@@ -3232,8 +3257,10 @@ def phase_harness(dev: torch.device) -> None:
     check(one == (detail["frames_decoded_per_pass"], detail["detections_per_pass"]),
           f"bench: the graph's counts a pass {detail['frames_decoded_per_pass'], detail['detections_per_pass']} "
           f"!= one eager pass's {one}")
-    names, busy = graph_replay_kernels(bench, dev, blocks, r_small)
-    other = {k: n for k, n in names.items() if "magdet_bits_kernel" not in k and "block_decode_kernel" not in k}
+    names, events = graph_replay_kernels(bench, bench.make_repeat_step(BLOCK, CAPACITY), dev, blocks, r_small,
+                                         {"bits front": r_small, "block decode": r_small})
+    busy = busy_us(events)
+    other = {k: n for k, n in names.items() if kernel_kind(k) == "other"}
     check(sum(other.values()) == 2 * r_small and all("elementwise" in k for k in other),
           f"harness: a replay of {r_small} passes ran other work than the fronts, the block decodes and the "
           f"sums' adds: {json.dumps(names)}")
@@ -3268,6 +3295,71 @@ def phase_harness(dev: torch.device) -> None:
                                                               "--per-device", "1000000"],
         }, dict(os.environ), tmp)
     print(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
+
+
+# Phase 19: the pass's cost by nested prefixes (airjax_torch/tools/bench_stages.py).
+# Each stage's wrappers (counted()'s keys) and kernels a pass (kernel_kind's).
+STAGE_WRAPPERS = {"detect": ("chunked_count",), "compact": ("magdet_bits", "compact_bits"),
+                  "pack": ("magdet_bits", "compact_bits"), "full": ("magdet_bits", "block_decode")}
+STAGE_KERNELS = {"detect": {"count front": 1},
+                 "compact": {"bits front": 1, "compaction scan": 1, "compaction scatter": 1},
+                 "pack": {"bits front": 1, "compaction scan": 1, "compaction scatter": 1},
+                 "full": {"bits front": 1, "block decode": 1}}
+
+
+def phase_stages(dev: torch.device) -> None:
+    """Phase 19: the four stages of airjax_torch/tools/bench_stages.py on
+    its capture at the full block (2^24 + 1024 samples, K 2048): each
+    stage's pair on the card == its plain version's (PLAIN) on the same
+    tensor; timed by bench.measure (R = 2 and 12 in CUDA graphs; it raises
+    when the graph's sums differ from the eager passes'), the sums r_big
+    times the pair, the launches through the wrappers, and one replay of the
+    R = 2 graph profiled: detect the count-mode front, compact and pack the
+    bits front and the compaction's two kernels, full the bits front and
+    the block decode, besides the sums' element-wise and reduce kernels."""
+    from airjax_torch import bench
+    from airjax_torch.dsp.demod import WINDOW
+    from airjax_torch.tools import bench_stages
+
+    t_phase = time.perf_counter()
+    r_small, r_big = 2, 12
+    n_off = BLOCK - WINDOW
+    iq = bench_stages.build_iq(device=dev)
+    card = bench.card(dev)
+    lines = {}
+    for stage, body in bench_stages.STAGES.items():
+        one = tuple(int(x) for x in body(iq, n_off, CAPACITY))
+        plain = tuple(int(x) for x in bench_stages.PLAIN[stage](iq, n_off, CAPACITY))
+        check(one == plain, f"stages: {stage}'s pair {one} on the card != its plain version's {plain}")
+        with counted() as launches:
+            line = bench_stages.measure_stage(stage, iq, BLOCK, CAPACITY, r_small, r_big, card)
+        check(line["sums"] == [r_big * x for x in one], f"stages: {stage}'s sums {line['sums']} != {r_big} x {one}")
+        passes = 1 + r_small + r_big + 3 * r_big  # warm-up, the two captures, _timed's three eager runs
+        want = {**{k: 0 for k in ONE_PASS}, **{k: passes for k in STAGE_WRAPPERS[stage]}}
+        check(launches == want, f"stages: {stage}'s launches {launches} != {want}")
+        step = bench.make_repeat_step(BLOCK, CAPACITY, body)
+        names, events = graph_replay_kernels(bench, step, dev, (iq,), r_small,
+                                             {k: n * r_small for k, n in STAGE_KERNELS[stage].items()})
+        other = {k: n for k, n in names.items() if kernel_kind(k) == "other"}
+        check(all("elementwise" in k or "reduce_kernel" in k for k in other),
+              f"stages: a replay of {stage} ran other work than its kernels and the sums': {json.dumps(names)}")
+        kind_us: dict[str, float] = {}
+        for e in events:
+            kind = kernel_kind(e.name)
+            kind_us[kind] = kind_us.get(kind, 0.0) + (e.time_range.end - e.time_range.start) / r_small
+        busy = busy_us(events) / r_small
+        n_small = sum(other.values()) // r_small
+        lines[stage] = line
+        print(json.dumps(line))
+        print(f"  {stage}: pair {one} == plain; a replay of {r_small} passes: "
+              f"{json.dumps({k[:60]: n for k, n in names.items()})}; device us a pass by kernel "
+              f"{json.dumps({k: round(v, 3) for k, v in kind_us.items()})} (other: the sums' {n_small} small "
+              f"kernels), busy {busy:.3f}, idle share {1 - busy / (line['seconds_per_pass'] * 1e6):.3f} of the "
+              f"slope; eager {line['eager_seconds_per_pass'] * 1e6:.3f} us a pass")
+    us = {stage: line["seconds_per_pass"] * 1e6 for stage, line in lines.items()}
+    print(f"stages, us a pass: {json.dumps(us)}; compact - detect {us['compact'] - us['detect']:.3f}, pack - compact "
+          f"{us['pack'] - us['compact']:.3f}, full - compact {us['full'] - us['compact']:.3f}")
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
 
 
 # The multi-card run (`chip_smoke.py --cards`, a host of 4 or more cards).
@@ -3422,6 +3514,7 @@ def main() -> int:
     phase_sweeps()
     phase_names(dev, frames, offsets)
     phase_harness(dev)
+    phase_stages(dev)
     launches.update({**df17, **ext, **tracker, "block_decode": df17["block_decode"] + ext["block_decode"],
                      "magdet_front": front_launches["df17"], "magdet_front_preamble": front_launches["preamble"],
                      **sharded, "shard_gather": sharded["shard_gather"] + df17["shard_gather"] + multi["shard_gather"],

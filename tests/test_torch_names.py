@@ -8,13 +8,16 @@ for each public function and method, accept every parameter of airjax's
 The only exceptions are NOT_PORTED's, each with its reason; a second test
 holds every exception to airjax and to the port, so the list cannot go
 stale. The JAX system's measuring harness outside the package (bench.py,
-__graft_entry__.py and four root tools) is held the same way to its twin
-in the port (HARNESS).
+__graft_entry__.py and five root tools) is held the same way to its twin
+in the port (HARNESS). Every root tool (tools/*.py) has a twin in the port
+(ROOT_TWINS): a port file that exists, or the chip_smoke.py phase that
+stands in for it.
 """
 
 import ast
 import functools
 import pathlib
+import re
 
 import pytest
 
@@ -56,6 +59,35 @@ HARNESS = {
     "tools/bench_stream.py": "tools/bench_stream.py",
     "tools/bench_host.py": "tools/bench_host.py",
     "tools/scaling_sweep.py": "tools/scaling_sweep.py",
+    "tools/bench_stages.py": "tools/bench_stages.py",
+}
+
+# Every root tool (tools/*.py) to its twins: files of the port, or phases of
+# chip_smoke.py ("chip_smoke.py phase N"). The XLA-variant A/Bs map to the
+# A/B tools of the Hopper kernels that replaced the variants they timed.
+ROOT_TWINS = {
+    "tools/bench_compact.py": ("airjax_torch/tools/ab_block_decode.py", "chip_smoke.py phase 5"),
+    "tools/bench_count.py": ("airjax_torch/tools/ab_block_decode.py", "chip_smoke.py phase 5"),
+    "tools/bench_extended_tpu.py": ("airjax_torch/tools/bench_extended.py",),
+    "tools/bench_fused.py": ("airjax_torch/tools/ab_planes.py", "chip_smoke.py phase 5"),
+    "tools/bench_host.py": ("airjax_torch/tools/bench_host.py",),
+    "tools/bench_pack.py": ("airjax_torch/tools/ab_block_decode.py", "chip_smoke.py phase 5"),
+    "tools/bench_r2.py": ("airjax_torch/tools/ab_block_decode.py", "chip_smoke.py phase 5"),
+    "tools/bench_shard_shapes.py": ("airjax_torch/tools/ab_shard_gather.py",
+                                    "airjax_torch/tools/ab_sharded_stream.py"),
+    "tools/bench_stages.py": ("airjax_torch/tools/bench_stages.py", "chip_smoke.py phase 19"),
+    "tools/bench_stencil3.py": ("airjax_torch/tools/ab_planes.py", "chip_smoke.py phase 5"),
+    "tools/bench_stream.py": ("airjax_torch/tools/bench_stream.py",),
+    "tools/bench_variants.py": ("airjax_torch/tools/ab_block_decode.py", "chip_smoke.py phase 5"),
+    "tools/fuzz_extended.py": ("airjax_torch/tools/fuzz_extended.py",),
+    "tools/fuzz_parity.py": ("airjax_torch/tools/fuzz_parity.py",),
+    "tools/replay_analytics.py": ("airjax_torch/tools/replay_analytics.py",),
+    "tools/scaling_sweep.py": ("airjax_torch/tools/scaling_sweep.py",),
+    "tools/snr_sweep.py": ("airjax_torch/tools/snr_sweep.py",),
+    "tools/soak.py": ("airjax_torch/tools/soak.py",),
+    "tools/tpu_recover2_smoke.py": ("chip_smoke.py phase 3", "chip_smoke.py phase 9"),
+    "tools/tpu_shard_smoke.py": ("chip_smoke.py phase 6", "chip_smoke.py phase 11"),
+    "tools/tpu_stream_smoke.py": ("chip_smoke.py phase 6", "chip_smoke.py phase 11"),
 }
 
 
@@ -174,6 +206,47 @@ def test_port_module_has_airjax_names(rel):
 def test_harness_twin_has_the_names(theirs):
     unexplained = [g for g in _gaps(theirs, root=REPO, port_rel=HARNESS[theirs]) if g not in NOT_PORTED]
     assert not unexplained, f"names of {theirs} with no counterpart in airjax_torch/{HARNESS[theirs]}: {unexplained}"
+
+
+def _smoke_phases() -> set[int]:
+    """The phases chip_smoke.py's docstring lists ("  N. ..." lines)."""
+    doc = ast.get_docstring(ast.parse((REPO / "chip_smoke.py").read_text()))
+    return {int(n) for n in re.findall(r"^ {0,2}(\d+)\. ", doc, flags=re.M)}
+
+
+def _untwinned(root_tools: list[str], twins: dict[str, tuple[str, ...]]) -> list[str]:
+    """The root tools with no entry in `twins`, and the entries whose twin
+    is neither a file of the repository nor a phase chip_smoke.py lists."""
+    phases = _smoke_phases()
+    gaps = [tool for tool in root_tools if not twins.get(tool)]
+    for tool, targets in twins.items():
+        for target in targets:
+            phase = re.fullmatch(r"chip_smoke\.py phase (\d+)", target)
+            if not (int(phase[1]) in phases if phase else (REPO / target).is_file()):
+                gaps.append(f"{tool} -> {target}")
+    return gaps
+
+
+ROOT_TOOLS = sorted(p.relative_to(REPO).as_posix() for p in (REPO / "tools").glob("*.py"))
+
+
+def test_every_root_tool_has_a_twin():
+    assert not _untwinned(ROOT_TOOLS, ROOT_TWINS), "root tools with no twin in the port: add them to ROOT_TWINS"
+    assert set(ROOT_TWINS) == set(ROOT_TOOLS), "ROOT_TWINS names a root tool that is gone"
+    for theirs, port_rel in HARNESS.items():  # the harness's twins are the same files
+        assert theirs not in ROOT_TWINS or f"airjax_torch/{port_rel}" in ROOT_TWINS[theirs]
+
+
+def test_the_root_walk_sees_a_tool_without_a_twin():
+    """A made-up root tool with no entry, and entries whose twin is a
+    missing file or a phase chip_smoke.py does not list, are reported."""
+    made_up = [*ROOT_TOOLS, "tools/bench_made_up.py"]
+    assert _untwinned(made_up, ROOT_TWINS) == ["tools/bench_made_up.py"]
+    twins = {**ROOT_TWINS, "tools/soak.py": ("airjax_torch/tools/no_such_tool.py",),
+             "tools/bench_stages.py": ("chip_smoke.py phase 99",)}
+    assert sorted(_untwinned(ROOT_TOOLS, twins)) == ["tools/bench_stages.py -> chip_smoke.py phase 99",
+                                                    "tools/soak.py -> airjax_torch/tools/no_such_tool.py"]
+    assert {1, 18} <= _smoke_phases()
 
 
 def test_not_ported_entries_are_current():

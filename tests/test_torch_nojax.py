@@ -1,7 +1,7 @@
 """airjax_torch never imports jax or any module of the JAX package
-airjax, directly or through another module: every module imports, and a
-small capture decodes on the CPU, in a process whose import system
-refuses both. chip_smoke.py obeys the same rule and refuses to run
+airjax or of its root tools (tools/), directly or through another module:
+every module imports, and a small capture decodes on the CPU, in a process
+whose import system refuses them. chip_smoke.py obeys the same rule and refuses to run
 without a card."""
 
 import ast
@@ -14,14 +14,14 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
-REFUSED = ("jax", "jaxlib", "airjax")
+REFUSED = ("jax", "jaxlib", "airjax", "tools")
 
 _REFUSE = r"""
 import sys
 
 class Refuse:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "airjax"):
+        if name.split(".")[0] in ("jax", "jaxlib", "airjax", "tools"):
             raise ImportError(f"refused here: {name}")
         return None
 
@@ -40,7 +40,7 @@ for name in ("airjax_torch.kernels.block_decode", "airjax_torch.kernels.fields",
              "airjax_torch.golden", "airjax_torch.visualise", "airjax_torch.observability",
              "airjax_torch.native", "airjax_torch.sdr", "airjax_torch.ui.projection", "airjax_torch.ui.bindings_gen",
              "airjax_torch.tools.fuzz_parity", "airjax_torch.tools.fuzz_extended", "airjax_torch.tools.soak",
-             "airjax_torch.tools.dryrun_multichip", "airjax_torch.tools.snr_sweep"):
+             "airjax_torch.tools.dryrun_multichip", "airjax_torch.tools.snr_sweep", "airjax_torch.tools.bench_stages"):
     assert name in names, names
 for name in names:
     importlib.import_module(name)
@@ -102,7 +102,10 @@ dev_iq = synth.modulate_device([frame], [300], 4000, device="cpu").numpy()
 assert [h[2] for h in pipeline.decode_capture_overlap(dev_iq, device="cpu")[0]] == [frame]
 from airjax_torch.tools import snr_sweep
 assert snr_sweep.sweep(snrs_db=(20.0,), captures_per_snr=1, device="cpu")["curve"][0]["decode_rate"] == 1.0
-assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "airjax")]
+from airjax_torch.tools import bench_stages
+stage_iq = bench_stages.build_iq(block_len=1 << 15, device="cpu")
+assert [int(x) for x in bench_stages.full_body(stage_iq, (1 << 15) - 240, 64)] == [2, 2]
+assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "airjax", "tools")]
 print("modules", len(names))
 """
 
@@ -131,7 +134,7 @@ for name in NAMES:
             raise
 frames = chip_smoke.make_frames(4, 0)
 assert len(frames) == 4 and all(len(f) == 14 for f in frames)
-assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "airjax")]
+assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "airjax", "tools")]
 print("modules", len(NAMES))
 """
 
