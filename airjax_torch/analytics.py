@@ -15,7 +15,7 @@ fixes, velocities, squawks and altitudes as they change.
 
 Time is counted in sample offsets: at 2 MS/s the reference's 10 s CPR
 window is 20 M samples. `device` is where the decode runs ("cuda" or
-"cpu"); a mesh of N devices is make_mesh(N, device).
+"cpu"); a mesh of N devices is make_mesh(N, device=device).
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ class Track:
 
 def analyze_capture(
     iq: np.ndarray, cfg: PipelineConfig = DEFAULT_CONFIG, devices: int | None = None, *,
-    device: torch.device | str,
+    device: torch.device | str = "cuda",
 ) -> tuple[dict[int, Track], dict]:
     """A capture -> ({icao: Track}, stats) (airjax/analytics.py:55-152).
     Positions follow the online tracker's pairing rule (the other parity
@@ -64,7 +64,8 @@ def analyze_capture(
         from airjax_torch.parallel.halo import decode_capture_sharded
         from airjax_torch.parallel.mesh import make_mesh
 
-        hits, stats = decode_capture_sharded(iq, make_mesh(devices, device), capacity_per_shard=cfg.max_candidates)
+        hits, stats = decode_capture_sharded(iq, make_mesh(devices, device=device),
+                                             capacity_per_shard=cfg.max_candidates)
     else:
         hits, stats = decode_capture_overlap(iq, cfg, device=device)
     if not hits:
@@ -142,11 +143,11 @@ class ExtendedTrack(Track):
 
 def analyze_capture_extended(
     iq: np.ndarray, ref_position: tuple[float, float] | None = None, capacity_per_shard: int = 2048,
-    devices: int | None = None, *, device: torch.device | str,
+    devices: int | None = None, *, device: torch.device | str = "cuda",
 ) -> tuple[dict[int, ExtendedTrack], dict]:
     """Every Mode S downlink format of a capture -> ({icao: ExtendedTrack},
     stats) (airjax/analytics.py:176-256): the sharded extended decode over
-    make_mesh(devices or 1, device), then the ordered packets replayed
+    make_mesh(devices or 1, device=device), then the ordered packets replayed
     through the live tracker with time = offset / SAMPLE_RATE."""
     from airjax_torch.extended import handle_extended_update
     from airjax_torch.parallel.halo import decode_capture_sharded_extended
@@ -154,7 +155,7 @@ def analyze_capture_extended(
     from airjax_torch.protocol.packet import AdsbPacket, AircraftVelocityMsg
 
     # make_mesh raises on more devices than exist, never uses fewer.
-    mesh = make_mesh(devices or 1, device)
+    mesh = make_mesh(devices or 1, device=device)
     packets, stats = decode_capture_sharded_extended(iq, mesh, capacity_per_shard=capacity_per_shard, now=0.0)
 
     aircrafts: dict = {}

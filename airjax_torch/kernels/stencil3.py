@@ -91,7 +91,7 @@ def magdet_tree_plain(
 
 
 def magdet_tree(
-    iq: torch.Tensor, n_off: int, variant: str
+    iq: torch.Tensor, n_off: int, variant: str = "tree16"
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(L, 2) int16 IQ -> (det (n_off,) uint8, cmp (L-1,) uint8) through
     stencil `variant` (tree32, tree16 or flat16); needs L >= n_off + 25."""

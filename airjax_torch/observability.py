@@ -24,7 +24,7 @@ logger = logging.getLogger("airjax_torch")
 
 
 @contextlib.contextmanager
-def trace(log_dir: str, enabled: bool = True):
+def trace(log_dir: str = "/tmp/airjax_trace", enabled: bool = True):
     """Profile the enclosed block (airjax :28-42) into
     `log_dir`/airjax_torch.<pid>.<ns>.pt.trace.json; the CUDA activity is
     recorded when a card is present. enabled=False does nothing."""

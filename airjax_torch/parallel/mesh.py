@@ -68,7 +68,7 @@ class Mesh:
         return (self.axis,)
 
 
-def make_mesh(n_devices: int | None = None, device: torch.device | str = "cuda", axis: str = TIME_AXIS) -> Mesh:
+def make_mesh(n_devices: int | None = None, axis: str = TIME_AXIS, *, device: torch.device | str = "cuda") -> Mesh:
     """A mesh over the first `n_devices` cards (default: all of them), or
     with device="cpu" over `n_devices` CPU shards (default 1). Raises when
     fewer cards exist than asked for."""

@@ -133,12 +133,12 @@ class ProcessMesh:
         return dist.is_initialized()
 
 
-def global_mesh(local: Mesh | None = None, axis: str = TIME_AXIS) -> ProcessMesh:
+def global_mesh(axis: str = TIME_AXIS, *, local: Mesh | None = None) -> ProcessMesh:
     """The job's mesh over `local`, this rank's shards (default: the card
     init() chose, or the current one; raises without a card)."""
     if local is None:
         if not torch.cuda.is_available():
-            raise RuntimeError("multihost: no CUDA card; pass a mesh (e.g. make_mesh(n, 'cpu'))")
+            raise RuntimeError("multihost: no CUDA card; pass a mesh (e.g. make_mesh(n, device='cpu'))")
         local = Mesh([torch.device("cuda", torch.cuda.current_device())], axis)
     rank, world = (dist.get_rank(), dist.get_world_size()) if dist.is_initialized() else (0, 1)
     return ProcessMesh(local, rank, world)
@@ -198,7 +198,7 @@ def ingest_process_local(local_iq, mesh: Mesh | ProcessMesh | None = None,
     the head of the next global shard (the next rank's, for the last),
     as halo.shard_iq lays them out. Every rank passes a span of the same
     length."""
-    pm = mesh if isinstance(mesh, ProcessMesh) else global_mesh(mesh, axis)
+    pm = mesh if isinstance(mesh, ProcessMesh) else global_mesh(axis, local=mesh)
     local = torch.from_numpy(np.ascontiguousarray(local_iq, dtype=np.int16)) \
         if isinstance(local_iq, np.ndarray) else local_iq.cpu()
     n_global = local.shape[0] * pm.world
@@ -277,7 +277,7 @@ def _dense_step(pm: ProcessMesh, n_global: int, k: int, extended: bool):
 
 def _prepare(local_iq, mesh: Mesh | None, axis: str) -> tuple[ProcessMesh, int, int, list[torch.Tensor]]:
     """(the job's mesh, n_global, block, this rank's shard buffers)."""
-    pm = global_mesh(mesh, axis)
+    pm = global_mesh(axis, local=mesh)
     shards = ingest_process_local(local_iq, pm, axis)
     n_global = len(local_iq) * pm.world
     return pm, n_global, n_global // pm.size, shards
@@ -295,13 +295,14 @@ def _step(pm: ProcessMesh, n_global: int, gather: str, extended: bool):
 
 
 def decode_capture(
-    local_iq, mesh: Mesh | None = None, capacity_per_shard: int = 256, axis: str = TIME_AXIS,
-    gather: str = "compact", compact_capacity: int | None = None,
+    local_iq, capacity_per_shard: int = 256, axis: str = TIME_AXIS, gather: str = "compact",
+    compact_capacity: int | None = None, *, mesh: Mesh | None = None,
 ):
     """Decode a capture whose span is split over the job's processes
     (airjax :60-182). Every rank calls it with its own contiguous span (of
-    equal sizes) and its mesh of shards -> (hits, stats), the same on every
-    rank: hits (0, global_offset, frame_bytes, recovered) in offset order;
+    equal sizes) and, by keyword, `mesh`, its shards (default: the card
+    global_mesh takes) -> (hits, stats), the same on every rank: hits (0,
+    global_offset, frame_bytes, recovered) in offset order;
     stats n_detections, n_good, overflow, capacity_per_shard, and
     compact_capacity, fetched_bytes (compact), processes, devices."""
     pm, n_global, block, shards = _prepare(local_iq, mesh, axis)
@@ -326,8 +327,8 @@ def _gather_extended_arrays(
 
 
 def decode_capture_extended(
-    local_iq, mesh: Mesh | None = None, capacity_per_shard: int = 2048, axis: str = TIME_AXIS, now: float = 0.0,
-    cache=None, gather: str = "compact",
+    local_iq, capacity_per_shard: int = 2048, axis: str = TIME_AXIS, now: float = 0.0, cache=None,
+    gather: str = "compact", *, mesh: Mesh | None = None,
 ):
     """The extended decode (every Mode S downlink format) of a capture
     split over the job (airjax :284-312) -> ([(global_offset, packet)],
@@ -339,7 +340,7 @@ def decode_capture_extended(
     return packets, stats
 
 
-def attach_candidate_fields(gathered: dict, *, device: torch.device | str) -> dict:
+def attach_candidate_fields(gathered: dict, *, device: torch.device | str = "cuda") -> dict:
     """Add `fields` and `short_fields` to a gathered extended candidate
     dict (numpy), in place (airjax :315-332): one block_fields launch over
     its frames and raw frames on `device`, the input of
@@ -351,8 +352,8 @@ def attach_candidate_fields(gathered: dict, *, device: torch.device | str) -> di
 
 
 def decode_capture_extended_batched(
-    local_iq, tracker, mesh: Mesh | None = None, capacity_per_shard: int = 2048, axis: str = TIME_AXIS,
-    now: float = 0.0, cache=None, gather: str = "compact",
+    local_iq, tracker, capacity_per_shard: int = 2048, axis: str = TIME_AXIS, now: float = 0.0, cache=None,
+    gather: str = "compact", *, mesh: Mesh | None = None,
 ):
     """The extended decode of a capture split over the job into a batched
     tracker (airjax :335-360): every rank gathers the same candidates, adds

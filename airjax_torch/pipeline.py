@@ -325,7 +325,7 @@ def _as_numpy(out: dict) -> dict:
 
 
 def decode_iq_block_adaptive(
-    iq_block: np.ndarray, n_off: int, capacity: int, device: torch.device | str
+    iq_block: np.ndarray, n_off: int, capacity: int, *, device: torch.device | str = "cuda"
 ) -> dict[str, np.ndarray]:
     """Decode one block, growing capacity 4x on overflow until it fits
     (airjax/pipeline.py:341-357). Returns host arrays."""
@@ -372,7 +372,7 @@ def reference_chunk_count(n_samples: int, chunk: int = 20000) -> int:
 
 
 def decode_capture_parity(
-    iq: np.ndarray, cfg: PipelineConfig = DEFAULT_CONFIG, fused: bool = True, *, device: torch.device | str
+    iq: np.ndarray, cfg: PipelineConfig = DEFAULT_CONFIG, fused: bool = True, *, device: torch.device | str = "cuda"
 ) -> tuple[list[Hit], dict]:
     """Decode a capture with exact reference playback semantics
     (airjax/pipeline.py:399-459).
@@ -424,7 +424,7 @@ def _count_chunked_detections(iq: torch.Tensor, chunk: int, n_chunks: int) -> to
 
 
 def decode_capture_overlap(
-    iq: np.ndarray, cfg: PipelineConfig = DEFAULT_CONFIG, *, device: torch.device | str
+    iq: np.ndarray, cfg: PipelineConfig = DEFAULT_CONFIG, *, device: torch.device | str = "cuda"
 ) -> tuple[list[Hit], dict]:
     """Decode a capture with the overlap-save decomposition, no frame loss
     (airjax/pipeline.py:497-510). Hits are (block_index, global_offset,
@@ -494,7 +494,7 @@ def _collect_hits(
     hits = []
     for b in range(out["offsets"].shape[0]):
         if blocks is not None and bool(out["overflow"][b]):
-            res = decode_iq_block_adaptive(blocks[b], n_off, capacity, device)
+            res = decode_iq_block_adaptive(blocks[b], n_off, capacity, device=device)
         else:
             res = {k: out[k][b] for k in ("good", "offsets", "frames", "recovered")}
         for k in np.nonzero(res["good"])[0]:

@@ -107,18 +107,21 @@ def pack_bits_msbfirst(bits: torch.Tensor, width: int) -> torch.Tensor:
     return (bits.to(torch.int32) * weights).sum(dim=-1, dtype=torch.int32)
 
 
-def crc24_batch(bits88: torch.Tensor, tab: CrcTables) -> torch.Tensor:
+def crc24_batch(bits88: torch.Tensor, tab: CrcTables | None = None) -> torch.Tensor:
     """(..., 88) {0,1} -> (...,) int32 CRC. The f32 product is exact:
-    every column sum is an integer <= 88."""
+    every column sum is an integer <= 88. `tab` defaults to this module's
+    tables on the bits' device."""
+    tab = tab or tables(bits88.device)
     sums = torch.matmul(bits88.to(torch.float32), tab.matrix).to(torch.int32)
     return pack_bits_msbfirst(sums & 1, CRC_BITS)
 
 
 def crc_check_and_recover(
-    bits112: torch.Tensor, tab: CrcTables
+    bits112: torch.Tensor, tab: CrcTables | None = None
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(N, 112) {0,1} bits -> (corrected bits, good (N,) bool, recovered
-    (N,) bool), as airjax/protocol/crc.py:108-135."""
+    (N,) bool), as airjax/protocol/crc.py:108-135; `tab` as crc24_batch's."""
+    tab = tab or tables(bits112.device)
     calced = crc24_batch(bits112[..., :DATA_BITS], tab)
     packet_crc = pack_bits_msbfirst(bits112[..., DATA_BITS:], CRC_BITS)
     delta = calced ^ packet_crc
@@ -171,11 +174,11 @@ def _pair_tables() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
 
 
 def crc_check_and_recover2(
-    bits112: torch.Tensor, tab: CrcTables
+    bits112: torch.Tensor, tab: CrcTables | None = None
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(N, 112) {0,1} bits -> (corrected bits, good (N,) bool: direct,
     1-flip or 2-flip, recovered (N,) bool: 1-flip, recovered2 (N,) bool:
-    2-flip), as airjax/protocol/crc.py:159-189.
+    2-flip), as airjax/protocol/crc.py:159-189; `tab` as crc24_batch's.
 
     A >= 3-bit error can sit within distance 2 of a different codeword,
     so callers gate `recovered2` frames on an ICAO already validated

@@ -224,15 +224,15 @@ def run_stream(
     on_packet: Callable[[AdsbPacket], None],
     cfg: PipelineConfig = DEFAULT_CONFIG,
     overlap: bool = True,
-    extended: bool = False,
-    *,
-    device: torch.device | str,
-    stats: StreamStats | None = None,
-    recover2: bool = False,
-    plot_dir: str | None = None,
-    dump_preamble: bool = False,
-    pipeline_depth: int = 1,
     prefetch_depth: int = 4,
+    stats: StreamStats | None = None,
+    plot_dir: str | None = None,
+    extended: bool = False,
+    pipeline_depth: int = 1,
+    dump_preamble: bool = False,
+    recover2: bool = False,
+    *,
+    device: torch.device | str = "cuda",
 ) -> StreamStats:
     """Consume a block source until exhausted; call on_packet per packet
     (with extended=True, also AllCallReply, SurveillanceReply, AcasReply
@@ -243,7 +243,10 @@ def run_stream(
     (airjax/runner.py:105-116, :382-407): block k+1's upload and kernels
     overlap block k's fetch and packet assembly. Packets come out in stream
     order at every depth; 0 is the serial form. prefetch_depth bounds the
-    source's read-ahead queue (io.source.Prefetcher)."""
+    source's read-ahead queue (io.source.Prefetcher).
+
+    The parameters are airjax's, in airjax's order; `device`, by keyword,
+    is where the blocks decode (the card unless the caller asks for "cpu")."""
     stats = stats or StreamStats()
     # A batched sink (track.batch): on_fields in DF17 mode, on_extended_block
     # in extended mode; any other sink, or the debug aids, take packets.
@@ -376,10 +379,10 @@ def run_stream_sharded(
     pipeline_depth: int = 1,
     recover2: bool = False,
     *,
-    device: torch.device | str | None = None,
+    device: torch.device | str = "cuda",
 ) -> StreamStats:
     """The stream decoded over a mesh (airjax/runner.py:410-686): `mesh`, or
-    make_mesh(n_devices, device).
+    make_mesh(n_devices, device=device) (the cards, unless device="cpu").
 
     Blocks are gathered into steps of T = shard_block * D samples; a step is
     the compact sharded decode (parallel/halo.py: each shard's front and
@@ -415,9 +418,7 @@ def run_stream_sharded(
     from airjax_torch.pipeline import pad_iq_non_detecting
 
     if mesh is None:
-        if device is None:
-            raise ValueError("run_stream_sharded: give a mesh or a device")
-        mesh = make_mesh(n_devices, device)
+        mesh = make_mesh(n_devices, device=device)
     n_dev = mesh.size
     axis = mesh.axis
     stats = stats or StreamStats()

@@ -56,7 +56,7 @@ def make_blocks(block_len: int, n_blocks: int, seed: int = 0, *, device: torch.d
     return blocks
 
 
-def run_once(blocks, depth: int, *, device: torch.device | str) -> dict:
+def run_once(blocks, depth: int, *, device: torch.device | str = "cuda") -> dict:
     """One stream over the blocks -> the JAX tool's row, and the host's
     seconds in each of run_stream's stages (dispatch, fetch, apply)."""
     t0 = time.perf_counter()

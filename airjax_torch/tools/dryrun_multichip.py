@@ -156,7 +156,7 @@ def main(argv=None) -> int:
                    help="cuda (default; raises without a card) or N CPU shards")
     args = p.parse_args(argv)
     if args.torch_device == "cpu":
-        mesh = make_mesh(args.n, "cpu")
+        mesh = make_mesh(args.n, device="cpu")
     elif args.one_card:
         if not torch.cuda.is_available():
             raise RuntimeError("--one-card: no CUDA card")

@@ -124,7 +124,7 @@ def main(argv=None) -> int:
     rows, base_rate, wrong = [], {}, []
     for n_dev in sizes:
         if cpu:
-            mesh = make_mesh(n_dev, "cpu")
+            mesh = make_mesh(n_dev, device="cpu")
         elif args.one_card:
             mesh = Mesh([torch.device("cuda", 0)] * n_dev)
         else:

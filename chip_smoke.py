@@ -151,6 +151,9 @@ Phases; any failure raises and the exit code is nonzero:
      byte reader, pack_cmp_words_reduce, compact_detections' tiles,
      compact_mask, decode_mags_block_r2) on the card == the CPU, and
      decode_iq_block_kernel == decode_iq_block in the same two launches;
+     last, airjax's own calls with no device, decode_capture_overlap(iq)
+     and run_stream(blocks, cb, DEFAULT_CONFIG, True, 2), run on the card
+     (fronts and block decodes launched), == their device="cuda" forms;
  18. the measuring harness: airjax_torch.bench.bench() at its default size
      (R passes in one CUDA graph): the contract's keys, 1024 of 1024 frames
      a pass, the graph's counts == one eager pass's, the wrappers'
@@ -2239,7 +2242,7 @@ def phase_sharded(dev: torch.device, tracker_iq: np.ndarray, capture) -> tuple[l
 
     steps = {}
     for name, mesh, k, k_ext in (("4 shards of the card", Mesh([dev] * SHARDS), CAPACITY, 1 << 15),
-                                 ("make_mesh(1)", make_mesh(1, dev), 4 * CAPACITY, 1 << 17)):
+                                 ("make_mesh(1)", make_mesh(1, device=dev), 4 * CAPACITY, 1 << 17)):
         d = mesh.size
         for extended in (False, True):
             kw = (dict(capacity_per_shard=k_ext) if extended else
@@ -2348,7 +2351,7 @@ def phase_sharded(dev: torch.device, tracker_iq: np.ndarray, capture) -> tuple[l
         chans.append(synth.modulate(fr, list(map(int, offs)), CHANNEL_SAMPLES, noise_std=60.0, seed=80 + c))
         embedded.append(list(zip(offs.tolist(), fr)))
     chans = np.stack(chans)
-    mesh_c = make_mesh(1, dev, axis="c")
+    mesh_c = make_mesh(1, "c", device=dev)
     channels.decode_channels(chans, mesh_c)
     with counted() as n:
         t0 = time.perf_counter()
@@ -2430,15 +2433,15 @@ def mh_paths(local_iq: np.ndarray, mesh, timed: bool) -> dict:
 
     def run(name):
         if name == "decode_capture":
-            hits, stats = multihost.decode_capture(local_iq, mesh, capacity_per_shard=CAPACITY,
-                                                   compact_capacity=2 * SHARD_FRAMES)
+            hits, stats = multihost.decode_capture(local_iq, capacity_per_shard=CAPACITY,
+                                                   compact_capacity=2 * SHARD_FRAMES, mesh=mesh)
             return [[h[1], h[2].hex(), h[3]] for h in hits], stats
         if name == "decode_capture_extended":
-            packets, stats = multihost.decode_capture_extended(local_iq, mesh, capacity_per_shard=1 << 15, now=5.0)
+            packets, stats = multihost.decode_capture_extended(local_iq, capacity_per_shard=1 << 15, now=5.0, mesh=mesh)
             return [[o, repr(p)] for o, p in packets], stats
         tracker = ExtendedBatchTracker()
-        applied, stats = multihost.decode_capture_extended_batched(local_iq, tracker, mesh,
-                                                                   capacity_per_shard=1 << 15, now=5.0)
+        applied, stats = multihost.decode_capture_extended_batched(local_iq, tracker, capacity_per_shard=1 << 15,
+                                                                   now=5.0, mesh=mesh)
         return [applied, mh_canonical(tracker.aircrafts)], stats
 
     out = {}
@@ -3056,8 +3059,12 @@ def phase_names(dev: torch.device, frames: list[bytes], offsets: np.ndarray) -> 
     decode path runs, on the card against their CPU results: the u32 magnitudes, slice_bits (its clamps), the sparse
     byte reader, pack_cmp_words_reduce, compact_detections at several
     tiles, pipeline.compact_mask, decode_mags_block_r2, and
-    decode_iq_block_kernel == decode_iq_block in the same two launches."""
-    from airjax_torch import config, pipeline
+    decode_iq_block_kernel == decode_iq_block in the same two launches.
+    Last, airjax's own calls with no device, decode_capture_overlap(iq)
+    and run_stream(blocks, cb, DEFAULT_CONFIG, True, 2), on the capture's
+    first 2^21 samples: they run on the card (the front and the block
+    decode launched) and equal the same calls with device="cuda"."""
+    from airjax_torch import config, pipeline, runner
     from airjax_torch.dsp import demod, magnitude
     from airjax_torch.io import synth
     from airjax_torch.parallel import mesh
@@ -3172,6 +3179,28 @@ def phase_names(dev: torch.device, frames: list[bytes], offsets: np.ndarray) -> 
     check(launches == ONE_PASS, f"decode_iq_block_kernel: not the front and the block decode once each: {launches}")
     check(all(np.array_equal(got[k], out[k]) for k in out) and sorted(got) == sorted(out),
           "decode_iq_block_kernel != decode_iq_block")
+
+    # airjax's calls, as written for airjax: no device, the card by default.
+    head_iq = cap[: 1 << 21].cpu().numpy()
+
+    def stream(**kw):
+        got = []
+        stats = runner.run_stream((head_iq[i : i + 20000] for i in range(0, len(head_iq), 20000)), got.append,
+                                  config.DEFAULT_CONFIG, True, 2, **kw)
+        return [p.packet for p in got], stats.good
+
+    with counted() as bare_launches:
+        bare = pipeline.decode_capture_overlap(head_iq), stream()
+    named = pipeline.decode_capture_overlap(head_iq, device="cuda"), stream(device="cuda")
+    n_head = sum(o < len(head_iq) - 240 for o in offs)
+    check(bare == named, "airjax's calls with no device != the same calls with device='cuda'")
+    check(len(bare[0][0]) == n_head and bare[1][1] == n_head,
+          f"airjax's calls with no device: {len(bare[0][0])} hits, {bare[1][1]} packets, not the {n_head} embedded")
+    check(bare_launches["magdet_bits"] > 0 and bare_launches["block_decode"] > 0,
+          f"airjax's calls with no device launched no kernel on the card: {bare_launches}")
+    print(f"airjax's calls with no device on {nvidia_smi()}: decode_capture_overlap(iq) and run_stream(blocks, cb, "
+          f"DEFAULT_CONFIG, True, 2) == their device='cuda' forms, {n_head} frames each; launches "
+          f"{json.dumps({k: v for k, v in bare_launches.items() if v})}")
     print(f"phase 17: {len(pairs)} results of the A16 functions on the card == the CPU's; decode_iq_block_kernel == "
           f"decode_iq_block in {launches['magdet_bits']} + {launches['block_decode']} launches; "
           f"{time.perf_counter() - t_phase:.1f} s")

@@ -55,7 +55,7 @@ def test_eight_channels_match_single_device(jmesh, shards):
         channels_iq.append(synth.modulate([frame] * 2, offs, n, seed=ch))
         expected.append((offs, frame))
     iq = np.stack(channels_iq)
-    results = channels.decode_channels(iq, make_mesh(shards, "cpu", axis="c"))
+    results = channels.decode_channels(iq, make_mesh(shards, "c", device="cpu"))
     assert results == jchannels.decode_channels(iq, jmesh)
     for ch, (offs, frame) in enumerate(expected):
         assert {(o, frame) for o in offs} <= {(h[1], h[2]) for h in results[ch]}
@@ -68,7 +68,7 @@ def test_channels_regrow_on_overflow(jmesh):
     frame = synth.make_df17(0x7C6B30, synth.make_id_me("CHOVFL"))
     offs = [500, 2000, 3500, 5000, 6500]
     iq = np.stack([synth.modulate([frame] * len(offs), offs, n, seed=9)] + [synth.modulate([], [], n, seed=10)] * 7)
-    results = channels.decode_channels(iq, make_mesh(8, "cpu", axis="c"), capacity=1)
+    results = channels.decode_channels(iq, make_mesh(8, "c", device="cpu"), capacity=1)
     assert results == jchannels.decode_channels(iq, jmesh, capacity=1)
     assert {h[1] for h in results[0] if h[2] == frame} >= set(offs)
 
@@ -78,7 +78,7 @@ def test_channels_extended_regrow_on_overflow(jmesh):
     df11 = shortframe.make_df11(0x40621D)
     offs = [500, 2000, 3500, 5000]
     iq = np.stack([synth.modulate([df11] * len(offs), offs, n, seed=11)] + [synth.modulate([], [], n, seed=12)] * 7)
-    results = channels.decode_channels_extended(iq, make_mesh(8, "cpu", axis="c"), capacity=1, now=100.0)
+    results = channels.decode_channels_extended(iq, make_mesh(8, "c", device="cpu"), capacity=1, now=100.0)
     assert _packets(results) == _packets(jchannels.decode_channels_extended(iq, jmesh, capacity=1, now=100.0))
     by_off = dict(results[0])
     assert all(isinstance(by_off[o], AllCallReply) for o in offs)
@@ -89,7 +89,7 @@ def test_channel_cpr_position_decode(jmesh):
     f_even = synth.make_df17(0x40621D, bytes.fromhex("58c382d690c8ac"))
     f_odd = synth.make_df17(0x40621D, bytes.fromhex("58c386435cc412"))
     iq = np.stack([synth.modulate([f_odd, f_even], [400, 3000], n, seed=42)] + [synth.modulate([], [], n, seed=43)] * 7)
-    results = channels.decode_channels(iq, make_mesh(8, "cpu", axis="c"))
+    results = channels.decode_channels(iq, make_mesh(8, "c", device="cpu"))
     assert results == jchannels.decode_channels(iq, jmesh)
     aircrafts = {}
     for _, _, frame, _ in results[0]:
@@ -105,7 +105,7 @@ def test_extended_channels(jmesh, shards):
     df11, df4 = shortframe.make_df11(0x7C6B30, capability=5), shortframe.make_df4(0x7C6B30, altitude_ft=12000)
     iq = np.stack([synth.modulate([df4], [900], 4000, seed=43) if c == 3 else
                    synth.modulate([df11, df4], [300, 1500], 4000, seed=40 + c) for c in range(8)])
-    results = channels.decode_channels_extended(iq, make_mesh(shards, "cpu", axis="c"), now=100.0)
+    results = channels.decode_channels_extended(iq, make_mesh(shards, "c", device="cpu"), now=100.0)
     assert _packets(results) == _packets(jchannels.decode_channels_extended(iq, jmesh, now=100.0))
     for c, pkts in enumerate(results):
         kinds = {type(p).__name__ for _, p in pkts}
@@ -120,14 +120,14 @@ def test_channel_step_equals_airjax(jmesh, extended):
     jbuild = jchannels.build_channel_decoder_extended if extended else jchannels.build_channel_decoder
     tbuild = channels.build_channel_decoder_extended if extended else channels.build_channel_decoder
     want = jax.device_get(jbuild(jmesh, 8, 3000 - 239, 16)(jnp.asarray(iq)))
-    assert_same_dict(want, pipeline.to_host(tbuild(make_mesh(8, "cpu", axis="c"), 8, 3000 - 239, 16)(iq)))
+    assert_same_dict(want, pipeline.to_host(tbuild(make_mesh(8, "c", device="cpu"), 8, 3000 - 239, 16)(iq)))
 
 
 def test_channels_raise_and_short_input():
     with pytest.raises(ValueError, match="not divisible"):
-        channels.build_channel_decoder(make_mesh(3, "cpu", axis="c"), 8, 1000, 16)
+        channels.build_channel_decoder(make_mesh(3, "c", device="cpu"), 8, 1000, 16)
     with pytest.raises(KeyError):
-        channels.build_channel_decoder(make_mesh(8, "cpu"), 8, 1000, 16)  # a time axis, not a channel axis
+        channels.build_channel_decoder(make_mesh(8, device="cpu"), 8, 1000, 16)  # a time axis, not a channel axis
     short = np.zeros((8, 239, 2), np.int16)
-    assert channels.decode_channels(short, make_mesh(8, "cpu", axis="c")) == [[]] * 8
-    assert channels.decode_channels_extended(short, make_mesh(8, "cpu", axis="c")) == [[]] * 8
+    assert channels.decode_channels(short, make_mesh(8, "c", device="cpu")) == [[]] * 8
+    assert channels.decode_channels_extended(short, make_mesh(8, "c", device="cpu")) == [[]] * 8

@@ -90,6 +90,22 @@ def test_crc_check_and_recover_matches_airjax():
     assert int(r_t.sum()) == 40 and int(g_t.sum()) == 80
 
 
+@pytest.mark.parametrize("fn", ["crc24_batch", "crc_check_and_recover", "crc_check_and_recover2"])
+def test_crc_needs_no_tables_as_airjax(fn):
+    """airjax's call, with no tables: the port takes its own on the bits'
+    device, the same result as with tables("cpu") passed, and airjax's."""
+    frames = _frames_with_flips(np.random.default_rng(16))
+    bits = np.unpackbits(np.frombuffer(b"".join(frames), np.uint8)).reshape(-1, 112)
+    if fn == "crc24_batch":
+        bits = bits[:, :88]
+    ours = getattr(tcrc, fn)(torch.as_tensor(bits))
+    with_tables = getattr(tcrc, fn)(torch.as_tensor(bits), tcrc.tables("cpu"))
+    theirs = getattr(jcrc, fn)(jnp.asarray(bits))
+    for o, w, t in zip(*(r if isinstance(r, tuple) else (r,) for r in (ours, with_tables, theirs)), strict=True):
+        assert torch.equal(o, w)
+        assert_same(np.asarray(t).astype(np.int32) if fn == "crc24_batch" else np.asarray(t), o, fn)
+
+
 def _candidate_case(kind: str, seed: int):
     """Packed words and candidate offsets, shaped like one decoded block."""
     rng = np.random.default_rng(seed)

@@ -662,8 +662,8 @@ def test_sharded_paths_on_card_match_cpu(cuda_device):  # noqa: F811
                            for a, t in tracker.aircrafts.items()}, {k: stats[k] for k in ("good", "detections")}))
     assert summaries[0] == summaries[1] and summaries[0][0]
     chans = np.stack([_traffic(40_000, s, spacing=3001)[0] for s in range(4)])
-    assert channels.decode_channels(chans, make_mesh(1, cuda_device, axis="c")) == channels.decode_channels(
-        chans, make_mesh(1, "cpu", axis="c"))
+    assert channels.decode_channels(chans, make_mesh(1, "c", device=cuda_device)) == channels.decode_channels(
+        chans, make_mesh(1, "c", device="cpu"))
     for analyze in (analytics.analyze_capture, analytics.analyze_capture_extended):
         got, want = analyze(iq, devices=1, device=cuda_device), analyze(iq, devices=1, device="cpu")
         assert repr(got) == repr(want) and got[0]
@@ -793,10 +793,10 @@ def test_multihost_and_parity_on_card_match_cpu(cuda_device):  # noqa: F811
 
     iq = _mixed(4 * 65536, 5)
     for gather in ("compact", "dense"):
-        got = multihost.decode_capture(iq, Mesh([cuda_device] * 4), gather=gather)
-        assert got == multihost.decode_capture(iq, Mesh(["cpu"] * 4), gather=gather) and got[0]
-        got = multihost.decode_capture_extended(iq, Mesh([cuda_device] * 4), now=1.0, gather=gather)
-        want = multihost.decode_capture_extended(iq, Mesh(["cpu"] * 4), now=1.0, gather=gather)
+        got = multihost.decode_capture(iq, gather=gather, mesh=Mesh([cuda_device] * 4))
+        assert got == multihost.decode_capture(iq, gather=gather, mesh=Mesh(["cpu"] * 4)) and got[0]
+        got = multihost.decode_capture_extended(iq, now=1.0, gather=gather, mesh=Mesh([cuda_device] * 4))
+        want = multihost.decode_capture_extended(iq, now=1.0, gather=gather, mesh=Mesh(["cpu"] * 4))
         assert [(o, repr(p)) for o, p in got[0]] == [(o, repr(p)) for o, p in want[0]] and got[1] == want[1]
     cfg = PipelineConfig(block_len=20000)
     gold = golden.decode_capture_playback(iq)

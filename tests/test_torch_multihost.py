@@ -49,7 +49,7 @@ def _airjax_steps_once():
 @pytest.fixture(scope="module")
 def mesh():
     assert jmultihost.global_mesh().shape["t"] == 8, "conftest should provide 8 virtual devices"
-    return make_mesh(8, "cpu")
+    return make_mesh(8, device="cpu")
 
 
 def packets(pkts) -> list:
@@ -63,7 +63,7 @@ def packets(pkts) -> list:
 
 def test_init_single_process():
     assert multihost.init() == jmultihost.init() == (0, 1)
-    pm = multihost.global_mesh(make_mesh(3, "cpu"))
+    pm = multihost.global_mesh(local=make_mesh(3, device="cpu"))
     assert (pm.rank, pm.world, pm.size, pm.first_shard, pm.shape) == (0, 1, 3, 0, {"t": 3})
 
 
@@ -81,10 +81,31 @@ def test_decode_capture_single_process(mesh):
     frame = synth.make_df17(ICAO, synth.make_id_me("MHOST"))
     offsets = [700, 4096 - 100, n - 2000]  # includes a shard straddle
     iq = synth.modulate([frame] * len(offsets), offsets, n, seed=5)
-    hits, stats = multihost.decode_capture(iq, mesh)
+    hits, stats = multihost.decode_capture(iq, mesh=mesh)
     assert (hits, stats) == jmultihost.decode_capture(iq)
     assert {h[1] for h in hits if h[2] == frame} >= set(offsets)
     assert stats["processes"] == 1 and stats["devices"] == 8
+
+
+@pytest.mark.parametrize("axis", ["t", "c"])
+def test_meshes_take_airjax_positional_axis(axis):
+    """make_mesh(n, axis) and global_mesh(axis) take airjax's positional
+    axis; the device and the local mesh come by keyword."""
+    assert make_mesh(2, axis, device="cpu").axis == axis
+    assert list(make_mesh(2, axis, device="cpu").devices) == [torch.device("cpu")] * 2
+    pm = multihost.global_mesh(axis, local=make_mesh(1, axis, device="cpu"))
+    assert pm.local.axis == axis and pm.shape == {axis: 1}
+
+
+def test_decode_capture_binds_airjax_positional_arguments(mesh):
+    """airjax's decode_capture(iq, 64): 64 is capacity_per_shard on both
+    (the port's mesh by keyword), the same hits and stats."""
+    n = 4096 * 8
+    frames = [synth.make_df17(ICAO + i, synth.make_id_me(f"POS{i}")) for i in range(3)]
+    iq = synth.modulate(frames, [900, 4096 * 3 - 50, n - 3000], n, seed=16)
+    hits, stats = multihost.decode_capture(iq, 64, mesh=mesh)
+    assert (hits, stats) == jmultihost.decode_capture(iq, 64)
+    assert [h[2] for h in hits] == frames and stats["capacity_per_shard"] == 64
 
 
 def test_decode_capture_extended_single_process(mesh):
@@ -94,7 +115,7 @@ def test_decode_capture_extended_single_process(mesh):
     df4 = shortframe.make_df4(0x40621D, 9000)
     offsets = [700, 4096 - 60, n - 2000]  # the DF11 straddles a shard edge; the DF4 is cache-gated
     iq = synth.modulate([frame, df11, df4], offsets, n, seed=6)
-    got, stats = multihost.decode_capture_extended(iq, mesh, now=100.0)
+    got, stats = multihost.decode_capture_extended(iq, now=100.0, mesh=mesh)
     want, jstats = jmultihost.decode_capture_extended(iq, now=100.0)
     assert packets(got) == packets(want) and stats == jstats
     kinds = {off: type(p).__name__ for off, p in got}
@@ -107,7 +128,7 @@ def test_decode_capture_regrows_on_overflow(mesh, gather):
     frame = synth.make_df17(ICAO, synth.make_id_me("MHOVF"))
     offsets = [300, 1200, 2400, n - 2000]  # three in shard 0: capacity 1 overflows
     iq = synth.modulate([frame] * len(offsets), offsets, n, seed=7)
-    hits, stats = multihost.decode_capture(iq, mesh, capacity_per_shard=1, gather=gather)
+    hits, stats = multihost.decode_capture(iq, capacity_per_shard=1, gather=gather, mesh=mesh)
     assert (hits, stats) == jmultihost.decode_capture(iq, capacity_per_shard=1, gather=gather)
     assert {h[1] for h in hits if h[2] == frame} >= set(offsets)
     assert stats["capacity_per_shard"] > 1 and not stats["overflow"]
@@ -119,7 +140,7 @@ def test_decode_capture_extended_regrows_on_overflow(mesh, gather):
     df11 = shortframe.make_df11(0x40621D)
     offsets = [300, 1200, 2400, n - 2000]
     iq = synth.modulate([df11] * len(offsets), offsets, n, seed=8)
-    got, stats = multihost.decode_capture_extended(iq, mesh, capacity_per_shard=1, now=100.0, gather=gather)
+    got, stats = multihost.decode_capture_extended(iq, capacity_per_shard=1, now=100.0, gather=gather, mesh=mesh)
     want, jstats = jmultihost.decode_capture_extended(iq, capacity_per_shard=1, now=100.0, gather=gather)
     assert packets(got) == packets(want) and stats == jstats
     assert {off for off, p in got if type(p).__name__ == "AllCallReply"} >= set(offsets)
@@ -136,12 +157,12 @@ def test_decode_capture_extended_batched_matches_per_packet(mesh):
                                                      odd=False)),
     ]
     iq = synth.modulate(frames, [700, 4096 - 60, 9000, n - 2000], n, seed=12)
-    pkts, _ = multihost.decode_capture_extended(iq, mesh, now=100.0)
+    pkts, _ = multihost.decode_capture_extended(iq, now=100.0, mesh=mesh)
     per: dict = {}
     for _, pkt in pkts:
         handle_extended_update(pkt, per)
     tracker = ExtendedBatchTracker()
-    applied, stats = multihost.decode_capture_extended_batched(iq, tracker, mesh, now=100.0)
+    applied, stats = multihost.decode_capture_extended_batched(iq, tracker, now=100.0, mesh=mesh)
     jtracker = JExtendedBatchTracker()
     assert (applied, stats) == jmultihost.decode_capture_extended_batched(iq, jtracker, now=100.0)
     assert applied == len(pkts) == 4 and stats["devices"] == 8
@@ -184,8 +205,8 @@ def test_compact_matches_dense(mesh):
     frame = synth.make_df17(ICAO, synth.make_id_me("PODCMP"))
     offsets = sorted(int(o) for o in rng.choice(np.arange(0, (8 * block - 240) // 300) * 300, 24, replace=False))
     iq = synth.modulate([frame] * len(offsets), offsets, 8 * block, seed=1)
-    dh, ds = multihost.decode_capture(iq, mesh, capacity_per_shard=64, gather="dense")
-    ch, cs = multihost.decode_capture(iq, mesh, capacity_per_shard=64, gather="compact")
+    dh, ds = multihost.decode_capture(iq, capacity_per_shard=64, gather="dense", mesh=mesh)
+    ch, cs = multihost.decode_capture(iq, capacity_per_shard=64, gather="compact", mesh=mesh)
     assert ch == dh and cs["n_good"] == ds["n_good"] == len(offsets)
     assert cs["fetched_bytes"] == len(offsets) * 22
     assert (ch, cs) == jmultihost.decode_capture(iq, capacity_per_shard=64, gather="compact")
@@ -200,9 +221,9 @@ def test_extended_batched_compact(mesh):
     df4 = shortframe.make_df4(ICAO, altitude_ft=12000)
     iq = synth.modulate([df11, df4, frame], [200, block - 60, 2000], 8 * block, seed=2)
     td = ExtendedBatchTracker()
-    ad, sd = multihost.decode_capture_extended_batched(iq, td, mesh, now=100.0, gather="dense")
+    ad, sd = multihost.decode_capture_extended_batched(iq, td, now=100.0, gather="dense", mesh=mesh)
     tc = ExtendedBatchTracker()
-    ac, sc = multihost.decode_capture_extended_batched(iq, tc, mesh, now=100.0, gather="compact")
+    ac, sc = multihost.decode_capture_extended_batched(iq, tc, now=100.0, gather="compact", mesh=mesh)
     assert ac == ad and sc["n_candidates"] >= 3
     assert tc.aircrafts[ICAO].altitude == td.aircrafts[ICAO].altitude == 12000
     assert tc.aircrafts[ICAO].get_callsign() == td.aircrafts[ICAO].get_callsign()

@@ -12,6 +12,13 @@ __graft_entry__.py and five root tools) is held the same way to its twin
 in the port (HARNESS). Every root tool (tools/*.py) has a twin in the port
 (ROOT_TWINS): a port file that exists, or the chip_smoke.py phase that
 stands in for it.
+
+A call written for airjax must also mean the same on the port: for each
+public function and method, airjax's positional parameters (less
+NOT_PORTED's) are a prefix of the port's, every parameter only the port
+has takes a default, and every default of airjax's is the port's too, as
+source text. The only exceptions are SIGNATURES_DIFFER's, whose order and
+own parameters may differ (their defaults may not).
 """
 
 import ast
@@ -47,6 +54,13 @@ NOT_PORTED = {
     "airjax/parallel/mesh.py::time_sharding": "a jax NamedSharding; the port places shards by hand (halo.shard_iq)",
     "airjax/parallel/mesh.py::replicated": "a jax NamedSharding; the port keeps the gathered buffer on the mesh's "
                                            "first device (kernels/shard_gather.py)",
+}
+
+# The functions whose positional parameters may differ from airjax's, each
+# with its reason; airjax's defaults still hold.
+SIGNATURES_DIFFER = {
+    "airjax/kernels/stencil3.py::magdet_tree": "the port takes unpadded IQ and its n_off second (required), where "
+                                               "airjax takes IQ padded to the TPU tile geometry (B5)",
 }
 
 MODULES = sorted(p.relative_to(AIRJAX).as_posix() for p in AIRJAX.rglob("*.py"))
@@ -162,12 +176,41 @@ def _missing_params(where: str, ours: ast.AST, port: ast.AST) -> list[str]:
     return [f"{where}({p})" for p in names if p not in port_names and not port_kwargs]
 
 
+def _signature(fn: ast.FunctionDef) -> tuple[list[str], list[str], dict[str, str]]:
+    """(positional parameters, keyword-only ones, {parameter: its default's source})."""
+    a = fn.args
+    positional = a.posonlyargs + a.args
+    defaults = {p.arg: ast.unparse(d) for p, d in zip(positional[len(positional) - len(a.defaults):], a.defaults)}
+    defaults |= {p.arg: ast.unparse(d) for p, d in zip(a.kwonlyargs, a.kw_defaults) if d is not None}
+    return [p.arg for p in positional], [p.arg for p in a.kwonlyargs], defaults
+
+
+def _signature_faults(where: str, ours: ast.AST, port: ast.AST) -> list[str]:
+    """Where a call valid for airjax's signature would bind otherwise on
+    the port's, or raise: airjax's positional parameters (less
+    NOT_PORTED's) not a prefix of the port's, a parameter only the port
+    has with no default, a default of airjax's the port lacks or changes."""
+    if not all(isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef)) for f in (ours, port)):
+        return []  # a gap of _missing_params's
+    positional, keyword, defaults = _signature(ours)
+    port_positional, port_keyword, port_defaults = _signature(port)
+    positional = [p for p in positional if f"{where}({p})" not in NOT_PORTED]
+    faults = [] if port_positional[:len(positional)] == positional else [
+        f"{where} (positional: airjax's {positional}, the port's {port_positional})"]
+    faults += [f"{where}({p}) (only the port's, with no default)" for p in port_positional + port_keyword
+               if p not in positional + keyword and p not in port_defaults and f"{where}({p})" not in NOT_PORTED]
+    faults += [f"{where}({p}) (airjax's default {d}, the port's {port_defaults.get(p)})" for p, d in defaults.items()
+               if p in port_positional + port_keyword and port_defaults.get(p) != d]
+    return faults
+
+
 def _gaps(rel: str, port_defs: dict[str, ast.AST] | None = None, root: pathlib.Path = AIRJAX,
-          port_rel: str | None = None) -> list[str]:
+          port_rel: str | None = None, check=_missing_params) -> list[str]:
     """Every name, member and parameter of module `rel` under `root`
     (airjax/ unless given) that the port module `port_rel` (by default of
     the same path under airjax_torch/; or one binding `port_defs`) lacks,
-    as NOT_PORTED keys."""
+    as NOT_PORTED keys; with check=_signature_faults, also each function's
+    signature faults."""
     port_rel = port_rel or rel
     key = f"{(root / rel).relative_to(REPO).as_posix()}::"
     if port_defs is None and not (PORT / port_rel).exists():
@@ -190,9 +233,9 @@ def _gaps(rel: str, port_defs: dict[str, ast.AST] | None = None, root: pathlib.P
                 if member not in port_members:
                     gaps.append(f"{key}{name}.{member}")
                 else:
-                    gaps += _missing_params(f"{key}{name}.{member}", sub, port_members[member])
+                    gaps += check(f"{key}{name}.{member}", sub, port_members[member])
         else:
-            gaps += _missing_params(key + name, node, port)
+            gaps += check(key + name, node, port)
     return gaps
 
 
@@ -206,6 +249,59 @@ def test_port_module_has_airjax_names(rel):
 def test_harness_twin_has_the_names(theirs):
     unexplained = [g for g in _gaps(theirs, root=REPO, port_rel=HARNESS[theirs]) if g not in NOT_PORTED]
     assert not unexplained, f"names of {theirs} with no counterpart in airjax_torch/{HARNESS[theirs]}: {unexplained}"
+
+
+def _excused_by(fault: str) -> str | None:
+    """The SIGNATURES_DIFFER key that excuses a fault of order or of the
+    port's own parameters; a changed default is never excused."""
+    key = fault.split(" (")[0].split("(")[0]
+    return key if "(airjax's default " not in fault else None
+
+
+def _signature_gaps(rel: str, root: pathlib.Path = AIRJAX, port_rel: str | None = None) -> list[str]:
+    """The signature faults of module `rel` but SIGNATURES_DIFFER's (its
+    missing names are the name tests')."""
+    return [g for g in _gaps(rel, root=root, port_rel=port_rel, check=_signature_faults)
+            if g not in NOT_PORTED and _excused_by(g) not in SIGNATURES_DIFFER]
+
+
+@pytest.mark.parametrize("where", [*MODULES, *(f"harness:{h}" for h in sorted(HARNESS))])
+def test_airjax_calls_bind_the_same_on_the_port(where):
+    theirs = where.removeprefix("harness:")
+    faults = (_signature_gaps(theirs, root=REPO, port_rel=HARNESS[theirs]) if where.startswith("harness:")
+              else _signature_gaps(where))
+    assert not faults, f"calls written for airjax would bind otherwise on the port: {faults}"
+
+
+def test_the_signature_walk_sees_a_fault():
+    """The walk itself: a port-only parameter before airjax's, one with no
+    default, a changed default and a dropped one are each reported; the
+    port's own keyword-only parameters with defaults are not."""
+    ours = ast.parse("def f(a, b=1, c='t'): pass").body[0]
+
+    def faults(port_src):
+        return _signature_faults("m.py::f", ours, ast.parse(port_src).body[0])
+
+    assert faults("def f(a, b=1, c='t', *, device='cuda'): pass") == []
+    assert faults("def f(a, device='cuda', b=1, c='t'): pass") == [
+        "m.py::f (positional: airjax's ['a', 'b', 'c'], the port's ['a', 'device', 'b', 'c'])"]
+    assert faults("def f(a, b=1, c='t', *, device): pass") == ["m.py::f(device) (only the port's, with no default)"]
+    assert faults("def f(a, b=1, c='u'): pass") == ["m.py::f(c) (airjax's default 't', the port's 'u')"]
+    assert faults("def f(a, b, c='t'): pass") == ["m.py::f(b) (airjax's default 1, the port's None)"]
+    # Through the module walk: the port's make_mesh as it was, device before axis.
+    mesh = {**_module_defs(PORT, "parallel/mesh.py"), "make_mesh": ast.parse(
+        "def make_mesh(n_devices=None, device='cuda', axis=TIME_AXIS): pass").body[0]}
+    assert _gaps("parallel/mesh.py", mesh, check=_signature_faults) == [
+        "airjax/parallel/mesh.py::make_mesh (positional: airjax's ['n_devices', 'axis'], "
+        "the port's ['n_devices', 'device', 'axis'])",
+        *(g for g in NOT_PORTED if g.startswith("airjax/parallel/mesh.py::"))]
+
+
+def test_signature_exceptions_are_current():
+    """Each exception still names a function of airjax whose port
+    signature differs from it."""
+    faults = {_excused_by(g) for rel in MODULES for g in _gaps(rel, check=_signature_faults) if g not in NOT_PORTED}
+    assert set(SIGNATURES_DIFFER) == faults - {None}
 
 
 def _smoke_phases() -> set[int]:

@@ -71,7 +71,8 @@ assert (web._STATIC_DIR / "index.html").is_file() and "airjax_torch" in str(web.
 from airjax_torch import analytics
 from airjax_torch.parallel import halo
 from airjax_torch.parallel.mesh import make_mesh
-hits, _ = halo.decode_capture_sharded(synth.modulate([frame] * 2, [500, 3900], 8000, seed=1), make_mesh(2, "cpu"))
+hits, _ = halo.decode_capture_sharded(synth.modulate([frame] * 2, [500, 3900], 8000, seed=1),
+                                     make_mesh(2, device="cpu"))
 assert [h[1] for h in hits] == [500, 3900], hits
 tracks, _ = analytics.analyze_capture_extended(iq, devices=2, device="cpu")
 assert len(tracks) == 1, tracks
@@ -80,7 +81,8 @@ runner.run_stream_sharded(iter([iq]), got.append, n_devices=2, extended=True, de
 assert len(got) == len(mixed), got
 from airjax_torch import golden, observability, visualise
 from airjax_torch.parallel import multihost
-hits, stats = multihost.decode_capture(synth.modulate([frame] * 2, [500, 3900], 8000, seed=1), make_mesh(2, "cpu"))
+hits, stats = multihost.decode_capture(synth.modulate([frame] * 2, [500, 3900], 8000, seed=1),
+                                        mesh=make_mesh(2, device="cpu"))
 assert [h[1] for h in hits] == [500, 3900] and stats["processes"] == 1, (hits, stats)
 iq = synth.modulate([frame], [300], 9000, seed=2)
 from airjax_torch.config import PipelineConfig

@@ -132,7 +132,7 @@ def test_adaptive_regrow_equals_airjax():
     iq[:, 0] = 100
     n_off = 3000 - 240
     want = jp.decode_iq_block_adaptive(iq, n_off, 16)
-    got = tp.decode_iq_block_adaptive(iq, n_off, 16, "cpu")
+    got = tp.decode_iq_block_adaptive(iq, n_off, 16, device="cpu")
     assert_same_dict(want, got)
     assert int(got["n_detections"]) == n_off and not bool(got["overflow"])
     assert got["offsets"].shape[0] == n_off  # 16 -> 64 -> 256 -> 1024 -> n_off

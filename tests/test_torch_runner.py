@@ -5,6 +5,7 @@ byte for byte against airjax's stream printer (wall-clock lines masked)."""
 
 import io
 import contextlib
+import re
 
 import numpy as np
 import pytest
@@ -12,15 +13,21 @@ import torch
 
 from airjax import cli as jcli
 from airjax import runner as jrunner
+from airjax.config import DEFAULT_CONFIG as JDEFAULT_CONFIG
 from airjax.io import source as jsource
 from airjax.io import synth as jsynth
 from airjax.io import c16 as jc16
 from airjax.ui import stream as jstream
-from airjax_torch import cli
+from airjax_torch import analytics, cli, pipeline
 from airjax_torch import runner as trunner
+from airjax_torch.config import DEFAULT_CONFIG, PipelineConfig
 from airjax_torch.io import c16 as tc16
 from airjax_torch.io import source as tsource
 from airjax_torch.io import synth as tsynth
+from airjax_torch.parallel import multihost
+from airjax_torch.parallel.mesh import make_mesh
+from airjax_torch.protocol import shortframe
+from airjax_torch.tools import bench_stream
 
 STAT_KEYS = ("blocks", "samples", "detections", "good", "recovered", "overflow_blocks")
 
@@ -85,6 +92,70 @@ def test_run_stream_short_reads_equal_airjax():
     assert got == want and len(want) == 4
     for key in STAT_KEYS:
         assert t_stats[key] == j_stats[key], key
+
+
+def _posarg_capture() -> np.ndarray:
+    """A DF17, a DF11 and the DF17 again in 60,000 samples: the DF11 shows
+    whether a stream decoded the extended formats."""
+    df17 = tsynth.make_df17(0x7C6B30, tsynth.make_id_me("POSARG"))
+    return tsynth.modulate([df17, shortframe.make_df11(0x7C6B30, capability=5), df17], [500, 5000, 30000], 60000,
+                           seed=3)
+
+
+def _described(packets) -> list:
+    return [(type(p).__name__, [ln for ln in p.format().splitlines() if not ln.startswith("Processed Time")])
+            for p in packets]
+
+
+@pytest.mark.parametrize("extended_by_position", [False, True])
+def test_run_stream_binds_airjax_positional_arguments(extended_by_position):
+    """airjax's positional call, passed unchanged to both packages, gives
+    the same packets and stats (the port on the CPU by keyword): the 2 is
+    prefetch_depth, not extended, and extended is airjax's eighth."""
+    iq = _posarg_capture()
+    got, want = [], []
+    if extended_by_position:
+        t_stats = trunner.run_stream(_blocks(iq, [20000]), got.append, DEFAULT_CONFIG, True, 4, None, None, True,
+                                     device="cpu")
+        j_stats = jrunner.run_stream(_blocks(iq, [20000]), want.append, JDEFAULT_CONFIG, True, 4, None, None, True)
+        classes = ["AdsbPacket", "AllCallReply", "AdsbPacket"]
+    else:
+        t_stats = trunner.run_stream(_blocks(iq, [20000]), got.append, DEFAULT_CONFIG, True, 2, device="cpu")
+        j_stats = jrunner.run_stream(_blocks(iq, [20000]), want.append, JDEFAULT_CONFIG, True, 2)
+        classes = ["AdsbPacket", "AdsbPacket"]
+    assert [type(p).__name__ for p in got] == classes
+    assert _described(got) == _described(want)
+    assert t_stats.good == j_stats.good == len(classes)
+    for key in STAT_KEYS:
+        assert t_stats.as_dict()[key] == j_stats.as_dict()[key], key
+
+
+_NO_DEVICE = {
+    "decode_capture_overlap": lambda iq: pipeline.decode_capture_overlap(iq),
+    "decode_capture_parity": lambda iq: pipeline.decode_capture_parity(iq, PipelineConfig(block_len=20000)),
+    "decode_iq_block_adaptive": lambda iq: pipeline.decode_iq_block_adaptive(iq[:20000], 20000 - 240, 16),
+    "run_stream": lambda iq: trunner.run_stream(_blocks(iq, [20000]), lambda p: None),
+    "run_stream_sharded": lambda iq: trunner.run_stream_sharded(_blocks(iq, [20000]), lambda p: None),
+    "analyze_capture": lambda iq: analytics.analyze_capture(iq),
+    "analyze_capture_extended": lambda iq: analytics.analyze_capture_extended(iq),
+    "make_mesh": lambda iq: make_mesh(1),
+    "multihost.decode_capture": lambda iq: multihost.decode_capture(iq, 64),
+    "attach_candidate_fields": lambda iq: multihost.attach_candidate_fields(
+        {"frames": np.zeros((1, 14), np.uint8), "frames_raw": np.zeros((1, 14), np.uint8)}),
+    "bench_stream.run_once": lambda iq: bench_stream.run_once([iq[:20000]], 1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_NO_DEVICE))
+def test_airjax_calls_without_a_device_need_a_card(name):
+    """An entry point called as airjax calls it, with no device, runs on
+    the card: without one it raises (torch's AssertionError or
+    RuntimeError, or the port's own error), and never falls back to the
+    CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises((AssertionError, RuntimeError, ValueError), match=re.compile("cuda|devices", re.I)):
+        _NO_DEVICE[name](_posarg_capture())
 
 
 def test_synth_is_byte_identical_to_airjax():

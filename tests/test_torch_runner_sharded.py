@@ -13,6 +13,7 @@ import re
 
 import numpy as np
 import pytest
+import torch
 
 from airjax.config import DEFAULT_CONFIG
 from airjax.io import synth
@@ -43,7 +44,7 @@ def _airjax_steps_once():
 
 @pytest.fixture(scope="module")
 def meshes():
-    return jmake_mesh(8), make_mesh(8, "cpu")
+    return jmake_mesh(8), make_mesh(8, device="cpu")
 
 
 def _stream(n_total, extra_offsets=(), seed=5, extended=False, flips=False):
@@ -189,6 +190,11 @@ def test_pipeline_depth_invariance(meshes):
 
 
 def test_needs_a_mesh_or_a_device():
-    with pytest.raises(ValueError, match="mesh or a device"):
-        run_stream_sharded(iter(()), print)
+    """With neither, the stream takes every card, as airjax's takes every
+    device: where there is none it raises, never falling back to the CPU."""
+    if torch.cuda.is_available():
+        assert run_stream_sharded(iter(()), print).good == 0
+    else:
+        with pytest.raises(ValueError, match="requested 0 devices, have 0"):
+            run_stream_sharded(iter(()), print)
     assert run_stream_sharded(iter(()), print, n_devices=3, device="cpu").good == 0

@@ -53,7 +53,7 @@ def _airjax_steps_once():
 @pytest.fixture(scope="module")
 def meshes():
     assert len(jax.devices()) >= 8, "conftest should provide 8 virtual devices"
-    return jmake_mesh(8), make_mesh(8, "cpu")
+    return jmake_mesh(8), make_mesh(8, device="cpu")
 
 
 def packets(pkts) -> list:
@@ -356,10 +356,10 @@ def test_builders_raise_as_airjax(meshes):
 
 
 def test_mesh():
-    m = make_mesh(8, "cpu")
+    m = make_mesh(8, device="cpu")
     assert m.size == 8 and m.shape == {"t": 8} and m.axis_names == ("t",) and set(m.devices) == {torch.device("cpu")}
-    assert make_mesh(device="cpu").size == 1 and make_mesh(3, "cpu", axis="c").shape == {"c": 3}
-    assert Mesh(["cpu", torch.device("cpu")]) == make_mesh(2, "cpu")
+    assert make_mesh(device="cpu").size == 1 and make_mesh(3, "c", device="cpu").shape == {"c": 3}
+    assert Mesh(["cpu", torch.device("cpu")]) == make_mesh(2, device="cpu")
     with pytest.raises(ValueError):
         Mesh([])
     with pytest.raises(KeyError):
@@ -371,7 +371,7 @@ def test_make_mesh_raises_past_the_cards():
     with pytest.raises(ValueError, match=f"requested {have + 1} devices, have {have}"):
         make_mesh(have + 1)
     with pytest.raises(ValueError):
-        make_mesh(1, "meta")
+        make_mesh(1, device="meta")
 
 
 def test_to_device_rebuilds_the_views():

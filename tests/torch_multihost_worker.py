@@ -102,7 +102,7 @@ def main() -> None:
     assert multihost.init("gloo", f"tcp://127.0.0.1:{port}", world, rank) == (rank, world)
     span = N // world
     local = {name: iq[rank * span : (rank + 1) * span] for name, (iq, _) in captures(synth, shortframe).items()}
-    out = results(multihost, ExtendedBatchTracker, aircraft_to_json, local, mesh=make_mesh(shards, "cpu"))
+    out = results(multihost, ExtendedBatchTracker, aircraft_to_json, local, mesh=make_mesh(shards, device="cpu"))
     assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "airjax")]
     print("RESULT " + json.dumps({"rank": rank, **out}), flush=True)
     multihost.dist.destroy_process_group()
