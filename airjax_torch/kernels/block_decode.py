@@ -32,7 +32,11 @@ of the raw frames), written by the same launch into the buffers of
 kernels/fields.py.
 
 `decode_block_bits` launches the kernel for CUDA tensors and runs
-`decode_block_bits_plain` for CPU tensors. `launches` counts kernel
+`decode_block_bits_plain` for CPU tensors; `decode_block_bits_into` does
+the same into two buffers the caller keeps (a CUDA graph's outputs,
+pipeline.BlockGraphs). `dict_layout` is the one definition of where each
+key of the dict lies in those two buffers: the device wrapper's views and
+the host's views of a fetched copy are both built from it. `launches` counts kernel
 launches, all eight instantiations together; `fields_launches` those of
 the four with F.
 """
@@ -40,6 +44,7 @@ the four with F.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -48,7 +53,7 @@ from airjax_torch._dispatch import check_launch, check_tensor, use_kernel
 from airjax_torch.kernels import candidate
 from airjax_torch.kernels.candidate import CLASSES
 from airjax_torch.kernels.compact import Compacted, compact_bits_plain
-from airjax_torch.kernels.fields import block_fields_plain, field_sizes, field_views
+from airjax_torch.kernels.fields import block_fields_plain, field_layout, field_sizes, layout_views
 from airjax_torch.kernels.magdet import n_det_words, n_tiles
 from airjax_torch.protocol.crc import FRAME_BYTES, _pair_tables
 
@@ -155,6 +160,75 @@ def decode_block_bits_plain(
     return out
 
 
+class DictLayout(NamedTuple):
+    """The block-decode kernel's two output buffers: n_int int32 words and
+    n_byte bytes, and where each key of its dict lies in them
+    (`layout_views` entries)."""
+
+    n_int: int
+    n_byte: int
+    entries: tuple[tuple, ...]
+
+
+@functools.cache
+def dict_layout(capacity: int, extended: bool = False, recover2: bool = False, fields: bool = False) -> DictLayout:
+    """The one definition of the dict's layout in the kernel's buffers
+    (csrc/block_decode.cu's Out and Fields), read on the device by
+    decode_block_bits and on the host by a fetch of the buffers
+    (pipeline.BlockGraphs). The int32 buffer: offsets (K), then DF17's
+    n_good or the extended df, icao_ap_long and icao_ap_short (K each),
+    then n_detections; the fields' int rows follow. The byte buffer: the
+    fields' bytes (4-byte aligned), then frames (K, 14), valid, DF17's good
+    and recovered or the extended frames_raw (K, 14) and the six classes,
+    recovered2 (R2), and last overflow."""
+    k = capacity
+    n_int = (4 * k + 1) if extended else (k + 2)
+    n_byte = k * (2 * FRAME_BYTES + 1 + len(CLASSES)) + 1 if extended else k * (FRAME_BYTES + 3) + 1
+    n_byte += k if recover2 else 0  # recovered2, after the mode's outputs
+    n_field_int, b = field_sizes(k, extended) if fields else (0, 0)  # b: where the dict's bytes start
+    rest = b + (FRAME_BYTES + 1) * k  # the mode's bytes after frames and valid
+
+    def i(key, start, shape=(k,)):
+        return ((key,), "i", start, shape, False)
+
+    def by(key, start, shape=(k,), as_bool=True):
+        return ((key,), "b", start, shape, as_bool)
+
+    head = [i("offsets", 0), by("valid", b + FRAME_BYTES * k)]
+    frames = by("frames", b, (k, FRAME_BYTES), False)
+    if extended:
+        classes = [by(name, rest + FRAME_BYTES * k + c * k) for c, name in enumerate(CLASSES)]
+        entries = [*head, i("df", k), frames, by("frames_raw", rest, (k, FRAME_BYTES), False), *classes,
+                   i("icao_ap_short", 3 * k), i("icao_ap_long", 2 * k), i("n_detections", n_int - 1, ())]
+    else:
+        entries = [*head, by("good", rest), by("recovered", rest + k), frames,
+                   i("n_detections", n_int - 1, ()), i("n_good", k, ())]
+    entries.append(by("overflow", b + n_byte - 1, ()))
+    if recover2:
+        entries.append(by("recovered2", b + n_byte - 1 - k))
+    if fields:
+        entries += [(path, buf, start + (n_int if buf == "i" else 0), shape, as_bool)
+                    for path, buf, start, shape, as_bool in field_layout(k, extended)]
+    return DictLayout(n_int + n_field_int, b + n_byte, tuple(entries))
+
+
+def _check_bits(det_words: torch.Tensor, words: torch.Tensor, tile_counts: torch.Tensor, n_off: int,
+                capacity: int) -> None:
+    check_tensor(det_words, "det_words", torch.int32, 1)
+    check_tensor(words, "words", torch.int32, 1)
+    check_tensor(tile_counts, "tile_counts", torch.int32, 1)
+    if n_off < 0 or det_words.shape[0] != n_det_words(n_off):
+        raise ValueError(f"det_words: expected {n_det_words(max(n_off, 0))} words for n_off={n_off}")
+    if tile_counts.shape[0] != n_tiles(n_off):
+        raise ValueError(f"tile_counts: expected {n_tiles(n_off)} tiles for n_off={n_off}")
+    if words.numel() == 0:
+        raise ValueError("words: empty")
+    if capacity < 0:
+        raise ValueError(f"capacity must be >= 0, got {capacity}")
+    if det_words.device.type == "cuda" and det_words.data_ptr() % 16:
+        raise ValueError("det_words: the kernel reads them 16 bytes at a time; pointer not aligned")
+
+
 def decode_block_bits(
     det_words: torch.Tensor, words: torch.Tensor, tile_counts: torch.Tensor, n_off: int, capacity: int,
     *, extended: bool = False, recover2: bool = False, fields: bool = False,
@@ -168,24 +242,43 @@ def decode_block_bits(
     classes, icao_ap_short, icao_ap_long, n_detections, overflow); with
     recover2=True also `recovered2` (K,) bool, the 2-flip repairs; with
     fields=True also `fields` and, extended, `short_fields` (the dicts of
-    kernels/fields.py::block_fields)."""
-    check_tensor(det_words, "det_words", torch.int32, 1)
-    check_tensor(words, "words", torch.int32, 1)
-    check_tensor(tile_counts, "tile_counts", torch.int32, 1)
-    if n_off < 0 or det_words.shape[0] != n_det_words(n_off):
-        raise ValueError(f"det_words: expected {n_det_words(max(n_off, 0))} words for n_off={n_off}")
-    if tile_counts.shape[0] != n_tiles(n_off):
-        raise ValueError(f"tile_counts: expected {n_tiles(n_off)} tiles for n_off={n_off}")
-    if words.numel() == 0:
-        raise ValueError("words: empty")
-    if capacity < 0:
-        raise ValueError(f"capacity must be >= 0, got {capacity}")
+    kernels/fields.py::block_fields). On the card the dict is views of the
+    kernel's two buffers (`dict_layout`)."""
+    _check_bits(det_words, words, tile_counts, n_off, capacity)
     if use_kernel(det_words, words, tile_counts):
-        if det_words.data_ptr() % 16:
-            raise ValueError("det_words: the kernel reads them 16 bytes at a time; pointer not aligned")
         return _block_decode_cuda(det_words, words, tile_counts, n_off, capacity, extended, recover2, fields)
     return decode_block_bits_plain(det_words, words, tile_counts, n_off, capacity, extended=extended,
                                    recover2=recover2, fields=fields)
+
+
+def decode_block_bits_into(
+    det_words: torch.Tensor, words: torch.Tensor, tile_counts: torch.Tensor, n_off: int, capacity: int,
+    ints: torch.Tensor, byts: torch.Tensor, *, extended: bool = False, recover2: bool = False, fields: bool = False,
+) -> None:
+    """decode_block_bits writing its dict into `ints` (int32) and `byts`
+    (uint8), buffers of `dict_layout`'s sizes on the inputs' device that
+    the caller keeps (a CUDA graph's static outputs, pipeline.BlockGraphs);
+    `layout_views` reads the dict back from them. On the card one launch;
+    on the CPU the plain version's dict is copied in."""
+    _check_bits(det_words, words, tile_counts, n_off, capacity)
+    lay = dict_layout(capacity, extended, recover2, fields)
+    for t, name, dtype, n in ((ints, "ints", torch.int32, lay.n_int), (byts, "byts", torch.uint8, lay.n_byte)):
+        check_tensor(t, name, dtype, 1)
+        if t.shape[0] != n or t.device != det_words.device:
+            raise ValueError(f"{name}: expected ({n},) on {det_words.device}, got {tuple(t.shape)} on {t.device}")
+    if use_kernel(det_words, words, tile_counts):
+        _block_decode_cuda(det_words, words, tile_counts, n_off, capacity, extended, recover2, fields, (ints, byts))
+        return
+    plain = decode_block_bits_plain(det_words, words, tile_counts, n_off, capacity, extended=extended,
+                                    recover2=recover2, fields=fields)
+    _fill(layout_views(lay.entries, ints, byts), plain)
+
+
+def _fill(views: dict, values: dict) -> None:
+    if views.keys() != values.keys():
+        raise ValueError(f"the dict's keys {sorted(values)} are not the layout's {sorted(views)}")
+    for key, v in views.items():
+        _fill(v, values[key]) if isinstance(v, dict) else v.copy_(values[key])
 
 
 def _pairs(device: torch.device) -> torch.Tensor:
@@ -198,71 +291,48 @@ def _pairs(device: torch.device) -> torch.Tensor:
 
 def _block_decode_cuda(
     det_words: torch.Tensor, words: torch.Tensor, tile_counts: torch.Tensor, n_off: int, capacity: int,
-    extended: bool, recover2: bool = False, fields: bool = False,
+    extended: bool, recover2: bool = False, fields: bool = False, buffers: tuple | None = None,
 ) -> dict[str, torch.Tensor]:
+    """One launch into `buffers` (ints, byts), or into two it allocates,
+    laid out by dict_layout -> the dict's views of them. On the card an
+    allocation costs more host time than a slice: two buffers, not a
+    tensor a key."""
     global launches, fields_launches
     from airjax_torch._build import library
 
     lib = library()
     device = det_words.device
-    k = capacity
-    # One int32 buffer and one byte buffer, sliced into the outputs: on the
-    # card an allocation costs more host time than a slice. The fields'
-    # ints follow the dict's, their bytes lead (4-byte aligned).
-    n_int = (4 * k + 1) if extended else (k + 2)
-    n_byte = k * (2 * FRAME_BYTES + 1 + len(CLASSES)) + 1 if extended else k * (FRAME_BYTES + 3) + 1
-    n_byte += k if recover2 else 0  # recovered2, after the mode's outputs
-    n_field_int, n_field_byte = field_sizes(k, extended) if fields else (0, 0)
-    all_ints = torch.empty(n_int + n_field_int, dtype=torch.int32, device=device)
-    all_byts = torch.empty(n_field_byte + n_byte, dtype=torch.uint8, device=device)
-    ints, field_ints = all_ints[:n_int], all_ints[n_int:]
-    field_byts, byts = all_byts[:n_field_byte], all_byts[n_field_byte:]
-    offsets, n_det = ints[:k], ints[-1]
-    frames = byts[: FRAME_BYTES * k].view(k, FRAME_BYTES)
-    valid = byts[FRAME_BYTES * k : (FRAME_BYTES + 1) * k].view(torch.bool)
-    overflow = byts[-1:].view(torch.bool)[0]
-    rest = byts[(FRAME_BYTES + 1) * k : n_byte - 1 - (k if recover2 else 0)]
-    recovered2 = byts[n_byte - 1 - k : -1].view(torch.bool) if recover2 else None
+    lay = dict_layout(capacity, extended, recover2, fields)
+    if buffers is None:
+        buffers = (torch.empty(lay.n_int, dtype=torch.int32, device=device),
+                   torch.empty(lay.n_byte, dtype=torch.uint8, device=device))
+    ints, byts = buffers
+    out = layout_views(lay.entries, ints, byts)
+
+    def ptr(key):
+        return out[key].data_ptr() if key in out else None
+
+    # The mode's outputs after frames, a null pointer where the mode has none;
+    # the six classes are one (6, K) block from the first.
     if extended:
-        frames_raw = rest[: FRAME_BYTES * k].view(k, FRAME_BYTES)
-        classes = rest[FRAME_BYTES * k :].view(torch.bool).view(len(CLASSES), k)
-        df, icao_long, icao_short = ints[k : 2 * k], ints[2 * k : 3 * k], ints[3 * k : 4 * k]
-        mode_out = (None, None, None, frames_raw, df, icao_long, icao_short, classes)
+        mode_out = (None, None, None, ptr("frames_raw"), ptr("df"), ptr("icao_ap_long"), ptr("icao_ap_short"),
+                    ptr(CLASSES[0]))
     else:
-        good, recovered = rest[:k].view(torch.bool), rest[k:].view(torch.bool)
-        n_good = ints[k]
-        mode_out = (good, recovered, n_good, None, None, None, None, None)
+        mode_out = (ptr("good"), ptr("recovered"), ptr("n_good"), None, None, None, None, None)
+    # F's two buffers: the fields' int32 rows from the first (df), their bytes
+    # from the callsign codes (field_layout).
+    field_out = (out["fields"]["df"].data_ptr(), out["fields"]["callsign_codes"].data_ptr()) if fields else (None,) * 2
     with torch.cuda.device(device):
         candidate.load_syndromes(lib)
         rc = lib.airjax_block_decode(
-            det_words.data_ptr(), words.data_ptr(), words.numel(), tile_counts.data_ptr(), n_off, k,
-            offsets.data_ptr(), valid.data_ptr(), frames.data_ptr(), n_det.data_ptr(), overflow.data_ptr(),
-            *(None if t is None else t.data_ptr() for t in mode_out),
-            None if recovered2 is None else recovered2.data_ptr(),
-            _pairs(device).data_ptr() if recover2 else None,
-            field_ints.data_ptr() if fields else None, field_byts.data_ptr() if fields else None,
+            det_words.data_ptr(), words.data_ptr(), words.numel(), tile_counts.data_ptr(), n_off, capacity,
+            ptr("offsets"), ptr("valid"), ptr("frames"), ptr("n_detections"), ptr("overflow"), *mode_out,
+            ptr("recovered2"), _pairs(device).data_ptr() if recover2 else None,
+            *field_out,
             int(extended), int(recover2), int(fields),  # the kernel's Mode, R2, F
             torch.cuda.current_stream().cuda_stream,
         )
     check_launch(rc, "block-decode kernel")
     launches += 1
     fields_launches += fields
-    if extended:
-        out = {
-            "offsets": offsets, "valid": valid, "df": df, "frames": frames, "frames_raw": frames_raw,
-            **dict(zip(CLASSES, classes.unbind(0))),
-            "icao_ap_short": icao_short, "icao_ap_long": icao_long,
-            "n_detections": n_det, "overflow": overflow,
-        }
-    else:
-        out = {
-            "offsets": offsets, "valid": valid, "good": good, "recovered": recovered, "frames": frames,
-            "n_detections": n_det, "n_good": n_good, "overflow": overflow,
-        }
-    if recover2:
-        out["recovered2"] = recovered2
-    if fields:
-        out["fields"], short = field_views(field_ints, field_byts, k, extended)
-        if extended:
-            out["short_fields"] = short
     return out

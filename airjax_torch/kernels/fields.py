@@ -16,12 +16,15 @@ baseline and second oracle, launched by no decode path.
 `block_fields_plain` (the plain torch extract_fields and
 extract_short_fields_from_raw) for CPU tensors. Both kernels write one
 int32 (rows, K) buffer and one byte buffer; the dicts hold views of them
-(`field_views`) under airjax's keys and dtypes (airjax's uint32 CRC fields
+(`field_views`, laid out by `field_layout`) under airjax's keys and dtypes (airjax's uint32 CRC fields
 as int32). `launches` counts this kernel's launches, both modes together.
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from airjax_torch._dispatch import check_launch, check_tensor, use_kernel
@@ -50,22 +53,43 @@ def field_sizes(k: int, extended: bool) -> tuple[int, int]:
     return (len(LONG_ROWS) + (len(SHORT_ROWS) if extended else 0)) * k, (10 if extended else 9) * k
 
 
-def field_views(
-    ints: torch.Tensor, byts: torch.Tensor, k: int, extended: bool
-) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor] | None]:
+def field_layout(k: int, extended: bool) -> tuple[tuple, ...]:
+    """Where each field lies in the kernels' two buffers (csrc/fields.cuh),
+    as `layout_views` entries: ints, the int32 (rows, K) rows, LONG_ROWS
+    then SHORT_ROWS; byts, the callsign codes (K, 8), alt_mode_25 and,
+    extended, altitude_valid."""
+    entries = [(("fields", name), "i", r * k, (k,), False) for r, name in enumerate(LONG_ROWS)]
+    entries += [(("fields", "alt_mode_25"), "b", 8 * k, (k,), True),
+                (("fields", "callsign_codes"), "b", 0, (k, 8), False)]
+    if extended:
+        entries += [(("short_fields", name), "i", (len(LONG_ROWS) + r) * k, (k,), False)
+                    for r, name in enumerate(SHORT_ROWS)]
+        entries.append((("short_fields", "altitude_valid"), "b", 9 * k, (k,), True))
+    return tuple(entries)
+
+
+def layout_views(entries, ints, byts) -> dict:
+    """The dict that `entries` lays out over an int32 buffer and a uint8
+    one, as views of them: torch tensors (on either device) or the numpy
+    arrays a fetch copied them into. An entry is (key path, "i" or "b",
+    start, shape, bool?); a path of two keys is a nested dict's entry."""
+    out: dict = {}
+    for path, buf, start, shape, as_bool in entries:
+        v = (ints if buf == "i" else byts)[start : start + math.prod(shape)]
+        if as_bool:
+            v = v.view(torch.bool) if isinstance(v, torch.Tensor) else v.view(np.bool_)
+        d = out
+        for key in path[:-1]:
+            d = d.setdefault(key, {})
+        d[path[-1]] = v.reshape(shape)
+    return out
+
+
+def field_views(ints, byts, k: int, extended: bool) -> tuple[dict, dict | None]:
     """The dicts of block_fields over the buffers the kernels write
-    (csrc/fields.cuh): ints, the int32 (rows, K) rows, LONG_ROWS then
-    SHORT_ROWS; byts, the callsign codes (K, 8), alt_mode_25 and, extended,
-    altitude_valid."""
-    rows = ints.view(len(LONG_ROWS) + (len(SHORT_ROWS) if extended else 0), k)
-    fields = dict(zip(LONG_ROWS, rows[: len(LONG_ROWS)].unbind(0)))
-    fields["alt_mode_25"] = byts[8 * k : 9 * k].view(torch.bool)
-    fields["callsign_codes"] = byts[: 8 * k].view(k, 8)
-    if not extended:
-        return fields, None
-    short = dict(zip(SHORT_ROWS, rows[len(LONG_ROWS) :].unbind(0)))
-    short["altitude_valid"] = byts[9 * k : 10 * k].view(torch.bool)
-    return fields, short
+    (`field_layout`), torch tensors or numpy arrays alike."""
+    out = layout_views(field_layout(k, extended), ints, byts)
+    return out["fields"], out.get("short_fields")
 
 
 def block_fields_plain(

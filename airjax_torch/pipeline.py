@@ -35,6 +35,14 @@ tracker sinks consume.
 replaced (front -> compaction kernel -> candidate kernel -> torch dict
 ops): the A/B baseline and a second oracle on the card.
 
+`BlockGraphs` is the counterpart of airjax's jit of these decodes with
+their static shapes: one CUDA graph per block shape (and slot) holds a
+block's upload, the front and block-decode launches and the dict's one
+download, replayed for every block of that shape; `runner.run_stream` and
+the overlap scan decode through it, and `kernels/block_decode.py::
+dict_layout` is where the dict lies in the graph's output, read on the
+device and on the host alike.
+
 Both block decompositions of airjax are kept: parity (reference playback
 chunking, applied as an offset filter over one whole-stream scan, or with
 fused=False the literal per-chunk decode, a front and a block-decode launch
@@ -52,6 +60,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+from typing import Callable
 
 import numpy as np
 import torch
@@ -64,10 +73,14 @@ from airjax_torch.dsp.demod import (
     detect_preamble_only,
     pack_cmp_words,
 )
+from airjax_torch.kernels import block_decode, magdet
 from airjax_torch.kernels.block_decode import (
+    DictLayout,
     candidate_dict,
     candidate_dict_extended,
     decode_block_bits,
+    decode_block_bits_into,
+    dict_layout,
 )
 from airjax_torch.kernels.candidate import (
     decode_candidates,
@@ -76,6 +89,7 @@ from airjax_torch.kernels.candidate import (
     decode_candidates_plain,
 )
 from airjax_torch.kernels.compact import compact_bits, compact_for_gather
+from airjax_torch.kernels.fields import layout_views
 from airjax_torch.kernels.magdet import chunked_detection_count, magdet_bits
 from airjax_torch.protocol.packet import AdsbPacket
 
@@ -324,6 +338,250 @@ def _as_numpy(out: dict) -> dict:
     return {k: _as_numpy(v) if isinstance(v, dict) else v.numpy() for k, v in out.items()}
 
 
+# The decodes a BlockGraphs slot holds: the front's gate, extended, fields.
+_GRAPH_DECODES = {
+    decode_iq_block: ("df17", False, False),
+    decode_iq_block_extended: ("preamble", True, False),
+    decode_iq_block_with_fields: ("df17", False, True),
+    decode_iq_block_extended_with_fields: ("preamble", True, True),
+}
+MAX_GRAPH_SHAPES = 4  # block shapes a BlockGraphs keeps; the least recently used goes first
+# A block at least this large is copied into its slot by torch's copy, which
+# splits it over threads; a smaller one by one memcpy, which wakes no thread
+# (on an H100 host: ~68 µs for a 20,000-sample block through torch's copy).
+THREADED_COPY_BYTES = 1 << 22
+# Every BlockGraphs' first sightings, captures and replays in the process,
+# beside the kernel wrappers' launch counts.
+graph_counts = {"eager": 0, "captures": 0, "replays": 0}
+
+
+def _launch_counts() -> tuple[int, int, int]:
+    """The counts of the wrappers a BlockGraphs graph launches through."""
+    return magdet.bits_launches, block_decode.launches, block_decode.fields_launches
+
+
+def _add_launches(delta: tuple[int, int, int]) -> None:
+    magdet.bits_launches += delta[0]
+    block_decode.launches += delta[1]
+    block_decode.fields_launches += delta[2]
+
+
+@dataclasses.dataclass(eq=False)
+class Slot:
+    """One decode in flight: its block's pinned host copy (None when the
+    caller's block is on the device) and device copy, the kernel's output
+    (dict_layout's int32 buffer, then its byte buffer, in one byte tensor
+    `out`, so that one copy brings the dict back) and its pinned host copy,
+    and the graph of it all. `launches` is what one replay adds to the
+    wrappers' counts; `event` is recorded after each decode on the card."""
+
+    n_off: int
+    capacity: int
+    layout: DictLayout
+    host_iq: torch.Tensor | None
+    device_iq: torch.Tensor
+    out: torch.Tensor
+    host_out: torch.Tensor
+    graph: torch.cuda.CUDAGraph | Callable | None = None  # on the CPU, the plain body
+    launches: tuple[int, int, int] = (0, 0, 0)
+    event: torch.cuda.Event | None = None
+    busy: bool = False
+
+    def __post_init__(self):
+        self.ints, self.byts = _split(self.out, self.layout.n_int)
+
+    @property
+    def pinned_bytes(self) -> int:
+        return self.host_out.numel() + (0 if self.host_iq is None else self.host_iq.numel() * 2)
+
+    @property
+    def device_bytes(self) -> int:
+        return self.out.numel() + self.device_iq.numel() * 2
+
+
+def _split(out, n_int: int):
+    """A slot's output bytes (a tensor or a numpy array) -> (the int32
+    buffer, the byte buffer) of dict_layout, as views."""
+    ints = out[: 4 * n_int]
+    return ints.view(torch.int32) if isinstance(ints, torch.Tensor) else ints.view(np.int32), out[4 * n_int :]
+
+
+class BlockGraphs:
+    """One decode function's blocks as one program each, the counterpart
+    of airjax's jit of decode_iq_block* with its static shape arguments
+    (airjax/pipeline.py:111, :277, :288, :308): airjax replays one
+    executable per shape, the port one CUDA graph per shape and slot.
+
+    A key is a block shape (L, n_off, capacity), for `decode` (one of
+    decode_iq_block, decode_iq_block_extended and their _with_fields forms,
+    with or without recover2) on `device`; the cache is the stream's and
+    holds at most MAX_GRAPH_SHAPES keys. Each key owns a ring of depth + 1
+    slots, so that a stream with `depth` decodes in flight never writes a
+    slot whose decode it has not fetched. A slot's graph holds the block's
+    upload from the slot's pinned input (upload=True; with upload=False the
+    caller's device block is copied into the slot's device input before the
+    replay, outside the graph), the front launch (csrc/front.cu), the
+    block-decode launch (csrc/block_decode.cu: Mode, R2 and F as the key
+    says) into the slot's output (the dict's two buffers back to back), and
+    one copy of it into the slot's pinned output. A dispatch copies the
+    block in, replays and records an event; a fetch waits on that event,
+    copies the output out of the slot, so that the arrays a sink keeps never
+    alias a slot, and reads the dict from it through the layout the device
+    wrapper uses (kernels/block_decode.py::dict_layout). The memory a slot
+    holds is its block twice (pinned and on the device; once with
+    upload=False) and its dict twice; its graph's pool holds the front's
+    outputs (BlockGraphs.slots, Slot.pinned_bytes and device_bytes).
+
+    The first decode of a key runs the same steps eagerly, through the
+    wrappers: the library's build, the __constant__ syndromes and the R2
+    pair table are uploaded there and cannot be captured. A slot's graph is
+    captured at the slot's first use after that, on a side stream (a
+    capture runs nothing), and every replay runs on the device's current
+    stream, as every decode of the card must (the block-decode kernel's
+    n_good accumulator is per device). A replay adds the launches its graph
+    holds to the wrappers' counts, which the capture leaves as they were.
+    A failed capture or replay raises. On the CPU the same ring, keys and
+    buffers run, and a "replay" is the plain decode written into the slot's
+    buffers.
+
+    `eager`, `captures` and `replays` count first sightings, graphs and
+    replays; `fetches` the dicts fetched (regrows included) and
+    `overlapped` the fetches that returned while the next decode was still
+    pending on the card.
+    """
+
+    def __init__(self, decode, *, recover2: bool = False, device: torch.device | str = "cuda", depth: int = 1,
+                 upload: bool = True):
+        self.gate, self.extended, self.fields = _GRAPH_DECODES[decode]
+        self.recover2 = recover2
+        self.decode = functools.partial(decode, recover2=recover2)  # the eager form: the regrow
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
+        self.n_slots = max(depth, 0) + 1
+        self.upload = upload
+        self._keys: collections.OrderedDict[tuple, list] = collections.OrderedDict()  # key -> [uses, slots]
+        self._pending: collections.deque[Slot] = collections.deque()
+        # Made here, on the thread that runs the stream: a capture's stream.
+        self._capture_stream = torch.cuda.Stream(self.device) if self.cuda else None
+        self.eager = self.captures = self.replays = self.fetches = self.overlapped = 0
+
+    def dispatch(self, iq, n_off: int, capacity: int) -> Slot:
+        """Start the decode of one (L, 2) int16 block: host IQ (numpy) with
+        upload=True, a tensor on the device without. Returns its slot."""
+        _check_block(iq.shape[0], n_off)
+        key = (iq.shape[0], n_off, capacity)
+        entry = self._keys.pop(key, None)
+        first = entry is None
+        if first:
+            while len(self._keys) >= MAX_GRAPH_SHAPES:
+                self._keys.popitem(last=False)  # its slots live on in the entries still in flight
+            entry = [0, []]
+        self._keys[key] = entry
+        i = entry[0] % self.n_slots
+        if i == len(entry[1]):
+            entry[1].append(self._slot(iq.shape[0], n_off, capacity))
+        slot = entry[1][i]
+        if slot.busy:
+            raise RuntimeError("a BlockGraphs slot is still in flight: more decodes in flight than depth + 1")
+        entry[0] += 1
+        if not self.upload:
+            slot.device_iq.copy_(iq)
+        elif iq.nbytes >= THREADED_COPY_BYTES:
+            slot.host_iq.copy_(torch.from_numpy(iq))
+        else:
+            np.copyto(slot.host_iq.numpy(), iq)
+        if first:
+            self._body(slot)
+            self._count("eager")
+        else:
+            if slot.graph is None:
+                self._capture(slot)
+            if self.cuda:
+                slot.graph.replay()
+                _add_launches(slot.launches)
+            else:
+                slot.graph()
+            self._count("replays")
+        if self.cuda:
+            slot.event.record(torch.cuda.current_stream(self.device))
+        slot.busy = True
+        self._pending.append(slot)
+        return slot
+
+    def fetch(self, slot: Slot) -> dict:
+        """The slot's dict as numpy arrays of the host's own, once its
+        decode has completed."""
+        if self.cuda:
+            slot.event.synchronize()
+        ints, byts = _split(slot.host_out.numpy().copy(), slot.layout.n_int)
+        self._pending.remove(slot)
+        self.fetches += 1
+        if self.cuda and self._pending and not self._pending[0].event.query():
+            self.overlapped += 1
+        return layout_views(slot.layout.entries, ints, byts)
+
+    def regrow(self, slot: Slot, capacity: int) -> dict:
+        """The slot's block decoded again at `capacity` by the eager
+        wrappers, from the slot's device input (which no decode overwrites
+        before `done`) -> host arrays."""
+        self.fetches += 1
+        return to_host(self.decode(slot.device_iq, slot.n_off, capacity))
+
+    def done(self, slot: Slot) -> None:
+        """The slot's results are applied: a later decode may take it."""
+        slot.busy = False
+
+    def slots(self) -> list[Slot]:
+        return [slot for _, slots in self._keys.values() for slot in slots]
+
+    def _count(self, kind: str) -> None:
+        setattr(self, kind, getattr(self, kind) + 1)
+        graph_counts[kind] += 1
+
+    def _slot(self, n_samples: int, n_off: int, capacity: int) -> Slot:
+        lay = dict_layout(capacity, self.extended, self.recover2, self.fields)
+        n_out = 4 * lay.n_int + lay.n_byte
+        host_iq = torch.empty((n_samples, 2), dtype=torch.int16, pin_memory=self.cuda) if self.upload else None
+        return Slot(n_off, capacity, lay, host_iq, torch.empty((n_samples, 2), dtype=torch.int16, device=self.device),
+                    torch.empty(n_out, dtype=torch.uint8, device=self.device),
+                    torch.empty(n_out, dtype=torch.uint8, pin_memory=self.cuda),
+                    event=torch.cuda.Event() if self.cuda else None)
+
+    def _body(self, slot: Slot) -> None:
+        """The decode of the slot's block: what its graph holds."""
+        if self.upload:
+            slot.device_iq.copy_(slot.host_iq, non_blocking=True)
+        det_words, words, counts = magdet_bits(slot.device_iq, slot.n_off, gate=self.gate)
+        decode_block_bits_into(det_words, words, counts, slot.n_off, slot.capacity, slot.ints, slot.byts,
+                               extended=self.extended, recover2=self.recover2, fields=self.fields)
+        slot.host_out.copy_(slot.out, non_blocking=True)
+
+    def _capture(self, slot: Slot) -> None:
+        """Capture the slot's body on the side stream (on the CPU the
+        "graph" is the body itself). thread_local: another thread of the
+        process (the source's Prefetcher, a UI server) may call CUDA
+        meanwhile without invalidating the capture."""
+        if not self.cuda:
+            slot.graph = functools.partial(self._body, slot)
+            self._count("captures")
+            return
+        before = _launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        compute = torch.cuda.current_stream(self.device)
+        self._capture_stream.wait_stream(compute)
+        with torch.cuda.device(self.device), torch.cuda.stream(self._capture_stream):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self._body(slot)
+            finally:
+                graph.capture_end()
+        compute.wait_stream(self._capture_stream)
+        slot.launches = tuple(a - b for a, b in zip(_launch_counts(), before))
+        _add_launches(tuple(-n for n in slot.launches))  # a capture launches nothing
+        slot.graph = graph
+        self._count("captures")
+
+
 def decode_iq_block_adaptive(
     iq_block: np.ndarray, n_off: int, capacity: int, *, device: torch.device | str = "cuda"
 ) -> dict[str, np.ndarray]:
@@ -462,17 +720,22 @@ def _overlap_scan(
     iq_dev: torch.Tensor, n: int, slice_len: int, scan: int, n_blocks: int, cfg: PipelineConfig
 ) -> tuple[list[Hit], dict]:
     """airjax/pipeline.py:542-576: decode each block slice of the
-    resident capture, regrowing capacity on overflow."""
+    resident capture through one BlockGraphs key, regrowing capacity on
+    overflow."""
     max_global = n - WINDOW  # windows past the capture end are not scanned
     hits = []
     stats = {"n_detections": 0, "n_good": 0, "n_recovered": 0, "overflow": False}
+    # One graph for every block (airjax's one jitted _decode_block_at): a
+    # block is copied on the device into the slot's input, then replayed.
+    graphs = BlockGraphs(decode_iq_block, device=iq_dev.device, depth=0, upload=False)
     for b in range(n_blocks):
-        ext = iq_dev[b * scan : b * scan + slice_len]
         capacity = cfg.max_candidates
-        out = to_host(decode_iq_block(ext, scan, capacity))
+        slot = graphs.dispatch(iq_dev[b * scan : b * scan + slice_len], scan, capacity)
+        out = graphs.fetch(slot)
         while bool(out["overflow"]) and capacity < scan:
             capacity = min(capacity * 4, scan)
-            out = to_host(decode_iq_block(ext, scan, capacity))
+            out = graphs.regrow(slot, capacity)
+        graphs.done(slot)
         for k in np.nonzero(out["good"])[0]:
             g = b * scan + int(out["offsets"][k])
             if g <= max_global:

@@ -94,8 +94,9 @@ def load_tables(
 
 
 @functools.cache
-def tables(device: torch.device | str = "cpu") -> CrcTables:
-    """This module's tables on `device` (cached per device)."""
+def tables(device: torch.device | str = "cuda") -> CrcTables:
+    """This module's tables on `device` (cached per device; the card
+    unless the caller asks for "cpu")."""
     return load_tables(*_tables(), device)
 
 

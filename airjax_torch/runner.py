@@ -35,11 +35,16 @@ preamble (visualise.dump_preamble), after a DF17 packet's sink call and
 before an extended one's, as airjax prints them.
 
 Both runners keep `pipeline_depth` decodes in flight (default 1, as
-airjax's, whose `adsb` passes none): block k+1 is uploaded from a pinned
-buffer and its kernels launched before block k is fetched, and block k's
-results are copied on a copy stream that waits on block k's event alone
-(pipeline.Fetcher), so the card decodes block k+1 while the host copies
-and applies block k. Entries are fetched and applied first in, first out,
+airjax's, whose `adsb` passes none): block k+1 is dispatched before block
+k is fetched, so the card decodes block k+1 while the host copies and
+applies block k. run_stream decodes a block as one program, as airjax's
+jit does: a CUDA graph per block shape (pipeline.BlockGraphs) holds the
+block's upload from a pinned slot, the front and block-decode launches
+and the dict's copy back; a dispatch copies the block in and replays, a
+fetch waits on the block's event and reads the dict from the slot's two
+buffers. run_stream_sharded uploads each step from a pinned buffer and
+copies its results on a copy stream that waits on the step's event alone
+(pipeline.Fetcher). Entries are fetched and applied first in, first out,
 so packets, the recover2 gate, the ICAO cache and the stats follow stream
 order at every depth. The source is read on the Prefetcher's thread.
 run_stream_sharded decodes the stream over a mesh of devices
@@ -62,6 +67,7 @@ from airjax_torch.dsp.demod import WINDOW
 from airjax_torch.observability import StageTimer
 from airjax_torch.extended import assemble_extended
 from airjax_torch.pipeline import (
+    BlockGraphs,
     decode_iq_block,
     decode_iq_block_extended,
     decode_iq_block_extended_with_fields,
@@ -88,15 +94,20 @@ class StreamStats:
         self.recovered2 = 0  # 2-bit repairs accepted (recover2)
         self.overflow_blocks = 0
         self.started = time.time()
-        # Host wall-clock per stage: dispatch (upload + decode launches),
-        # fetch (the wait and the result copy + overflow regrow), apply
+        # Host wall-clock per stage: dispatch (the block's copy in + the
+        # decode's replay or launches), fetch (the wait and the result copy
+        # + overflow regrow), apply
         # (packets + sink).
         self.stages = StageTimer()
         # Set at the stream's end, not in as_dict (airjax has no such keys):
         # decodes fetched, and those whose fetch returned while the next
-        # decode was still running on the card (pipeline.Fetcher).
+        # decode was still running on the card (pipeline.BlockGraphs,
+        # pipeline.Fetcher).
         self.fetches = 0
         self.overlapped = 0
+        # run_stream's pipeline.BlockGraphs at the stream's end: first
+        # sightings, captures, replays, and the bytes its slots hold.
+        self.graphs: dict[str, int] = {}
 
     def as_dict(self) -> dict:
         dt = max(time.time() - self.started, 1e-9)
@@ -209,14 +220,12 @@ class _Sink:
         return emitted
 
 
-def _decode_fn(extended: bool, batched: bool, recover2: bool):
-    """The block decode for a stream, one of airjax's six
-    (airjax/runner.py:204-223): decode(iq, n_off, capacity) -> dict."""
+def _decode_fn(extended: bool, batched: bool):
+    """The block decode for a stream, one of airjax's six with its
+    recover2 (airjax/runner.py:204-223)."""
     if extended:
-        fn = decode_iq_block_extended_with_fields if batched else decode_iq_block_extended
-    else:
-        fn = decode_iq_block_with_fields if batched else decode_iq_block
-    return functools.partial(fn, recover2=recover2)
+        return decode_iq_block_extended_with_fields if batched else decode_iq_block_extended
+    return decode_iq_block_with_fields if batched else decode_iq_block
 
 
 def run_stream(
@@ -252,8 +261,8 @@ def run_stream(
     # in extended mode; any other sink, or the debug aids, take packets.
     debug = plot_dir is not None or dump_preamble
     sink = _Sink(on_packet, extended, recover2, stats, per_packet=debug)
-    decode = _decode_fn(extended, sink.batched, recover2)
-    fetcher = Fetcher(device)
+    graphs = BlockGraphs(_decode_fn(extended, sink.batched), recover2=recover2, device=device,
+                         depth=pipeline_depth)
     halo = WINDOW - 1
     # The initial carry is the non-detecting (1,0)-magnitude pattern: a
     # zero carry passes the equality-tolerant gate at every offset.
@@ -267,28 +276,23 @@ def run_stream(
 
     def _dispatch(ext: np.ndarray, n_off: int, base: int, n_samples: int) -> None:
         with stats.stages.stage("dispatch"):
-            staged = fetcher.stage(ext)
-            block_dev = fetcher.upload(staged)
-            out_dev = decode(block_dev, n_off, cfg.max_candidates)
-            ticket = fetcher.launched(staged)
-        # `now` is stamped at dispatch, as airjax does; the entry keeps the
-        # block on the device for a regrow, and `ext` for the debug aids.
-        inflight.append((ext, n_off, base, time.time(), n_samples, block_dev, out_dev, ticket))
+            slot = graphs.dispatch(ext, n_off, cfg.max_candidates)
+        # `now` is stamped at dispatch, as airjax does; the slot keeps the
+        # block on the device for a regrow, and the entry `ext` for the
+        # debug aids.
+        inflight.append((ext, n_off, base, time.time(), n_samples, slot))
 
     def _process(entry) -> None:
-        ext, n_off, base, now, n_samples, block_dev, out_dev, ticket = entry
+        ext, n_off, base, now, n_samples, slot = entry
         with stats.stages.stage("fetch"):
-            out = fetcher.fetch(out_dev, ticket)
+            out = graphs.fetch(slot)
             # Regrow on overflow: a dropped detection would lose a frame.
             overflowed = bool(out["overflow"])
             capacity = cfg.max_candidates
             while bool(out["overflow"]) and capacity < n_off:
                 capacity = min(capacity * 4, n_off)
-                out_dev = decode(block_dev, n_off, capacity)
-                fetcher.done(ticket)
-                ticket = fetcher.launched()
-                out = fetcher.fetch(out_dev, ticket)
-            fetcher.done(ticket)
+                out = graphs.regrow(slot, capacity)
+            graphs.done(slot)
         t_apply = time.perf_counter()
         good = out.get("good")
         if good is not None and overlap:
@@ -347,7 +351,11 @@ def run_stream(
         _dispatch(carry, carry.shape[0] - halo, global_base, 0)
     while inflight:
         _process(inflight.popleft())
-    stats.fetches, stats.overlapped = fetcher.fetches, fetcher.overlapped
+    stats.fetches, stats.overlapped = graphs.fetches, graphs.overlapped
+    slots = graphs.slots()
+    stats.graphs = {"eager": graphs.eager, "captures": graphs.captures, "replays": graphs.replays,
+                    "pinned_bytes": sum(s.pinned_bytes for s in slots),
+                    "device_bytes": sum(s.device_bytes for s in slots)}
     return stats
 
 

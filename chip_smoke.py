@@ -57,7 +57,9 @@ Phases; any failure raises and the exit code is nonzero:
   6. a 20 M-sample (10 s at 2 MS/s) capture with ~600 frames, some
      straddling the 20,000-sample chunk edges and some corrupted, replayed
      through the CLI (`adsb --playback FILE --fast`): overlap mode emits
-     every frame once, in order; `--devices 1` (the sharded runner on a
+     every frame once, in order, its first block eager and every other a
+     replay of a captured graph (pipeline.BlockGraphs), a front and a block
+     decode counted a block; `--devices 1` (the sharded runner on a
      one-card mesh) the same list; --no-overlap loses the straddlers; the
      hit lists equal the plain path's on the card;
   7. the extended decode of every downlink format on a 2^24 + 1024-sample
@@ -89,8 +91,8 @@ Phases; any failure raises and the exit code is nonzero:
      per-packet ones, every aircraft has its callsign, altitude and a
      position within CPR resolution of the truth, recovered2 equals the
      gated 2-flip frames, each batched pass launched the block decode with
-     F once and the fields kernel never; MS/s, msgs/s and stages printed
-     per run;
+     F once and the fields kernel never, every block but the first a graph
+     replay; MS/s, msgs/s and stages printed per run;
  11. the mesh paths: a 2^26-sample capture (4096 DF17 frames, one at each
      shard edge and one ending at the capture's end) through
      decode_capture_sharded and decode_capture_sharded_extended on 4 shards
@@ -127,7 +129,8 @@ Phases; any failure raises and the exit code is nonzero:
      adsb --dump-preamble card == CPU; adsb --trace names the kernels;
  14. the pipelined stream (run_stream's pipeline_depth, pipeline.Fetcher):
      phase 6's stream at depths 0, 1, 2 and 4 (the embedded frames, in
-     order), ExtendedBatchTracker, BatchTracker --recover2 and
+     order; one eager block, depth + 1 captures, the rest replays),
+     ExtendedBatchTracker, BatchTracker --recover2 and
      run_stream_sharded on 4 shards of the card at depths 0 and 1 (tables
      equal), phase 4's block fed 8 times at depths 0 and 1 (block k+1
      pending at block k's fetch in at least half the blocks at depth 1; a
@@ -168,7 +171,19 @@ Phases; any failure raises and the exit code is nonzero:
      stage's pair == its plain version's on the same card tensor, the
      graph's sums == the eager passes', the launches through the wrappers,
      one replay of the R = 2 graph profiled (the stage's kernels and the
-     sums' small kernels, nothing else); each stage's line printed.
+     sums' small kernels, nothing else); each stage's line printed;
+ 20. one program a block (pipeline.BlockGraphs, run after phase 14): one
+     replay of each of the five block decodes on phase 6's block shape ==
+     the eager wrappers bit for bit, one front and one block decode
+     counted, and under the profiler those two kernels, the block's upload
+     and the dict's one download and nothing else (the overlap scan's form:
+     a device copy, then the same); phase 6's stream through run_stream
+     with the eager form it replaced (the wrappers and pipeline.Fetcher)
+     and with the graphs, in turns at depths 0 and 1, then `adsb
+     --playback --fast` the same way: dispatch, fetch and apply ms a block
+     and MS/s; the 2^24 block: a replay against an eager pass (CUDA events)
+     and bench.measure's graph slope, the kernels' device time in each,
+     the overlap form's host time a block, the slot's memory.
 `chip_smoke.py --cards` (4 or more cards): the mesh paths across cards,
 dryrun_multichip on make_mesh(4), and phase 12 with NCCL across 4 cards.
 Phase 3 also holds the block-decode kernel's recover2 (R2) instantiations
@@ -197,6 +212,7 @@ from __future__ import annotations
 
 import ast
 import contextlib
+import functools
 import io
 import json
 import os
@@ -1529,18 +1545,22 @@ def phase_stream(dev: torch.device) -> dict[str, int]:
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "stream.c16")
         save_c16(iq, path)
-        with counted() as n:
+        with counted() as n, replayed() as g:
             text, stats, wall = run_cli(["adsb", "--playback", path, "--fast"])
         got = hexes(text)
         check(min(n["magdet_bits"], n["block_decode"]) > 0
               and n["compact_bits"] == n["candidate"] == n["magdet_front"] == n["fields"] == 0,
               f"the stream did not run the front and block-decode kernels alone: {n}")
+        # One block shape: the first block eager, the others replays of its
+        # graphs (pipeline.BlockGraphs), a front and a block decode counted each.
+        check(n["magdet_bits"] == n["block_decode"] == n_chunks and g["eager"] == 1
+              and g["replays"] == n_chunks - 1, f"the stream did not replay its graphs: launches {n}, graphs {g}")
         launches = {"magdet_bits": n["magdet_bits"], "block_decode": n["block_decode"]}
         check(got == [f.hex() for _, f in plain], "overlap stream differs from the plain path")
         check(stats["recovered"] == len(corrupt), f"recovered {stats['recovered']} != {len(corrupt)}")
         check(stats["blocks"] == n_chunks and stats["overflow_blocks"] == 0, f"stats {stats}")
         print(f"stream overlap: {len(got)} frames, each once, in order; {wall:.2f} s wall, "
-              f"stats {json.dumps({k: v for k, v in stats.items() if k != 'stages'})}")
+              f"stats {json.dumps({k: v for k, v in stats.items() if k != 'stages'})}; graphs {json.dumps(g)}")
         print(f"stream stages: {json.dumps(stats['stages'])}")
 
         # The sharded runner on a one-card mesh: the same hit list.
@@ -1830,15 +1850,17 @@ def phase_tracker_stream(dev: torch.device) -> dict[str, int]:
         return (iq[i : i + CHUNK] for i in range(0, TRACK_SAMPLES, CHUNK))
 
     def run(name, sink, extended, recover2):
-        with counted() as n:
+        with counted() as n, replayed() as g:
             t = time.perf_counter()
             stats = run_stream(blocks(), sink, extended=extended, recover2=recover2, device=dev).as_dict()
             wall = time.perf_counter() - t
         check(n["magdet_bits"] == n["block_decode"] > 0 and n["compact_bits"] == n["candidate"] == 0,
               f"{name}: not a front and a block-decode launch a pass: {n}")
+        check(g["eager"] == 1 and g["eager"] + g["replays"] == stats["blocks"],
+              f"{name}: not one eager block and replays of its graphs: launches {n}, graphs {g}")
         print(f"tracker stream, {name}: {TRACK_SAMPLES / wall / 1e6:.3f} MS/s, {stats['good'] / wall:.1f} msgs/s "
               f"({wall:.2f} s wall); stats {json.dumps({k: v for k, v in stats.items() if k != 'stages'})}; "
-              f"launches {json.dumps(n)}")
+              f"launches {json.dumps(n)}; graphs {json.dumps(g)}")
         print(f"  stages: {json.dumps(stats['stages'])}")
         return stats, n
 
@@ -2756,16 +2778,19 @@ def stream_pass(name: str, blocks, sink, runner=None, **kw):
     and apply ms a decode, and the fetches that overlapped the next decode."""
     from airjax_torch.runner import run_stream
 
-    with counted() as n:
+    with counted() as n, replayed() as g:
         t0 = time.perf_counter()
         stats = (runner or run_stream)(blocks(), sink, **kw)
         wall = time.perf_counter() - t0
+    n["graphs"] = g
     d = stats.as_dict()
     st = d["stages"]
     print(f"pipelined, {name}: {d['samples'] / wall / 1e6:.2f} MS/s ({wall:.3f} s wall, {d['samples']} samples); "
           f"dispatch / fetch / apply {st['dispatch']['mean_ms']:.4f} / {st['fetch']['mean_ms']:.4f} / "
           f"{st['apply']['mean_ms']:.4f} ms a decode ({st['fetch']['calls']} decodes); {stats.overlapped} of "
-          f"{stats.fetches} fetches returned with the next decode pending; launches {json.dumps(n)}")
+          f"{stats.fetches} fetches returned with the next decode pending; launches {json.dumps(n)}"
+          + (f"; slots {stats.graphs['pinned_bytes']} B pinned, {stats.graphs['device_bytes']} B on the card"
+             if stats.graphs else ""))
     return stats, d, n
 
 
@@ -2808,6 +2833,9 @@ def phase_pipelined(dev: torch.device, stream_capture, block: np.ndarray, block_
         check(n["magdet_bits"] == n["block_decode"] == n_blocks == d["blocks"] and stats.fetches == n_blocks
               and n["compact_bits"] == n["candidate"] == n["magdet_front"] == n["fields"] == 0,
               f"depth {depth}: not a front and a block decode a block: {n}")
+        g = n["graphs"]
+        check((g["eager"], g["captures"], g["replays"]) == (1, depth + 1, n_blocks - 1),
+              f"depth {depth}: not one eager block, depth + 1 captures and replays: {g}")
         print(f"  stages: {json.dumps(d['stages'])}")
 
     tracks = chunks(tracker_iq, PIPE_SAMPLES)
@@ -2839,8 +2867,9 @@ def phase_pipelined(dev: torch.device, stream_capture, block: np.ndarray, block_
                                   cfg=cfg, device=dev, pipeline_depth=depth)
         check([p.packet for p in got] == block_frames * BIG_STREAM_BLOCKS,
               f"the 2^24 stream, depth {depth}: packets differ")
-        check(n["magdet_bits"] == n["block_decode"] == stats.fetches == BIG_STREAM_BLOCKS + 1,
-              f"the 2^24 stream, depth {depth}: not a front and a block decode a decode: {n}")
+        check(n["magdet_bits"] == n["block_decode"] == stats.fetches == BIG_STREAM_BLOCKS + 1
+              == n["graphs"]["eager"] + n["graphs"]["replays"] and n["graphs"]["replays"] > 0,
+              f"the 2^24 stream, depth {depth}: not a front and a block decode a decode, through the graphs: {n}")
         check(depth == 0 or 2 * stats.overlapped >= BIG_STREAM_BLOCKS,
               f"the 2^24 stream at depth 1: block k+1 pending at block k's fetch in {stats.overlapped} of "
               f"{BIG_STREAM_BLOCKS} blocks, not half")
@@ -2851,24 +2880,35 @@ def phase_pipelined(dev: torch.device, stream_capture, block: np.ndarray, block_
     def one_stream():
         run_stream(big(), lambda p: None, cfg, device=dev, pipeline_depth=1)
 
+    # A capture (pipeline.BlockGraphs) launches torch's own bookkeeping of
+    # the CUDA generator's state: two int64 fills, at capture and not in the
+    # graph; nothing else of the stream's is a kernel other than the two.
+    def capture_fill(x: str) -> bool:
+        return "FillFunctor<long>" in x
+
     one_stream()
     for _ in range(PROFILE_TRIES):
-        events = device_events(one_stream, 1)
+        with replayed() as g:
+            events = device_events(one_stream, 1)
         names = [e.name for e in events if "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
         fronts = sum("magdet_bits_kernel" in x for x in names)
         decodes = sum("block_decode_kernel" in x for x in names)
-        other = sorted({x[:80] for x in names if "magdet_bits_kernel" not in x and "block_decode_kernel" not in x})
-        check(not other, f"the depth-1 2^24 stream ran other kernels: {other}")
-        if fronts == decodes == BIG_STREAM_BLOCKS + 1:
+        fills = sum(capture_fill(x) for x in names)
+        other = sorted({x[:80] for x in names if "magdet_bits_kernel" not in x and "block_decode_kernel" not in x
+                        and not capture_fill(x)})
+        check(not other and fills <= 2 * g["captures"],
+              f"the depth-1 2^24 stream ran other kernels: {other}, {fills} fills for {g['captures']} captures")
+        if fronts == decodes == BIG_STREAM_BLOCKS + 1 and fills == 2 * g["captures"]:
             break
         print(f"profile, the depth-1 2^24 stream: the profiler dropped events ({fronts} fronts, {decodes} block "
-              f"decodes); again")
+              f"decodes, {fills} fills of {g['captures']} captures); again")
     else:
         check(False, f"the depth-1 2^24 stream: the profiler dropped events in {PROFILE_TRIES} windows")
     busy = busy_us(events)
     copies = sum(1 for e in events if "memcpy" in e.name.lower())
     print(f"pipelined, the depth-1 2^24 stream under the profiler: {fronts} fronts and {decodes} block decodes, no "
-          f"other kernel; {copies} copies; device busy {busy / 1e3:.3f} ms")
+          f"other kernel but {fills} generator-state fills of its {g['captures']} captures; {copies} copies; "
+          f"device busy {busy / 1e3:.3f} ms")
 
 
 # Phase 15: live input on the card (sdr.py, the native ring, list/receive/adsb).
@@ -3392,6 +3432,333 @@ def phase_stages(dev: torch.device) -> None:
 
 
 # The multi-card run (`chip_smoke.py --cards`, a host of 4 or more cards).
+# Phase 20: one program a block (pipeline.BlockGraphs), against the eager
+# form it replaced in run_stream.
+GRAPH_VARIANTS = {  # name -> (decode function name, recover2)
+    "decode_iq_block": ("decode_iq_block", False),
+    "decode_iq_block --recover2": ("decode_iq_block", True),
+    "decode_iq_block_extended": ("decode_iq_block_extended", False),
+    "decode_iq_block_with_fields": ("decode_iq_block_with_fields", False),
+    "decode_iq_block_extended_with_fields --recover2": ("decode_iq_block_extended_with_fields", True),
+}
+GRAPH_REPS = 20  # replays and eager passes timed on the 2^24 block
+
+
+@contextlib.contextmanager
+def replayed():
+    """pipeline.graph_counts set to 0 on entry; on exit the dict holds the
+    first sightings, captures and replays of every BlockGraphs inside."""
+    from airjax_torch import pipeline
+
+    pipeline.graph_counts.update(dict.fromkeys(pipeline.graph_counts, 0))
+    got: dict[str, int] = {}
+    yield got
+    got.update(pipeline.graph_counts)
+
+
+class EagerBlocks:
+    """The eager decode that pipeline.BlockGraphs replaced in run_stream,
+    behind BlockGraphs' interface, for the A/B in turns: each block staged
+    in a pinned buffer, uploaded, the front and the block decode launched
+    through the wrappers, an event recorded; each dict entry fetched on a
+    copy stream that waits on that event (pipeline.Fetcher)."""
+
+    def __init__(self, decode, *, recover2: bool = False, device="cuda", depth: int = 1):
+        from airjax_torch.pipeline import Fetcher
+
+        self.decode = functools.partial(decode, recover2=recover2)
+        self.fetcher = Fetcher(device)
+        self.eager = self.captures = self.replays = 0
+
+    @property
+    def fetches(self) -> int:
+        return self.fetcher.fetches
+
+    @property
+    def overlapped(self) -> int:
+        return self.fetcher.overlapped
+
+    def dispatch(self, iq, n_off: int, capacity: int) -> list:
+        staged = self.fetcher.stage(iq)
+        block_dev = self.fetcher.upload(staged)
+        out = self.decode(block_dev, n_off, capacity)
+        self.eager += 1
+        return [block_dev, n_off, out, self.fetcher.launched(staged)]
+
+    def fetch(self, slot: list) -> dict:
+        return self.fetcher.fetch(slot[2], slot[3])
+
+    def regrow(self, slot: list, capacity: int) -> dict:
+        out = self.decode(slot[0], slot[1], capacity)
+        self.fetcher.done(slot[3])
+        slot[3] = self.fetcher.launched()
+        return self.fetcher.fetch(out, slot[3])
+
+    def done(self, slot: list) -> None:
+        self.fetcher.done(slot[3])
+
+    def slots(self) -> list:
+        return []
+
+
+@contextlib.contextmanager
+def eager_stream():
+    """run_stream decodes through EagerBlocks while the context lasts."""
+    from airjax_torch import runner
+
+    saved = runner.BlockGraphs
+    runner.BlockGraphs = EagerBlocks
+    try:
+        yield
+    finally:
+        runner.BlockGraphs = saved
+
+
+def same_host_dict(got: dict, want: dict) -> bool:
+    """Two host dicts (nested field dicts spread out) equal key by key, dtypes included."""
+    got, want = flat(got), flat(want)
+    return sorted(got) == sorted(want) and all(
+        np.asarray(got[k]).dtype == np.asarray(want[k]).dtype and np.array_equal(got[k], want[k]) for k in want)
+
+
+def copy_kind(name: str) -> str:
+    low = name.lower().replace(" ", "")
+    for kind in ("htod", "dtoh", "dtod"):
+        if kind in low:
+            return kind
+    return "memcpy"
+
+
+def replay_profile(name: str, fn, want: dict) -> dict[str, int]:
+    """One call of fn (a BlockGraphs dispatch, fetch and done) under the
+    profiler -> its device events by kind; the front and the block decode
+    once each and the copies `want` names, nothing else (a window that lost
+    an event is profiled again)."""
+    for _ in range(PROFILE_TRIES):
+        events = device_events(fn, 1)
+        kinds: dict[str, int] = {}
+        for e in events:
+            k = ("front" if "magdet_bits_kernel" in e.name else "block decode" if "block_decode_kernel" in e.name
+                 else copy_kind(e.name) if "memcpy" in e.name.lower() else e.name[:60])
+            kinds[k] = kinds.get(k, 0) + 1
+        if kinds == want:
+            us = {e.name[:48]: round(e.time_range.end - e.time_range.start, 3) for e in events}
+            print(f"  {name}: {json.dumps(kinds)}; device us {json.dumps(us)}")
+            return kinds
+        if set(kinds) - set(want):
+            check(False, f"{name}: a replay ran other work: {json.dumps(kinds)}")
+        print(f"profile, {name}: the profiler dropped events ({json.dumps(kinds)}); again")
+    check(False, f"{name}: the profiler dropped events in {PROFILE_TRIES} windows")
+
+
+BREAKDOWN_BLOCKS = 300  # blocks a step of the dispatch breakdown is timed over
+
+
+def dispatch_breakdown(dev: torch.device, ext: np.ndarray, ext_dev: torch.Tensor, k: int) -> None:
+    """Where a 20,000-sample block's dispatch and fetch go on the host, at
+    depth 0 (pipeline.BlockGraphs): each step timed alone, median µs over
+    BREAKDOWN_BLOCKS blocks, beside a replay of the graph without the
+    upload (upload=False) and the eager wrappers' two launches."""
+    from airjax_torch import pipeline
+    from airjax_torch.kernels.fields import layout_views
+
+    forms = {}
+    for upload, src in ((True, ext), (False, ext_dev)):
+        graphs = pipeline.BlockGraphs(pipeline.decode_iq_block, device=dev, depth=0, upload=upload)
+        for _ in range(2):  # the first sighting, then the capture
+            slot = graphs.dispatch(src, CHUNK, k)
+            graphs.fetch(slot)
+            graphs.done(slot)
+        forms[upload] = graphs
+    graphs = forms[True]
+    (slot,) = graphs.slots()
+    (bare,) = forms[False].slots()
+    stream = torch.cuda.current_stream(dev)
+    block = torch.from_numpy(ext)
+    steps = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        steps.setdefault(name, []).append((time.perf_counter() - t0) * 1e6)
+        return out
+
+    for _ in range(BREAKDOWN_BLOCKS):
+        timed("copy in (one memcpy)", lambda: np.copyto(slot.host_iq.numpy(), ext))
+        timed("copy in (torch's threaded copy)", lambda: slot.host_iq.copy_(block))
+        timed("replay", slot.graph.replay)
+        timed("event record", lambda: slot.event.record(stream))
+        timed("wait", slot.event.synchronize)
+        timed("copy out + views", lambda: layout_views(slot.layout.entries,
+                                                       *pipeline._split(slot.host_out.numpy().copy(),
+                                                                        slot.layout.n_int)))
+        s2 = timed("BlockGraphs.dispatch", lambda: graphs.dispatch(ext, CHUNK, k))
+        timed("BlockGraphs.fetch", lambda: graphs.fetch(s2))
+        graphs.done(s2)
+        timed("replay, no upload node", bare.graph.replay)
+        torch.cuda.synchronize()
+        timed("eager: the two launches", lambda: pipeline.decode_iq_block(ext_dev, CHUNK, k))
+        torch.cuda.synchronize()
+    print(f"graphs, a block's host steps at depth 0 (median us of {BREAKDOWN_BLOCKS}): "
+          + json.dumps({name: round(statistics.median(t), 3) for name, t in steps.items()}))
+
+
+def back_to_back_ms(fn) -> float:
+    """ms a call of fn over GRAPH_REPS calls back to back between two CUDA
+    events, the best of 3 (as bench.py's _timed), after a warm-up call."""
+    fn()
+    best = float("inf")
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(GRAPH_REPS):
+            fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / GRAPH_REPS)
+    return best
+
+
+def stage_ms(stats, stage: str) -> float:
+    """Mean ms a call of a run_stream stage, unrounded."""
+    return stats.stages.totals[stage] / stats.stages.counts[stage] * 1e3
+
+
+def phase_graphs(dev: torch.device, stream_capture, block_dev: torch.Tensor, card: str) -> None:
+    """Phase 20: run_stream and the overlap scan decode a block by replaying
+    one CUDA graph (pipeline.BlockGraphs). (1) One replay of each of the
+    five decodes on phase 6's block shape: its dict == the eager wrappers'
+    bit for bit, one front and one block-decode launch counted (with F where
+    batched), and under the profiler the front, the block decode, the
+    block's upload and the dict's one download, nothing else; the overlap
+    form (upload=False): a device copy before the replay, then the same.
+    (2) Phase 6's 20 M-sample stream through run_stream with the eager form
+    (EagerBlocks: the wrappers and pipeline.Fetcher) and with BlockGraphs,
+    in turns at depths 0 and 1: the packets the embedded frames, the
+    dispatch, fetch and apply ms a block and MS/s. (3) `adsb --playback
+    FILE --fast` the same way. (4) Phase 4's 2^24 block: a replay's device
+    time (CUDA events) and its kernels' device time (profiler) against an
+    eager pass's and bench.measure's graph slope, and the overlap form's
+    host time a block. The captures, replays, first sightings and the
+    memory the slots hold are printed."""
+    from airjax_torch import bench, pipeline
+    from airjax_torch.config import DEFAULT_CONFIG
+    from airjax_torch.dsp.demod import WINDOW
+    from airjax_torch.io.c16 import save_c16
+    from airjax_torch.runner import run_stream
+
+    t_phase = time.perf_counter()
+    stream_iq, frames = stream_capture
+    k = DEFAULT_CONFIG.max_candidates
+    # Phase 6's steady block: the carry's 239 samples, then 20,000 fresh.
+    ext = np.ascontiguousarray(stream_iq[CHUNK - WINDOW + 1 : 2 * CHUNK])
+    ext_dev = torch.as_tensor(ext, device=dev)
+    print(f"graphs: {card}; a block {ext.shape[0]} samples, n_off {CHUNK}, capacity {k}")
+    for name, (fn_name, r2) in GRAPH_VARIANTS.items():
+        fn = getattr(pipeline, fn_name)
+        batched = "with_fields" in fn_name
+        want = pipeline.to_host(fn(ext_dev, CHUNK, k, recover2=r2))
+        for upload in (True, False) if fn_name == "decode_iq_block" and not r2 else (True,):
+            graphs = pipeline.BlockGraphs(fn, recover2=r2, device=dev, depth=0, upload=upload)
+            src = ext if upload else ext_dev
+
+            def one():
+                slot = graphs.dispatch(src, CHUNK, k)
+                out = graphs.fetch(slot)
+                graphs.done(slot)
+                return out
+
+            one()  # the first sighting, eager
+            with counted() as n, replayed() as g:
+                got = one()  # the capture, then a replay
+            check(same_host_dict(got, want), f"graphs, {name}: a replay's dict != the eager wrappers'")
+            check(n == (BATCHED_PASS if batched else ONE_PASS) and g == {"eager": 0, "captures": 1, "replays": 1},
+                  f"graphs, {name}: a replay counted {n}, {g}")
+            copies = {"htod": 1, "dtoh": 1} if upload else {"dtod": 1, "dtoh": 1}
+            replay_profile(f"{name}{'' if upload else ', the overlap form'}", one,
+                           {"front": 1, "block decode": 1, **copies})
+    print("graphs: a replay == the eager wrappers bit for bit in each decode, one front and one block decode "
+          "counted, and only those kernels and the copies on the card")
+    dispatch_breakdown(dev, ext, ext_dev, k)
+
+    def blocks():
+        return (stream_iq[i : i + CHUNK] for i in range(0, STREAM_SAMPLES, CHUNK))
+
+    n_blocks = STREAM_SAMPLES // CHUNK
+    rows: dict[tuple[int, str], list] = {}
+    for depth in (0, 1):
+        for form in ("eager", "graphs", "graphs", "eager"):  # in turns
+            got = []
+            with (eager_stream() if form == "eager" else contextlib.nullcontext()), counted() as n, \
+                    replayed() as g:
+                t0 = time.perf_counter()
+                stats = run_stream(blocks(), got.append, device=dev, pipeline_depth=depth)
+                wall = time.perf_counter() - t0
+            check([p.packet for p in got] == frames, f"{form}, depth {depth}: the packets differ")
+            check(n["magdet_bits"] == n["block_decode"] == n_blocks
+                  and (g["replays"] == 0 if form == "eager" else
+                       (g["eager"], g["captures"], g["replays"]) == (1, depth + 1, n_blocks - 1)),
+                  f"{form}, depth {depth}: launches {n}, graphs {g}")
+            row = (stage_ms(stats, "dispatch"), stage_ms(stats, "fetch"), stage_ms(stats, "apply"),
+                   STREAM_SAMPLES / wall / 1e6)
+            rows.setdefault((depth, form), []).append(row)
+            print(f"graphs A/B, phase 6's stream, {form}, depth {depth}: dispatch {row[0]:.6f} ms, fetch "
+                  f"{row[1]:.6f} ms, apply {row[2]:.6f} ms a block, {row[3]:.3f} MS/s ({wall:.3f} s wall); "
+                  f"{stats.overlapped} of {stats.fetches} fetches with the next decode pending"
+                  + (f"; graphs {json.dumps(stats.graphs)}" if form == "graphs" else ""))
+    for depth in (0, 1):
+        e, gr = (np.mean(rows[(depth, f)], axis=0) for f in ("eager", "graphs"))
+        print(f"graphs A/B, depth {depth}, mean of 2 turns on {card}: dispatch + fetch {e[0] + e[1]:.6f} ms eager, "
+              f"{gr[0] + gr[1]:.6f} ms graphs ({(gr[0] + gr[1]) / (e[0] + e[1]):.3f} of eager); "
+              f"{e[3]:.3f} MS/s eager, {gr[3]:.3f} MS/s graphs")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "stream.c16")
+        save_c16(stream_iq, path)
+        want = [f.hex() for f in frames]
+        for form in ("eager", "graphs", "graphs", "eager"):  # in turns
+            with eager_stream() if form == "eager" else contextlib.nullcontext():
+                text, stats, wall = run_cli(["adsb", "--playback", path, "--fast"])
+            check(hexes(text) == want, f"adsb, {form}: the packets are not the embedded frames in order")
+            st = stats["stages"]
+            print(f"graphs A/B, adsb --playback --fast, {form}: {STREAM_SAMPLES / wall / 1e6:.3f} MS/s ({wall:.3f} s "
+                  f"wall); dispatch {st['dispatch']['mean_ms']} ms, fetch {st['fetch']['mean_ms']} ms, apply "
+                  f"{st['apply']['mean_ms']} ms a block")
+
+    n_off = BLOCK - WINDOW
+    graphs = pipeline.BlockGraphs(pipeline.decode_iq_block, device=dev, depth=0, upload=False)
+    want = pipeline.to_host(pipeline.decode_iq_block(block_dev, n_off, CAPACITY))
+
+    def overlap_block():
+        slot = graphs.dispatch(block_dev, n_off, CAPACITY)
+        out = graphs.fetch(slot)
+        graphs.done(slot)
+        return out
+
+    overlap_block()  # the first sighting
+    check(same_host_dict(overlap_block(), want), "graphs, 2^24: a replay's dict != the eager wrappers'")
+    (slot,) = graphs.slots()
+    replay_ms = back_to_back_ms(slot.graph.replay)
+    eager_ms = back_to_back_ms(lambda: pipeline.decode_iq_block(block_dev, n_off, CAPACITY))
+    host = []
+    for _ in range(GRAPH_REPS):
+        t0 = time.perf_counter()
+        overlap_block()
+        host.append(time.perf_counter() - t0)
+    slope = bench.measure(bench.make_repeat_step(BLOCK, CAPACITY), (block_dev,), 2, 42)
+    kernels_replay = device_us(slot.graph.replay, PASS_KERNELS)
+    kernels_eager = device_us(lambda: pipeline.decode_iq_block(block_dev, n_off, CAPACITY), PASS_KERNELS)
+    print(f"graphs, 2^24 block on {card}: a replay {replay_ms * 1e3:.3f} us (the two kernels and the dict's "
+          f"download), an eager pass {eager_ms * 1e3:.3f} us ({GRAPH_REPS} back to back between two CUDA events, "
+          f"best of 3); bench.measure "
+          f"slope {slope['seconds_per_pass'] * 1e6:.3f} us, its eager {slope['eager_seconds_per_pass'] * 1e6:.3f} us "
+          f"a pass; the two kernels' device time {kernels_replay:.3f} us in a replay, {kernels_eager:.3f} us eager "
+          f"(profiler); the overlap form {statistics.median(host) * 1e3:.6f} ms a block on the host (device copy, "
+          f"replay, fetch; median of {GRAPH_REPS})")
+    print(f"graphs: the 2^24 slot holds {slot.device_bytes} bytes on the card and {slot.pinned_bytes} pinned; "
+          f"phase 20 {time.perf_counter() - t_phase:.1f} s")
+
+
 def packet_view(packet) -> tuple:
     """A packet's class and fields but its wall-clock stamp."""
     import dataclasses
@@ -3537,6 +3904,7 @@ def main() -> int:
     oracle, count_row = phase_oracle(dev, tracker_iq)
     kernels.append(count_row)
     phase_pipelined(dev, stream_capture, block, frames, tracker_iq)
+    phase_graphs(dev, stream_capture, block_dev, card)
     del stream_capture
     phase_live(dev, tracker_iq)
     phase_tools()

@@ -116,7 +116,7 @@ def test_hashed_lookup_equals_airjax_recover2(n_flips):
     bits = _flipped_rows(20 + n_flips, n_flips)
     want = jcrc.crc_check_and_recover2(jnp.asarray(bits))
     t_bits = torch.as_tensor(bits)
-    tab = tcrc.tables()
+    tab = tcrc.tables("cpu")
     corrected, good, recovered = tcrc.crc_check_and_recover(t_bits, tab)
     delta = tcrc.crc24_batch(t_bits[:, :88], tab) ^ tcrc.pack_bits_msbfirst(t_bits[:, 88:], 24)
     ij = _lookup(delta, kblock.pair_hash_table())
@@ -150,7 +150,7 @@ def _bit_rows(seed: int) -> np.ndarray:
 def test_crc_check_and_recover2_equals_airjax(seed):
     bits = _bit_rows(seed)
     want = jcrc.crc_check_and_recover2(jnp.asarray(bits))
-    got = tcrc.crc_check_and_recover2(torch.as_tensor(bits), tcrc.tables())
+    got = tcrc.crc_check_and_recover2(torch.as_tensor(bits), tcrc.tables("cpu"))
     for name, w, g in zip(("bits", "good", "recovered", "recovered2"), want, got):
         assert_same(w, g, name)
     assert int(np.sum(np.asarray(want[3]))) >= 80  # the 2-flips were repaired

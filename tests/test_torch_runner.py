@@ -26,6 +26,7 @@ from airjax_torch.io import source as tsource
 from airjax_torch.io import synth as tsynth
 from airjax_torch.parallel import multihost
 from airjax_torch.parallel.mesh import make_mesh
+from airjax_torch.protocol import crc as tcrc
 from airjax_torch.protocol import shortframe
 from airjax_torch.tools import bench_stream
 
@@ -143,6 +144,7 @@ _NO_DEVICE = {
     "attach_candidate_fields": lambda iq: multihost.attach_candidate_fields(
         {"frames": np.zeros((1, 14), np.uint8), "frames_raw": np.zeros((1, 14), np.uint8)}),
     "bench_stream.run_once": lambda iq: bench_stream.run_once([iq[:20000]], 1),
+    "crc.tables": lambda iq: tcrc.tables(),
 }
 
 

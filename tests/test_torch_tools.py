@@ -16,10 +16,11 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
-from airjax_torch import native, pipeline, runner
+from airjax_torch import native, pipeline
 from airjax_torch.io import synth
 from airjax_torch.io.c16 import save_c16
 from airjax_torch.parallel import halo
@@ -181,8 +182,23 @@ def test_bench_stream_prints_each_depth(capsys):
         assert row["good"] == 4 and row["msps"] > 0
 
 
+def _fetch_dropping_first_good(fetch):
+    """pipeline.BlockGraphs.fetch (run_stream's decodes) with the first good
+    slot of each dict cleared: a decode that loses a frame."""
+
+    def dropped(self, slot):
+        out = fetch(self, slot)
+        hits = np.nonzero(out["good"])[0]
+        if len(hits):
+            out["good"] = out["good"].copy()
+            out["good"][hits[0]] = False
+        return out
+
+    return dropped
+
+
 def test_bench_stream_exits_1_on_a_dropped_frame(monkeypatch, capsys):
-    monkeypatch.setattr(runner, "decode_iq_block", _drop_first_good(runner.decode_iq_block))
+    monkeypatch.setattr(pipeline.BlockGraphs, "fetch", _fetch_dropping_first_good(pipeline.BlockGraphs.fetch))
     assert bench_stream.main([*STREAM, *CPU]) == 1
     assert "4 frames embedded" in capsys.readouterr().err
 
