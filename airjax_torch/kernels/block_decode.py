@@ -44,8 +44,6 @@ the four with F.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
-
 import numpy as np
 import torch
 
@@ -53,7 +51,15 @@ from airjax_torch._dispatch import check_launch, check_tensor, use_kernel
 from airjax_torch.kernels import candidate
 from airjax_torch.kernels.candidate import CLASSES
 from airjax_torch.kernels.compact import Compacted, compact_bits_plain
-from airjax_torch.kernels.fields import block_fields_plain, field_layout, field_sizes, layout_views
+from airjax_torch.kernels.fields import (
+    DictLayout,
+    block_fields_plain,
+    check_layout_buffers,
+    field_layout,
+    field_sizes,
+    fill_layout,
+    layout_views,
+)
 from airjax_torch.kernels.magdet import n_det_words, n_tiles
 from airjax_torch.protocol.crc import FRAME_BYTES, _pair_tables
 
@@ -160,16 +166,6 @@ def decode_block_bits_plain(
     return out
 
 
-class DictLayout(NamedTuple):
-    """The block-decode kernel's two output buffers: n_int int32 words and
-    n_byte bytes, and where each key of its dict lies in them
-    (`layout_views` entries)."""
-
-    n_int: int
-    n_byte: int
-    entries: tuple[tuple, ...]
-
-
 @functools.cache
 def dict_layout(capacity: int, extended: bool = False, recover2: bool = False, fields: bool = False) -> DictLayout:
     """The one definition of the dict's layout in the kernel's buffers
@@ -262,23 +258,13 @@ def decode_block_bits_into(
     on the CPU the plain version's dict is copied in."""
     _check_bits(det_words, words, tile_counts, n_off, capacity)
     lay = dict_layout(capacity, extended, recover2, fields)
-    for t, name, dtype, n in ((ints, "ints", torch.int32, lay.n_int), (byts, "byts", torch.uint8, lay.n_byte)):
-        check_tensor(t, name, dtype, 1)
-        if t.shape[0] != n or t.device != det_words.device:
-            raise ValueError(f"{name}: expected ({n},) on {det_words.device}, got {tuple(t.shape)} on {t.device}")
+    check_layout_buffers(lay, ints, byts, det_words.device)
     if use_kernel(det_words, words, tile_counts):
         _block_decode_cuda(det_words, words, tile_counts, n_off, capacity, extended, recover2, fields, (ints, byts))
         return
     plain = decode_block_bits_plain(det_words, words, tile_counts, n_off, capacity, extended=extended,
                                     recover2=recover2, fields=fields)
-    _fill(layout_views(lay.entries, ints, byts), plain)
-
-
-def _fill(views: dict, values: dict) -> None:
-    if views.keys() != values.keys():
-        raise ValueError(f"the dict's keys {sorted(values)} are not the layout's {sorted(views)}")
-    for key, v in views.items():
-        _fill(v, values[key]) if isinstance(v, dict) else v.copy_(values[key])
+    fill_layout(layout_views(lay.entries, ints, byts), plain)
 
 
 def _pairs(device: torch.device) -> torch.Tensor:

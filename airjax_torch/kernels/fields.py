@@ -23,6 +23,7 @@ as int32). `launches` counts this kernel's launches, both modes together.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -66,6 +67,34 @@ def field_layout(k: int, extended: bool) -> tuple[tuple, ...]:
                     for r, name in enumerate(SHORT_ROWS)]
         entries.append((("short_fields", "altitude_valid"), "b", 9 * k, (k,), True))
     return tuple(entries)
+
+
+class DictLayout(NamedTuple):
+    """A kernel's two output buffers: n_int int32 words and n_byte bytes,
+    and where each key of its dict lies in them (`layout_views` entries):
+    kernels/block_decode.py::dict_layout, kernels/shard_gather.py::
+    gather_layout."""
+
+    n_int: int
+    n_byte: int
+    entries: tuple[tuple, ...]
+
+
+def check_layout_buffers(lay: DictLayout, ints: torch.Tensor, byts: torch.Tensor, device: torch.device) -> None:
+    """Raise unless `ints` and `byts` are the int32 and byte buffers of `lay` on `device`."""
+    for t, name, dtype, n in ((ints, "ints", torch.int32, lay.n_int), (byts, "byts", torch.uint8, lay.n_byte)):
+        check_tensor(t, name, dtype, 1)
+        if t.shape[0] != n or t.device != device:
+            raise ValueError(f"{name}: expected ({n},) on {device}, got {tuple(t.shape)} on {t.device}")
+
+
+def fill_layout(views: dict, values: dict) -> None:
+    """Copy a dict (nested field dicts included) into `layout_views`' views
+    of the same keys."""
+    if views.keys() != values.keys():
+        raise ValueError(f"the dict's keys {sorted(values)} are not the layout's {sorted(views)}")
+    for key, v in views.items():
+        fill_layout(v, values[key]) if isinstance(v, dict) else v.copy_(values[key])
 
 
 def layout_views(entries, ints, byts) -> dict:

@@ -33,18 +33,33 @@ flag F, in the same launch; its plain version runs
 kernels/fields.py::block_fields_plain over the gathered rows.
 
 `shard_gather` launches the kernel when the shards lie on one CUDA device
-and runs `shard_gather_plain` when they lie on the CPU. `launches` counts
-kernel launches, `fields_launches` those with F.
+and runs `shard_gather_plain` when they lie on the CPU;
+`shard_gather_into` does the same into two buffers the caller keeps (a
+CUDA graph's outputs, parallel/halo.py::StepGraphs). `gather_layout` is
+the one definition of where each key of the dict lies in those two
+buffers: the device wrapper's views and the host's views of a fetched
+copy are both built from it. `launches` counts kernel launches,
+`fields_launches` those with F.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from airjax_torch._dispatch import check_launch, use_kernel
 from airjax_torch.kernels import candidate
 from airjax_torch.kernels.candidate import CLASSES
-from airjax_torch.kernels.fields import block_fields_plain, field_sizes, field_views
+from airjax_torch.kernels.fields import (
+    DictLayout,
+    block_fields_plain,
+    check_layout_buffers,
+    field_layout,
+    field_sizes,
+    fill_layout,
+    layout_views,
+)
 from airjax_torch.protocol.crc import FRAME_BYTES
 
 launches = 0
@@ -107,15 +122,52 @@ def shard_gather_plain(
     return out
 
 
-def shard_gather(
-    shards: list[dict], block: int, max_offset: int, capacity: int, *, extended: bool = False,
-    recover2: bool = False, first_shard: int = 0, with_fields: bool = False,
-) -> dict:
-    """The D shards' block-decode dicts (capacity K each; shard s covers
-    global offsets (first_shard + s) * block + [0, block)) -> airjax's compact dict of
-    capacity C = `capacity` (module docstring), with_fields also its
-    `fields` (and, extended, `short_fields`). The dicts are those of
-    pipeline.decode_iq_block(_extended), with `recovered2` under recover2."""
+@functools.cache
+def gather_layout(capacity: int, extended: bool = False, recover2: bool = False,
+                  with_fields: bool = False) -> DictLayout:
+    """The one definition of the compact dict's layout in the kernel's two
+    buffers (csrc/shard_gather.cu's Out and Fields), read on the device by
+    shard_gather and on the host by a fetch of the buffers
+    (parallel/halo.py::StepGraphs). The int32 buffer: offsets (C), the
+    extended df, icao_ap_short and icao_ap_long (C each), F's int rows, then
+    the count (n_good, or extended n_candidates) and n_detections. The byte
+    buffer: F's bytes first (its callsign codes take 4-byte stores), then
+    DF17's recovered or the extended classmask (C), frames (C, 14), the
+    extended frames_raw (C, 14), recovered2 (R2), and last overflow."""
+    c = capacity
+    cols = 4 if extended else 1
+    f_int, f_byte = field_sizes(c, extended) if with_fields else (0, 0)
+    n_int = cols * c + f_int + 2
+    n_byte = f_byte + c * (2 * FRAME_BYTES + 1 if extended else FRAME_BYTES + 1) + (c if recover2 else 0) + 1
+
+    def i(key, start, shape=(c,)):
+        return ((key,), "i", start, shape, False)
+
+    def by(key, start, shape=(c,), as_bool=False):
+        return ((key,), "b", start, shape, as_bool)
+
+    frames = f_byte + c
+    entries = [i("offsets", 0), by("frames", frames, (c, FRAME_BYTES))]
+    if extended:
+        entries += [by("classmask", f_byte), i("df", c), i("icao_ap_short", 2 * c), i("icao_ap_long", 3 * c),
+                    by("frames_raw", frames + FRAME_BYTES * c, (c, FRAME_BYTES))]
+        end = frames + 2 * FRAME_BYTES * c
+    else:
+        entries.append(by("recovered", f_byte, as_bool=True))
+        end = frames + FRAME_BYTES * c
+    if recover2:
+        entries.append(by("recovered2", end, as_bool=True))
+    entries += [i("n_candidates" if extended else "n_good", n_int - 2, ()), i("n_detections", n_int - 1, ()),
+                by("overflow", n_byte - 1, (), True)]
+    if with_fields:
+        entries += [(path, buf, start + (cols * c if buf == "i" else 0), shape, as_bool)
+                    for path, buf, start, shape, as_bool in field_layout(c, extended)]
+    return DictLayout(n_int, n_byte, tuple(entries))
+
+
+def _check_shards(shards: list[dict], block: int, capacity: int, first_shard: int, extended: bool,
+                  recover2: bool) -> tuple[tuple, int]:
+    """Raise on shards the gather does not take -> (the keys it reads, K)."""
     if not shards:
         raise ValueError("shard_gather: no shards")
     if capacity < 0 or block < 0 or first_shard < 0:
@@ -128,11 +180,47 @@ def shard_gather(
             raise ValueError(f"shard_gather: a shard lacks {missing}")
         if any(shard[key].shape[:1] != (k,) for key in keys if shard[key].dim()):
             raise ValueError("shard_gather: the shards' capacities differ")
+    return keys, k
+
+
+def shard_gather(
+    shards: list[dict], block: int, max_offset: int, capacity: int, *, extended: bool = False,
+    recover2: bool = False, first_shard: int = 0, with_fields: bool = False,
+) -> dict:
+    """The D shards' block-decode dicts (capacity K each; shard s covers
+    global offsets (first_shard + s) * block + [0, block)) -> airjax's compact dict of
+    capacity C = `capacity` (module docstring), with_fields also its
+    `fields` (and, extended, `short_fields`). The dicts are those of
+    pipeline.decode_iq_block(_extended), with `recovered2` under recover2.
+    On the card the dict is views of the kernel's two buffers
+    (`gather_layout`)."""
+    keys, k = _check_shards(shards, block, capacity, first_shard, extended, recover2)
     if use_kernel(*(shard[key] for shard in shards for key in keys)):
         return _shard_gather_cuda(shards, keys, k, block, max_offset, capacity, extended, recover2, first_shard,
                                   with_fields)
     return shard_gather_plain(shards, block, max_offset, capacity, extended=extended, recover2=recover2,
                               first_shard=first_shard, with_fields=with_fields)
+
+
+def shard_gather_into(
+    shards: list[dict], block: int, max_offset: int, capacity: int, ints: torch.Tensor, byts: torch.Tensor, *,
+    extended: bool = False, recover2: bool = False, first_shard: int = 0, with_fields: bool = False,
+) -> None:
+    """shard_gather writing its dict into `ints` (int32) and `byts`
+    (uint8), buffers of `gather_layout`'s sizes on the shards' device that
+    the caller keeps (a CUDA graph's static outputs); `layout_views` reads
+    the dict back from them. On the card one launch; on the CPU the plain
+    version's dict is copied in."""
+    keys, k = _check_shards(shards, block, capacity, first_shard, extended, recover2)
+    lay = gather_layout(capacity, extended, recover2, with_fields)
+    check_layout_buffers(lay, ints, byts, shards[0]["offsets"].device)
+    if use_kernel(*(shard[key] for shard in shards for key in keys)):
+        _shard_gather_cuda(shards, keys, k, block, max_offset, capacity, extended, recover2, first_shard,
+                           with_fields, (ints, byts))
+        return
+    fill_layout(layout_views(lay.entries, ints, byts),
+                shard_gather_plain(shards, block, max_offset, capacity, extended=extended, recover2=recover2,
+                                   first_shard=first_shard, with_fields=with_fields))
 
 
 def _pointer(t: torch.Tensor | None, dtype: torch.dtype, shape: tuple) -> int | None:
@@ -145,8 +233,10 @@ def _pointer(t: torch.Tensor | None, dtype: torch.dtype, shape: tuple) -> int | 
 
 def _shard_gather_cuda(
     shards: list[dict], keys: tuple, k: int, block: int, max_offset: int, capacity: int, extended: bool,
-    recover2: bool, first_shard: int = 0, with_fields: bool = False,
+    recover2: bool, first_shard: int = 0, with_fields: bool = False, buffers: tuple | None = None,
 ) -> dict:
+    """One launch into `buffers` (ints, byts), or into two it allocates,
+    laid out by gather_layout -> the dict's views of them."""
     global launches, fields_launches
     import ctypes
 
@@ -175,50 +265,33 @@ def _shard_gather_cuda(
             _pointer(shard["recovered2"], torch.bool, vec) if recover2 else None,
             _pointer(shard["n_detections"], torch.int32, ()), _pointer(shard["overflow"], torch.bool, ()),
         ]
-    c = capacity
-    # One int32 and one byte buffer, sliced into the outputs; F's fields
-    # sit after the columns in the int32 one and first in the byte one (its
-    # callsign codes take 4-byte stores).
-    f_int, f_byte = field_sizes(c, extended) if with_fields else (0, 0)
-    n_int = (4 if extended else 1) * c + f_int + 2
-    n_byte = f_byte + c * (2 * FRAME_BYTES + 1 if extended else FRAME_BYTES + 1) + (c if recover2 else 0) + 1
-    ints = torch.empty(n_int, dtype=torch.int32, device=device)
-    all_byts = torch.empty(n_byte, dtype=torch.uint8, device=device)
-    byts = all_byts[f_byte:]
-    out = {"offsets": ints[:c]}
-    if extended:
-        out.update(classmask=byts[:c], df=ints[c : 2 * c], icao_ap_short=ints[2 * c : 3 * c],
-                   icao_ap_long=ints[3 * c : 4 * c], frames=byts[c : c + FRAME_BYTES * c].view(c, FRAME_BYTES),
-                   frames_raw=byts[c + FRAME_BYTES * c : c + 2 * FRAME_BYTES * c].view(c, FRAME_BYTES))
-        end = c + 2 * FRAME_BYTES * c
-    else:
-        out.update(recovered=byts[:c].view(torch.bool), frames=byts[c : c + FRAME_BYTES * c].view(c, FRAME_BYTES))
-        end = c + FRAME_BYTES * c
-    if recover2:
-        out["recovered2"] = byts[end : end + c].view(torch.bool)
+    lay = gather_layout(capacity, extended, recover2, with_fields)
+    if buffers is None:
+        buffers = (torch.empty(lay.n_int, dtype=torch.int32, device=device),
+                   torch.empty(lay.n_byte, dtype=torch.uint8, device=device))
+    ints, byts = buffers
+    out = layout_views(lay.entries, ints, byts)
+
+    def ptr(key, here=True):
+        return out[key].data_ptr() if here else None
+
     count_key = "n_candidates" if extended else "n_good"
-    out[count_key], out["n_detections"] = ints[-2], ints[-1]
-    out["overflow"] = byts[-1:].view(torch.bool)[0]
-    out_ptrs = [out["offsets"].data_ptr(), None if extended else out["recovered"].data_ptr(),
-                out["classmask"].data_ptr() if extended else None, out["frames"].data_ptr(),
-                *((out[key].data_ptr() for key in ("frames_raw", "df", "icao_ap_short", "icao_ap_long")) if extended
-                  else (None,) * 4),
-                out["recovered2"].data_ptr() if recover2 else None,
-                out[count_key].data_ptr(), out["n_detections"].data_ptr(), out["overflow"].data_ptr()]
+    out_ptrs = [ptr("offsets"), ptr("recovered", not extended), ptr("classmask", extended), ptr("frames"),
+                *(ptr(key, extended) for key in ("frames_raw", "df", "icao_ap_short", "icao_ap_long")),
+                ptr("recovered2", recover2), ptr(count_key), ptr("n_detections"), ptr("overflow")]
     f_ptrs = (None, None)
     if with_fields:
-        f_ints = ints[n_int - 2 - f_int : n_int - 2]
-        out["fields"], short = field_views(f_ints, all_byts[:f_byte], c, extended)
-        if extended:
-            out["short_fields"] = short
-        # Pointer arithmetic, not the views' data_ptr(), which is 0 when C is.
-        f_ptrs = (ints.data_ptr() + 4 * (n_int - 2 - f_int), all_byts.data_ptr())
+        # F's two buffers: the fields' int32 rows from the first (df), their
+        # bytes from the callsign codes (field_layout). Pointer arithmetic,
+        # not the views' data_ptr(), which is 0 when C is.
+        start = {path: start for path, _, start, _, _ in lay.entries}
+        f_ptrs = (ints.data_ptr() + 4 * start[("fields", "df")], byts.data_ptr() + start[("fields", "callsign_codes")])
     shard_arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     out_arr = (ctypes.c_void_p * len(out_ptrs))(*out_ptrs)
     with torch.cuda.device(device):
         if with_fields and extended:
             candidate.load_syndromes(lib)  # F's short CRC reads this kernel's copy
-        rc = lib.airjax_shard_gather(shard_arr, len(shards), k, c, block, max_offset, out_arr, int(extended),
+        rc = lib.airjax_shard_gather(shard_arr, len(shards), k, capacity, block, max_offset, out_arr, int(extended),
                                      int(recover2), first_shard, *f_ptrs, torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "shard-gather kernel")
     launches += 1

@@ -25,6 +25,16 @@ replicated buffer (:417-424, :613-621): a batched sharded step is a front
 and a block decode a shard and one gather, no fields launch. The dense
 builders (:62, :449) return every shard's K slots, for the A/B.
 
+A stream's steps (runner.run_stream_sharded) run through `StepGraphs` on
+a mesh of one card, the counterpart of airjax's jitted step: a CUDA graph
+per step shape holds the step's one upload, every shard's front and block
+decode on a view of one device buffer, the gather and one download of
+its C rows (kernels/shard_gather.py::gather_layout). A mesh over several
+cards keeps the eager step (`EagerSteps`): its shards' peer copies are
+not a graph of one card. The one-shot decodes below (decode_capture_
+sharded*, and parallel/multihost.py's) run a step of a shape once a
+call, as airjax builds a fresh jit a call there, and stay eager.
+
 `tuned_block` pads a shard to the shape airjax tuned on the TPU (block ≡
 784 mod 1024 above 4096 samples, a 240-sample halo). It is kept because it
 sets `block`, the regrow caps and which offsets wrap, and so the stats
@@ -33,14 +43,26 @@ sets `block`, the regrow caps and which offsets wrap, and so the stats
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Callable
+
 import numpy as np
 import torch
 
 from airjax_torch.dsp.demod import WINDOW
 from airjax_torch.extended import assemble_extended
-from airjax_torch.kernels.shard_gather import MASK_KEYS, shard_gather
+from airjax_torch.kernels.shard_gather import MASK_KEYS, gather_layout, shard_gather, shard_gather_into
 from airjax_torch.parallel.mesh import TIME_AXIS, Mesh
-from airjax_torch.pipeline import decode_iq_block, decode_iq_block_extended, pad_iq_non_detecting, to_host
+from airjax_torch.pipeline import (
+    Fetcher,
+    GraphRing,
+    Slot,
+    copy_in,
+    decode_iq_block,
+    decode_iq_block_extended,
+    pad_iq_non_detecting,
+    to_host,
+)
 from airjax_torch.track.icao_cache import IcaoCache
 
 HALO = WINDOW - 1  # 239
@@ -340,6 +362,177 @@ def unpack_extended_compact(out: dict, n: int | None = None) -> dict:
     if "recovered2" in out:
         unpacked["recovered2"] = np.asarray(out["recovered2"][:n])
     return unpacked
+
+
+def _compact_builder(extended: bool):
+    return build_sharded_decoder_extended_compact if extended else build_sharded_decoder_compact
+
+
+def compact_rows(out: dict, n: int) -> dict:
+    """A compact step's host dict -> its first n rows: every column (the
+    nested field dicts' too) cut to n, the scalars dropped."""
+    return {k: compact_rows(v, n) if isinstance(v, dict) else v[:n] for k, v in out.items()
+            if isinstance(v, dict) or v.ndim}
+
+
+# Every StepGraphs' first sightings, captures and replays in the process.
+step_graph_counts = {"eager": 0, "captures": 0, "replays": 0}
+
+
+@dataclasses.dataclass(eq=False)
+class StepSlot(Slot):
+    """A step in flight: Slot's buffers (n_off a shard's `block` offsets,
+    capacity the gather's C), each shard's K, and the shards: views of the
+    device input, shard i its rows i * block to (i + 1) * block + halo."""
+
+    k: int = 0
+    shards: list = dataclasses.field(default_factory=list)
+
+
+class StepGraphs(GraphRing):
+    """The compact sharded step of a stream on one card, as one program
+    each, the counterpart of airjax's jitted shard_map step (:404, :412;
+    extended :600, :608), one per (K, C) in airjax/runner.py:505-511: a CUDA
+    graph per step shape and slot (pipeline.GraphRing: the ring of
+    depth + 1 slots a key, the first sighting run eagerly, the capture at
+    the slot's next use, the replays, the fetch).
+
+    A key is (T, D, block, halo, K, C) for steps of T = D * block samples
+    over `mesh`, every shard on one device (make_mesh(1), Mesh([card] * D),
+    or CPU shards), in the cache's mode (extended, recover2, with_fields).
+    A slot holds a pinned host input of T + halo rows and its device twin,
+    the gather's int32 and byte buffers back to back (kernels/
+    shard_gather.py::gather_layout) and their pinned copy, an event, and the
+    graph: the input's one upload; for each shard its front and block
+    decode (pipeline.decode_iq_block(_extended): csrc/front.cu,
+    csrc/block_decode.cu) on the view of its rows; one shard-gather launch
+    (its flag F with with_fields) into the slot's output; one download of
+    that output. The host writes the step into the slot and, in its last
+    halo rows, the step's first halo samples: the wrap shard_iq gives the
+    last shard, so that every shard is a contiguous view and the graph
+    holds no copy to build one. The gather takes the shards' pointers by
+    value (csrc/shard_gather.cu's Shards), so the graph holds them and no
+    pointer table is read from host memory. A slot downloads its C rows
+    whole, where airjax fetches the count and then n rows.
+
+    A regrow decodes the slot's own device input again with the eager step
+    at the grown K and C; the stream's later steps are the grown key's.
+    A mesh over several cards is not taken: its step copies every other
+    card's dicts to the first (EagerSteps).
+    """
+
+    counts = step_graph_counts
+
+    def __init__(self, mesh: Mesh, block: int, *, extended: bool = False, recover2: bool = False,
+                 with_fields: bool = False, depth: int = 1):
+        if len(set(mesh.devices)) != 1:
+            raise ValueError(f"StepGraphs: a mesh of one device, got {[str(d) for d in mesh.devices]}")
+        super().__init__(mesh.devices[0], depth)
+        self.mesh, self.block, self.halo = mesh, block, _halo_size(block)
+        self.n_samples = block * mesh.size
+        _shape(mesh, self.n_samples, mesh.axis)
+        self.extended, self.recover2, self.with_fields = extended, recover2, with_fields
+
+    def dispatch(self, iq: np.ndarray, k: int, c: int) -> StepSlot:
+        """Start the step of one (T, 2) int16 host array at per-shard
+        capacity K = k and C = c rows. Returns its slot."""
+        t = self.n_samples
+        if iq.shape != (t, 2):
+            raise ValueError(f"iq: expected ({t}, 2), got {iq.shape}")
+        slot, first = self._take((t, self.mesh.size, self.block, self.halo, k, c), lambda: self._slot(k, c))
+        copy_in(slot.host_iq[:t], iq)
+        slot.host_iq[t:] = slot.host_iq[: self.halo]
+        self._launch(slot, first)
+        return slot
+
+    def regrow(self, slot: StepSlot, k: int, c: int) -> dict:
+        """The slot's step decoded again at K = k and C = c by the eager
+        step, from the slot's device input (which no step overwrites before
+        `done`) -> host arrays."""
+        self.fetches += 1
+        step = _compact_builder(self.extended)(self.mesh, self.n_samples, k, c, self.mesh.axis,
+                                               with_fields=self.with_fields, recover2=self.recover2)
+        return to_host(step(slot.shards))
+
+    def _slot(self, k: int, c: int) -> StepSlot:
+        lay = gather_layout(c, self.extended, self.recover2, self.with_fields)
+        n_out = 4 * lay.n_int + lay.n_byte
+        rows = self.n_samples + self.halo
+        device_iq = torch.empty((rows, 2), dtype=torch.int16, device=self.device)
+        shards = [device_iq[i * self.block : (i + 1) * self.block + self.halo] for i in range(self.mesh.size)]
+        return StepSlot(self.block, c, lay, torch.empty((rows, 2), dtype=torch.int16, pin_memory=self.cuda),
+                        device_iq, torch.empty(n_out, dtype=torch.uint8, device=self.device),
+                        torch.empty(n_out, dtype=torch.uint8, pin_memory=self.cuda),
+                        event=torch.cuda.Event() if self.cuda else None, k=k, shards=shards)
+
+    def _body(self, slot: StepSlot) -> None:
+        """The step of the slot's input: what its graph holds."""
+        slot.device_iq.copy_(slot.host_iq, non_blocking=True)
+        outs = _decode_shards(self.mesh, slot.shards, self.block, self.halo, slot.k, self.extended, self.recover2)
+        shard_gather_into(outs, self.block, self.n_samples - WINDOW, slot.capacity, slot.ints, slot.byts,
+                          extended=self.extended, recover2=self.recover2, with_fields=self.with_fields)
+        slot.host_out.copy_(slot.out, non_blocking=True)
+
+
+class EagerSteps:
+    """The compact sharded step launched eagerly, behind StepGraphs'
+    interface: the step of a mesh over several cards, whose shards send
+    their dicts to the first card by peer copies that a graph of one card
+    does not hold. Each step is staged in a pinned buffer, uploaded shard
+    by shard (shard_iq), decoded through the wrappers and gathered, with an
+    event recorded after it; a fetch copies the count, then its n rows, on a
+    copy stream that waits on that event alone (pipeline.Fetcher, whose
+    pool holds a staging buffer a step in flight, so `depth` sets
+    nothing here)."""
+
+    def __init__(self, mesh: Mesh, block: int, *, extended: bool = False, recover2: bool = False,
+                 with_fields: bool = False, depth: int = 1):
+        self.mesh, self.block, self.halo = mesh, block, _halo_size(block)
+        self.n_samples = block * mesh.size
+        self.extended, self.recover2, self.with_fields = extended, recover2, with_fields
+        self.fetcher = Fetcher(mesh.devices[0])
+        self.scalar_keys = ("n_candidates" if extended else "n_good", "n_detections", "overflow")
+        self._steps: dict[tuple[int, int], Callable] = {}
+        self.eager = 0
+
+    @property
+    def fetches(self) -> int:
+        return self.fetcher.fetches
+
+    @property
+    def overlapped(self) -> int:
+        return self.fetcher.overlapped
+
+    def dispatch(self, iq: np.ndarray, k: int, c: int) -> list:
+        staged = self.fetcher.stage(iq)
+        shards = shard_iq(staged, self.mesh, self.block, self.halo, non_blocking=True)
+        out = self._step(k, c)(shards)
+        self.eager += 1
+        # The shards stay on their devices for a regrow.
+        return [shards, out, self.fetcher.launched(staged)]
+
+    def fetch(self, slot: list) -> dict:
+        _, out, ticket = slot
+        scal = self.fetcher.fetch({k: out[k] for k in self.scalar_keys}, ticket)
+        return {**scal, **self.fetcher.fetch(compact_rows(out, int(scal[self.scalar_keys[0]])), ticket)}
+
+    def regrow(self, slot: list, k: int, c: int) -> dict:
+        slot[1] = self._step(k, c)(slot[0])
+        self.fetcher.done(slot[2])
+        slot[2] = self.fetcher.launched()
+        return self.fetch(slot)
+
+    def done(self, slot: list) -> None:
+        self.fetcher.done(slot[2])
+
+    def summary(self) -> dict[str, int]:
+        return {"eager": self.eager, "captures": 0, "replays": 0, "pinned_bytes": 0, "device_bytes": 0}
+
+    def _step(self, k: int, c: int):
+        if (k, c) not in self._steps:
+            self._steps[(k, c)] = _compact_builder(self.extended)(
+                self.mesh, self.n_samples, k, c, self.mesh.axis, with_fields=self.with_fields, recover2=self.recover2)
+        return self._steps[(k, c)]
 
 
 def _prepare(iq, mesh: Mesh, axis: str) -> tuple[np.ndarray, int, int, int, list[torch.Tensor]]:

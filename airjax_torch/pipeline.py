@@ -41,7 +41,9 @@ block's upload, the front and block-decode launches and the dict's one
 download, replayed for every block of that shape; `runner.run_stream` and
 the overlap scan decode through it, and `kernels/block_decode.py::
 dict_layout` is where the dict lies in the graph's output, read on the
-device and on the host alike.
+device and on the host alike. Its ring of slots, first sightings,
+captures, replays and fetch are `GraphRing`'s, which parallel/halo.py::
+StepGraphs (a sharded step a graph) shares.
 
 Both block decompositions of airjax are kept: parity (reference playback
 chunking, applied as an offset filter over one whole-stream scan, or with
@@ -73,9 +75,8 @@ from airjax_torch.dsp.demod import (
     detect_preamble_only,
     pack_cmp_words,
 )
-from airjax_torch.kernels import block_decode, magdet
+from airjax_torch.kernels import block_decode, magdet, shard_gather
 from airjax_torch.kernels.block_decode import (
-    DictLayout,
     candidate_dict,
     candidate_dict_extended,
     decode_block_bits,
@@ -89,7 +90,7 @@ from airjax_torch.kernels.candidate import (
     decode_candidates_plain,
 )
 from airjax_torch.kernels.compact import compact_bits, compact_for_gather
-from airjax_torch.kernels.fields import layout_views
+from airjax_torch.kernels.fields import DictLayout, layout_views
 from airjax_torch.kernels.magdet import chunked_detection_count, magdet_bits
 from airjax_torch.protocol.packet import AdsbPacket
 
@@ -345,35 +346,50 @@ _GRAPH_DECODES = {
     decode_iq_block_with_fields: ("df17", False, True),
     decode_iq_block_extended_with_fields: ("preamble", True, True),
 }
-MAX_GRAPH_SHAPES = 4  # block shapes a BlockGraphs keeps; the least recently used goes first
+MAX_GRAPH_SHAPES = 4  # keys a graph cache keeps; the least recently used goes first
 # A block at least this large is copied into its slot by torch's copy, which
 # splits it over threads; a smaller one by one memcpy, which wakes no thread
 # (on an H100 host: ~68 µs for a 20,000-sample block through torch's copy).
 THREADED_COPY_BYTES = 1 << 22
 # Every BlockGraphs' first sightings, captures and replays in the process,
-# beside the kernel wrappers' launch counts.
+# beside the kernel wrappers' launch counts (parallel/halo.py keeps its
+# StepGraphs' own).
 graph_counts = {"eager": 0, "captures": 0, "replays": 0}
 
 
-def _launch_counts() -> tuple[int, int, int]:
-    """The counts of the wrappers a BlockGraphs graph launches through."""
-    return magdet.bits_launches, block_decode.launches, block_decode.fields_launches
+def _launch_counts() -> tuple[int, ...]:
+    """The counts of the wrappers a graph launches through."""
+    return (magdet.bits_launches, block_decode.launches, block_decode.fields_launches, shard_gather.launches,
+            shard_gather.fields_launches)
 
 
-def _add_launches(delta: tuple[int, int, int]) -> None:
+def _add_launches(delta: tuple[int, ...]) -> None:
     magdet.bits_launches += delta[0]
     block_decode.launches += delta[1]
     block_decode.fields_launches += delta[2]
+    shard_gather.launches += delta[3]
+    shard_gather.fields_launches += delta[4]
+
+
+def copy_in(dst: torch.Tensor, src: np.ndarray) -> None:
+    """A host array into a host tensor of its shape: one memcpy below
+    THREADED_COPY_BYTES, torch's threaded copy from there."""
+    if src.nbytes >= THREADED_COPY_BYTES:
+        dst.copy_(torch.from_numpy(src))
+    else:
+        np.copyto(dst.numpy(), src)
 
 
 @dataclasses.dataclass(eq=False)
 class Slot:
-    """One decode in flight: its block's pinned host copy (None when the
+    """One decode in flight: its input's pinned host copy (None when the
     caller's block is on the device) and device copy, the kernel's output
-    (dict_layout's int32 buffer, then its byte buffer, in one byte tensor
+    (the layout's int32 buffer, then its byte buffer, in one byte tensor
     `out`, so that one copy brings the dict back) and its pinned host copy,
-    and the graph of it all. `launches` is what one replay adds to the
-    wrappers' counts; `event` is recorded after each decode on the card."""
+    and the graph of it all. `n_off` is the offsets a decode scans (a
+    shard's, in a step) and `capacity` the layout's rows; `launches` is
+    what one replay adds to the wrappers' counts; `event` is recorded after
+    each decode on the card."""
 
     n_off: int
     capacity: int
@@ -383,7 +399,7 @@ class Slot:
     out: torch.Tensor
     host_out: torch.Tensor
     graph: torch.cuda.CUDAGraph | Callable | None = None  # on the CPU, the plain body
-    launches: tuple[int, int, int] = (0, 0, 0)
+    launches: tuple[int, ...] = ()
     event: torch.cuda.Event | None = None
     busy: bool = False
 
@@ -401,95 +417,75 @@ class Slot:
 
 def _split(out, n_int: int):
     """A slot's output bytes (a tensor or a numpy array) -> (the int32
-    buffer, the byte buffer) of dict_layout, as views."""
+    buffer, the byte buffer) of its layout, as views."""
     ints = out[: 4 * n_int]
     return ints.view(torch.int32) if isinstance(ints, torch.Tensor) else ints.view(np.int32), out[4 * n_int :]
 
 
-class BlockGraphs:
-    """One decode function's blocks as one program each, the counterpart
-    of airjax's jit of decode_iq_block* with its static shape arguments
-    (airjax/pipeline.py:111, :277, :288, :308): airjax replays one
-    executable per shape, the port one CUDA graph per shape and slot.
+class GraphRing:
+    """A cache of decodes as one program each, a ring of slots a key: the
+    machinery BlockGraphs and parallel/halo.py::StepGraphs share.
 
-    A key is a block shape (L, n_off, capacity), for `decode` (one of
-    decode_iq_block, decode_iq_block_extended and their _with_fields forms,
-    with or without recover2) on `device`; the cache is the stream's and
-    holds at most MAX_GRAPH_SHAPES keys. Each key owns a ring of depth + 1
-    slots, so that a stream with `depth` decodes in flight never writes a
-    slot whose decode it has not fetched. A slot's graph holds the block's
-    upload from the slot's pinned input (upload=True; with upload=False the
-    caller's device block is copied into the slot's device input before the
-    replay, outside the graph), the front launch (csrc/front.cu), the
-    block-decode launch (csrc/block_decode.cu: Mode, R2 and F as the key
-    says) into the slot's output (the dict's two buffers back to back), and
-    one copy of it into the slot's pinned output. A dispatch copies the
-    block in, replays and records an event; a fetch waits on that event,
-    copies the output out of the slot, so that the arrays a sink keeps never
-    alias a slot, and reads the dict from it through the layout the device
-    wrapper uses (kernels/block_decode.py::dict_layout). The memory a slot
-    holds is its block twice (pinned and on the device; once with
-    upload=False) and its dict twice; its graph's pool holds the front's
-    outputs (BlockGraphs.slots, Slot.pinned_bytes and device_bytes).
+    A key is a static shape; the cache is the stream's and holds at most
+    MAX_GRAPH_SHAPES keys, the least recently used going first (its slots
+    live on in the entries still in flight). Each key owns a ring of
+    depth + 1 slots, so that a stream with `depth` decodes in flight never
+    writes a slot whose decode it has not fetched; a decode more in flight
+    raises. A subclass's dispatch takes a slot (`_take`), copies its input
+    in and calls `_launch`, which runs the subclass's `_body` (what a slot's
+    graph holds): eagerly at a key's first sighting, where the library's
+    build and the __constant__ and table uploads happen, which cannot be
+    captured; as the slot's graph after that, captured at the slot's next
+    use on a side stream (a capture runs nothing) and replayed on the
+    device's current stream, as every decode of the card must run (the
+    block-decode kernel's n_good accumulator is per device). A replay adds
+    the launches its graph holds to the wrappers' counts, which the capture
+    leaves as they were. A failed capture or replay raises. On the CPU the
+    same ring, keys and buffers run, and a "replay" is the plain body.
 
-    The first decode of a key runs the same steps eagerly, through the
-    wrappers: the library's build, the __constant__ syndromes and the R2
-    pair table are uploaded there and cannot be captured. A slot's graph is
-    captured at the slot's first use after that, on a side stream (a
-    capture runs nothing), and every replay runs on the device's current
-    stream, as every decode of the card must (the block-decode kernel's
-    n_good accumulator is per device). A replay adds the launches its graph
-    holds to the wrappers' counts, which the capture leaves as they were.
-    A failed capture or replay raises. On the CPU the same ring, keys and
-    buffers run, and a "replay" is the plain decode written into the slot's
-    buffers.
-
-    `eager`, `captures` and `replays` count first sightings, graphs and
-    replays; `fetches` the dicts fetched (regrows included) and
-    `overlapped` the fetches that returned while the next decode was still
-    pending on the card.
+    A fetch waits on the slot's event, copies the output out of the slot,
+    so that the arrays a sink keeps never alias a slot, and reads the dict
+    from it through the layout the device wrapper uses. `eager`, `captures`
+    and `replays` count first sightings, graphs and replays (and add to the
+    process-wide `counts`); `fetches` the dicts fetched (regrows included)
+    and `overlapped` the fetches that returned while the next decode was
+    still pending on the card.
     """
 
-    def __init__(self, decode, *, recover2: bool = False, device: torch.device | str = "cuda", depth: int = 1,
-                 upload: bool = True):
-        self.gate, self.extended, self.fields = _GRAPH_DECODES[decode]
-        self.recover2 = recover2
-        self.decode = functools.partial(decode, recover2=recover2)  # the eager form: the regrow
+    counts = graph_counts
+
+    def __init__(self, device: torch.device | str, depth: int):
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
         self.n_slots = max(depth, 0) + 1
-        self.upload = upload
         self._keys: collections.OrderedDict[tuple, list] = collections.OrderedDict()  # key -> [uses, slots]
         self._pending: collections.deque[Slot] = collections.deque()
         # Made here, on the thread that runs the stream: a capture's stream.
         self._capture_stream = torch.cuda.Stream(self.device) if self.cuda else None
         self.eager = self.captures = self.replays = self.fetches = self.overlapped = 0
 
-    def dispatch(self, iq, n_off: int, capacity: int) -> Slot:
-        """Start the decode of one (L, 2) int16 block: host IQ (numpy) with
-        upload=True, a tensor on the device without. Returns its slot."""
-        _check_block(iq.shape[0], n_off)
-        key = (iq.shape[0], n_off, capacity)
+    def _take(self, key: tuple, make: Callable[[], Slot]) -> tuple[Slot, bool]:
+        """The key's next slot in its ring (made by `make` at its first use)
+        -> (slot, whether this is the key's first sighting)."""
         entry = self._keys.pop(key, None)
         first = entry is None
         if first:
             while len(self._keys) >= MAX_GRAPH_SHAPES:
-                self._keys.popitem(last=False)  # its slots live on in the entries still in flight
+                self._keys.popitem(last=False)
             entry = [0, []]
         self._keys[key] = entry
         i = entry[0] % self.n_slots
         if i == len(entry[1]):
-            entry[1].append(self._slot(iq.shape[0], n_off, capacity))
+            entry[1].append(make())
         slot = entry[1][i]
         if slot.busy:
-            raise RuntimeError("a BlockGraphs slot is still in flight: more decodes in flight than depth + 1")
+            raise RuntimeError(f"a {type(self).__name__} slot is still in flight: more decodes in flight than "
+                               f"depth + 1")
         entry[0] += 1
-        if not self.upload:
-            slot.device_iq.copy_(iq)
-        elif iq.nbytes >= THREADED_COPY_BYTES:
-            slot.host_iq.copy_(torch.from_numpy(iq))
-        else:
-            np.copyto(slot.host_iq.numpy(), iq)
+        return slot, first
+
+    def _launch(self, slot: Slot, first: bool) -> None:
+        """Run the slot's decode: eagerly at a first sighting, else its graph."""
         if first:
             self._body(slot)
             self._count("eager")
@@ -506,7 +502,9 @@ class BlockGraphs:
             slot.event.record(torch.cuda.current_stream(self.device))
         slot.busy = True
         self._pending.append(slot)
-        return slot
+
+    def _body(self, slot: Slot) -> None:
+        raise NotImplementedError
 
     def fetch(self, slot: Slot) -> dict:
         """The slot's dict as numpy arrays of the host's own, once its
@@ -520,13 +518,6 @@ class BlockGraphs:
             self.overlapped += 1
         return layout_views(slot.layout.entries, ints, byts)
 
-    def regrow(self, slot: Slot, capacity: int) -> dict:
-        """The slot's block decoded again at `capacity` by the eager
-        wrappers, from the slot's device input (which no decode overwrites
-        before `done`) -> host arrays."""
-        self.fetches += 1
-        return to_host(self.decode(slot.device_iq, slot.n_off, capacity))
-
     def done(self, slot: Slot) -> None:
         """The slot's results are applied: a later decode may take it."""
         slot.busy = False
@@ -534,27 +525,16 @@ class BlockGraphs:
     def slots(self) -> list[Slot]:
         return [slot for _, slots in self._keys.values() for slot in slots]
 
+    def summary(self) -> dict[str, int]:
+        """First sightings, captures, replays, and the bytes the slots hold
+        (StreamStats.graphs)."""
+        slots = self.slots()
+        return {"eager": self.eager, "captures": self.captures, "replays": self.replays,
+                "pinned_bytes": sum(s.pinned_bytes for s in slots), "device_bytes": sum(s.device_bytes for s in slots)}
+
     def _count(self, kind: str) -> None:
         setattr(self, kind, getattr(self, kind) + 1)
-        graph_counts[kind] += 1
-
-    def _slot(self, n_samples: int, n_off: int, capacity: int) -> Slot:
-        lay = dict_layout(capacity, self.extended, self.recover2, self.fields)
-        n_out = 4 * lay.n_int + lay.n_byte
-        host_iq = torch.empty((n_samples, 2), dtype=torch.int16, pin_memory=self.cuda) if self.upload else None
-        return Slot(n_off, capacity, lay, host_iq, torch.empty((n_samples, 2), dtype=torch.int16, device=self.device),
-                    torch.empty(n_out, dtype=torch.uint8, device=self.device),
-                    torch.empty(n_out, dtype=torch.uint8, pin_memory=self.cuda),
-                    event=torch.cuda.Event() if self.cuda else None)
-
-    def _body(self, slot: Slot) -> None:
-        """The decode of the slot's block: what its graph holds."""
-        if self.upload:
-            slot.device_iq.copy_(slot.host_iq, non_blocking=True)
-        det_words, words, counts = magdet_bits(slot.device_iq, slot.n_off, gate=self.gate)
-        decode_block_bits_into(det_words, words, counts, slot.n_off, slot.capacity, slot.ints, slot.byts,
-                               extended=self.extended, recover2=self.recover2, fields=self.fields)
-        slot.host_out.copy_(slot.out, non_blocking=True)
+        self.counts[kind] += 1
 
     def _capture(self, slot: Slot) -> None:
         """Capture the slot's body on the side stream (on the CPU the
@@ -580,6 +560,74 @@ class BlockGraphs:
         _add_launches(tuple(-n for n in slot.launches))  # a capture launches nothing
         slot.graph = graph
         self._count("captures")
+
+
+class BlockGraphs(GraphRing):
+    """One decode function's blocks as one program each, the counterpart
+    of airjax's jit of decode_iq_block* with its static shape arguments
+    (airjax/pipeline.py:111, :277, :288, :308): airjax replays one
+    executable per shape, the port one CUDA graph per shape and slot
+    (GraphRing: the ring, the first sighting, the capture, the fetch).
+
+    A key is a block shape (L, n_off, capacity), for `decode` (one of
+    decode_iq_block, decode_iq_block_extended and their _with_fields forms,
+    with or without recover2) on `device`. A slot's graph holds the block's
+    upload from the slot's pinned input (upload=True; with upload=False the
+    caller's device block is copied into the slot's device input before the
+    replay, outside the graph), the front launch (csrc/front.cu), the
+    block-decode launch (csrc/block_decode.cu: Mode, R2 and F as the key
+    says) into the slot's output (the dict's two buffers back to back), and
+    one copy of it into the slot's pinned output, read through
+    kernels/block_decode.py::dict_layout. The memory a slot holds is its
+    block twice (pinned and on the device; once with upload=False) and its
+    dict twice; its graph's pool holds the front's outputs (BlockGraphs.slots,
+    Slot.pinned_bytes and device_bytes).
+    """
+
+    def __init__(self, decode, *, recover2: bool = False, device: torch.device | str = "cuda", depth: int = 1,
+                 upload: bool = True):
+        super().__init__(device, depth)
+        self.gate, self.extended, self.fields = _GRAPH_DECODES[decode]
+        self.recover2 = recover2
+        self.decode = functools.partial(decode, recover2=recover2)  # the eager form: the regrow
+        self.upload = upload
+
+    def dispatch(self, iq, n_off: int, capacity: int) -> Slot:
+        """Start the decode of one (L, 2) int16 block: host IQ (numpy) with
+        upload=True, a tensor on the device without. Returns its slot."""
+        _check_block(iq.shape[0], n_off)
+        slot, first = self._take((iq.shape[0], n_off, capacity), lambda: self._slot(iq.shape[0], n_off, capacity))
+        if self.upload:
+            copy_in(slot.host_iq, iq)
+        else:
+            slot.device_iq.copy_(iq)
+        self._launch(slot, first)
+        return slot
+
+    def regrow(self, slot: Slot, capacity: int) -> dict:
+        """The slot's block decoded again at `capacity` by the eager
+        wrappers, from the slot's device input (which no decode overwrites
+        before `done`) -> host arrays."""
+        self.fetches += 1
+        return to_host(self.decode(slot.device_iq, slot.n_off, capacity))
+
+    def _slot(self, n_samples: int, n_off: int, capacity: int) -> Slot:
+        lay = dict_layout(capacity, self.extended, self.recover2, self.fields)
+        n_out = 4 * lay.n_int + lay.n_byte
+        host_iq = torch.empty((n_samples, 2), dtype=torch.int16, pin_memory=self.cuda) if self.upload else None
+        return Slot(n_off, capacity, lay, host_iq, torch.empty((n_samples, 2), dtype=torch.int16, device=self.device),
+                    torch.empty(n_out, dtype=torch.uint8, device=self.device),
+                    torch.empty(n_out, dtype=torch.uint8, pin_memory=self.cuda),
+                    event=torch.cuda.Event() if self.cuda else None)
+
+    def _body(self, slot: Slot) -> None:
+        """The decode of the slot's block: what its graph holds."""
+        if self.upload:
+            slot.device_iq.copy_(slot.host_iq, non_blocking=True)
+        det_words, words, counts = magdet_bits(slot.device_iq, slot.n_off, gate=self.gate)
+        decode_block_bits_into(det_words, words, counts, slot.n_off, slot.capacity, slot.ints, slot.byts,
+                               extended=self.extended, recover2=self.recover2, fields=self.fields)
+        slot.host_out.copy_(slot.out, non_blocking=True)
 
 
 def decode_iq_block_adaptive(

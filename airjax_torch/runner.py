@@ -42,11 +42,14 @@ jit does: a CUDA graph per block shape (pipeline.BlockGraphs) holds the
 block's upload from a pinned slot, the front and block-decode launches
 and the dict's copy back; a dispatch copies the block in and replays, a
 fetch waits on the block's event and reads the dict from the slot's two
-buffers. run_stream_sharded uploads each step from a pinned buffer and
-copies its results on a copy stream that waits on the step's event alone
-(pipeline.Fetcher). Entries are fetched and applied first in, first out,
-so packets, the recover2 gate, the ICAO cache and the stats follow stream
-order at every depth. The source is read on the Prefetcher's thread.
+buffers. run_stream_sharded on one card decodes a step as one program the
+same way, as airjax's jitted shard_map step does: a CUDA graph per step
+shape (parallel/halo.py::StepGraphs) holds the step's upload, every
+shard's front and block decode, the shard gather and the gathered rows'
+copy back; on a mesh over several cards its steps launch eagerly
+(halo.EagerSteps, through pipeline.Fetcher). Entries are fetched and
+applied first in, first out, so packets, the recover2 gate, the ICAO
+cache and the stats follow stream order at every depth. The source is read on the Prefetcher's thread.
 run_stream_sharded decodes the stream over a mesh of devices
 (parallel/halo.py), in steps of many blocks.
 """
@@ -72,7 +75,6 @@ from airjax_torch.pipeline import (
     decode_iq_block_extended,
     decode_iq_block_extended_with_fields,
     decode_iq_block_with_fields,
-    Fetcher,
 )
 from airjax_torch.protocol.packet import AdsbPacket
 from airjax_torch.track.icao_cache import IcaoCache
@@ -352,10 +354,7 @@ def run_stream(
     while inflight:
         _process(inflight.popleft())
     stats.fetches, stats.overlapped = graphs.fetches, graphs.overlapped
-    slots = graphs.slots()
-    stats.graphs = {"eager": graphs.eager, "captures": graphs.captures, "replays": graphs.replays,
-                    "pinned_bytes": sum(s.pinned_bytes for s in slots),
-                    "device_bytes": sum(s.device_bytes for s in slots)}
+    stats.graphs = graphs.summary()
     return stats
 
 
@@ -398,11 +397,19 @@ def run_stream_sharded(
     samples joins each step to the next, so every offset of the stream is
     scanned once and the emitted stream equals run_stream's in overlap mode.
     The last step is padded with the non-detecting pattern and its offsets
-    past the stream's end dropped (`max_local`). `pipeline_depth` steps are
-    dispatched before the oldest is fetched, each uploaded from a pinned
-    buffer and fetched on a copy stream after its own event
-    (pipeline.Fetcher), so that step k's copies overlap step k+1's kernels;
-    a step that overflows is decoded again with K and C grown 4x. Sinks as
+    past the stream's end dropped (`max_local`). On a mesh of one card a
+    step is one CUDA graph replay (halo.StepGraphs: the step copied into a
+    pinned slot, its upload, kernels and one download of the gathered rows
+    replayed, an event recorded; the warm-up step is its shape's first
+    sighting, run eagerly); on a mesh over several cards it launches
+    eagerly (halo.EagerSteps: a pinned upload, the launches, then the count
+    and the rows copied back after the step's event, pipeline.Fetcher).
+    `pipeline_depth` steps are dispatched before the oldest is fetched, so
+    that step k's copy back and packets overlap step k+1's kernels; a step
+    that overflows is decoded again with K and C grown 4x, from its own
+    device input, and the later steps run at the grown K and C.
+    `stats.graphs` counts the step graphs' first sightings, captures and
+    replays and the bytes their slots hold. Sinks as
     run_stream: per packet, or a batched one (`on_fields`,
     `on_extended_block`), whose fields the shard gather writes for the
     gathered rows in the same launch (its flag F); recover2 gates as there.
@@ -411,56 +418,35 @@ def run_stream_sharded(
     step scans them with the wrapped halo (and masks their hits), the next
     one with the real samples. `good` and the packets are exact.
     """
-    from airjax_torch.parallel.halo import (
-        _EXT_MASK_KEYS,
-        EXT_COMPACT_ROW_KEYS,
-        HALO,
-        _halo_size,
-        build_sharded_decoder_compact,
-        build_sharded_decoder_extended_compact,
-        shard_iq,
-        tuned_block,
-        unpack_extended_compact,
-    )
+    from airjax_torch.parallel import halo as sharding
     from airjax_torch.parallel.mesh import make_mesh
     from airjax_torch.pipeline import pad_iq_non_detecting
 
     if mesh is None:
         mesh = make_mesh(n_devices, device=device)
-    n_dev = mesh.size
-    axis = mesh.axis
+    HALO = sharding.HALO
     stats = stats or StreamStats()
 
     sink = _Sink(on_packet, extended, recover2, stats)
 
-    block = shard_block or tuned_block(max(16384, cfg.block_len))
-    halo = _halo_size(block)
-    T = block * n_dev  # samples a step
+    block = shard_block or sharding.tuned_block(max(16384, cfg.block_len))
+    T = block * mesh.size  # samples a step
     F = T - HALO  # fresh samples a step
     K = capacity_per_shard or cfg.max_candidates
     C = compact_capacity or max(128 if not extended else 512, K)
-    with_fields = sink.batched
-    builder = build_sharded_decoder_extended_compact if extended else build_sharded_decoder_compact
-    steps: dict[tuple[int, int], Callable] = {}
-
-    def get_step(k: int, c: int):
-        if (k, c) not in steps:
-            steps[(k, c)] = builder(mesh, T, k, c, axis, with_fields=with_fields, recover2=recover2)
-        return steps[(k, c)]
-
+    # One card: a graph a step shape; a mesh over several cards launches
+    # its steps eagerly (halo.EagerSteps: the peer copies to the first card).
+    cache = sharding.StepGraphs if len(set(mesh.devices)) == 1 else sharding.EagerSteps
+    steps = cache(mesh, block, extended=extended, recover2=recover2, with_fields=sink.batched, depth=pipeline_depth)
     count_key = "n_candidates" if extended else "n_good"
-    scalar_keys = (count_key, "n_detections", "overflow")
-    row_keys = EXT_COMPACT_ROW_KEYS if extended else ("offsets", "recovered", "frames")
-    if recover2:
-        row_keys = row_keys + ("recovered2",)
 
     # A warm-up step on the non-detecting pattern before the source is read
-    # (airjax :521-530): the kernels build and load here, not while frames
-    # of the first step age in the ICAO cache's 60 s window.
-    warm = np.zeros((T, 2), dtype=np.int16)
-    warm[::2, 0] = 1
-    int(get_step(K, C)(warm)[count_key])
-    fetcher = Fetcher(mesh.devices[0])
+    # (airjax :521-530), the first sighting of the stream's step shape: the
+    # kernels build and load here, not while frames of the first step age
+    # in the ICAO cache's 60 s window.
+    warm = steps.dispatch(pad_iq_non_detecting(np.zeros((0, 2), dtype=np.int16), T), K, C)
+    steps.fetch(warm)
+    steps.done(warm)
 
     # The initial carry: the non-detecting pattern, its offsets masked by
     # global_base < 0.
@@ -470,49 +456,36 @@ def run_stream_sharded(
     acc = np.zeros((0, 2), dtype=np.int16)
     inflight: collections.deque = collections.deque()
 
-    def _fetch_rows(out: dict, n: int, ticket) -> dict:
-        rows = {k: out[k][:n] for k in row_keys}
-        if with_fields:
-            rows["fields"] = {k: v[:n] for k, v in out["fields"].items()}
-            if extended:
-                rows["short_fields"] = {k: v[:n] for k, v in out["short_fields"].items()}
-        return fetcher.fetch(rows, ticket)
-
     def _process(entry) -> None:
         nonlocal K, C
-        shards, base, now, n_fresh, max_local, out, ticket = entry
+        slot, base, now, n_fresh, max_local = entry
         with stats.stages.stage("fetch"):
-            # The scalars first, then n rows: both copies wait on this
-            # step's event alone.
-            scal = fetcher.fetch({k: out[k] for k in scalar_keys}, ticket)
-            overflowed = bool(scal["overflow"])
-            while bool(scal["overflow"]) and (K < block or C < T):
+            out = steps.fetch(slot)
+            overflowed = bool(out["overflow"])
+            while bool(out["overflow"]) and (K < block or C < T):
                 K = min(K * 4, block)
                 C = min(C * 4, T)
-                out = get_step(K, C)(shards)
-                fetcher.done(ticket)
-                ticket = fetcher.launched()
-                scal = fetcher.fetch({k: out[k] for k in scalar_keys}, ticket)
-            n = int(scal[count_key])
-            rows = _fetch_rows(out, n, ticket)
-            fetcher.done(ticket)
+                out = steps.regrow(slot, K, C)
+            steps.done(slot)
         t_apply = time.perf_counter()
+        n = int(out[count_key])
+        rows = sharding.compact_rows(out, n)
         # int64: the stream base passes 2^31 after ~18 min of stream.
-        offs = np.asarray(rows["offsets"], dtype=np.int64)
+        offs = rows["offsets"].astype(np.int64)
         # The padded head of the first step (base < 0) and, on the padded
         # last step, offsets whose window runs past the stream's end.
         ok = offs + base >= 0
         if max_local is not None:
             ok &= offs <= max_local
         if extended:
-            unp = unpack_extended_compact(rows, n)
+            unp = sharding.unpack_extended_compact(rows, n)
             if max_local is not None:
                 # Padding candidates must not even seed the ICAO cache:
                 # run_stream never scans those offsets.
-                for k in _EXT_MASK_KEYS + (("recovered2",) if recover2 else ()):
+                for k in sharding._EXT_MASK_KEYS + (("recovered2",) if recover2 else ()):
                     unp[k] = unp[k] & (offs <= max_local)
             stats.recovered += int(np.sum(unp["recovered"]))
-            if with_fields:
+            if sink.batched:
                 unp["fields"] = rows["fields"]
                 unp["short_fields"] = rows["short_fields"]
             rows = unp
@@ -520,10 +493,10 @@ def run_stream_sharded(
         stats.stages.add("apply", time.perf_counter() - t_apply)
         stats.blocks += 1 if n_fresh else 0
         stats.samples += n_fresh
-        stats.detections += int(scal["n_detections"])
+        stats.detections += int(out["n_detections"])
         stats.good += emitted
         if not extended:
-            stats.recovered += int(np.sum(np.asarray(rows["recovered"])[ok]))
+            stats.recovered += int(np.sum(rows["recovered"][ok]))
         stats.overflow_blocks += overflowed
 
     def _dispatch(fresh: np.ndarray, max_local: int | None) -> None:
@@ -532,12 +505,8 @@ def run_stream_sharded(
         if full.shape[0] < T:
             full = pad_iq_non_detecting(full, T)
         with stats.stages.stage("dispatch"):
-            staged = fetcher.stage(full)
-            shards = shard_iq(staged, mesh, block, halo, non_blocking=True)
-            out = get_step(K, C)(shards)
-            ticket = fetcher.launched(staged)
-        # The entry keeps the shards on their devices for a regrow.
-        inflight.append((shards, global_base, time.time(), fresh.shape[0], max_local, out, ticket))
+            slot = steps.dispatch(full, K, C)
+        inflight.append((slot, global_base, time.time(), fresh.shape[0], max_local))
         carry = full[F:].copy()
         global_base += F
         while len(inflight) > max(pipeline_depth, 0):
@@ -557,5 +526,6 @@ def run_stream_sharded(
             _dispatch(acc, true_len - WINDOW)
     while inflight:
         _process(inflight.popleft())
-    stats.fetches, stats.overlapped = fetcher.fetches, fetcher.overlapped
+    stats.fetches, stats.overlapped = steps.fetches, steps.overlapped
+    stats.graphs = steps.summary()
     return stats

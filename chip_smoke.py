@@ -183,7 +183,19 @@ Phases; any failure raises and the exit code is nonzero:
      --playback --fast` the same way: dispatch, fetch and apply ms a block
      and MS/s; the 2^24 block: a replay against an eager pass (CUDA events)
      and bench.measure's graph slope, the kernels' device time in each,
-     the overlap form's host time a block, the slot's memory.
+     the overlap form's host time a block, the slot's memory;
+ 21. one program a sharded step (parallel/halo.py::StepGraphs, run after
+     phase 20): one replay of each step variant (DF17, --recover2, batched
+     with the gather's F, extended, extended batched --recover2) on phase
+     14's step shape, on 4 shards of the card and on make_mesh(1) == the
+     eager step bit for bit, D fronts, D block decodes and one gather
+     counted, and under the profiler one upload, those kernels and one
+     download, nothing else; a 4-shard replay against the eager step (CUDA
+     events, the kernels' device time); phase 14's sharded stream (depths
+     0 and 1) and phase 11's three (depth 1) with the eager step
+     (halo.EagerSteps) and the graphs in turns, tables == run_stream's,
+     then `adsb --playback --fast --devices 1` the same way: dispatch,
+     fetch and apply ms a step, MS/s, the slots' bytes.
 `chip_smoke.py --cards` (4 or more cards): the mesh paths across cards,
 dryrun_multichip on make_mesh(4), and phase 12 with NCCL across 4 cards.
 Phase 3 also holds the block-decode kernel's recover2 (R2) instantiations
@@ -3497,8 +3509,8 @@ class EagerBlocks:
     def done(self, slot: list) -> None:
         self.fetcher.done(slot[3])
 
-    def slots(self) -> list:
-        return []
+    def summary(self) -> dict[str, int]:
+        return {"eager": self.eager, "captures": 0, "replays": 0, "pinned_bytes": 0, "device_bytes": 0}
 
 
 @contextlib.contextmanager
@@ -3530,15 +3542,16 @@ def copy_kind(name: str) -> str:
 
 
 def replay_profile(name: str, fn, want: dict) -> dict[str, int]:
-    """One call of fn (a BlockGraphs dispatch, fetch and done) under the
-    profiler -> its device events by kind; the front and the block decode
-    once each and the copies `want` names, nothing else (a window that lost
-    an event is profiled again)."""
+    """One call of fn (a BlockGraphs or StepGraphs dispatch, fetch and
+    done) under the profiler -> its device events by kind; the kernels and
+    copies `want` counts, nothing else (a window that lost an event is
+    profiled again)."""
     for _ in range(PROFILE_TRIES):
         events = device_events(fn, 1)
         kinds: dict[str, int] = {}
         for e in events:
             k = ("front" if "magdet_bits_kernel" in e.name else "block decode" if "block_decode_kernel" in e.name
+                 else "gather" if "shard_gather_kernel" in e.name
                  else copy_kind(e.name) if "memcpy" in e.name.lower() else e.name[:60])
             kinds[k] = kinds.get(k, 0) + 1
         if kinds == want:
@@ -3759,6 +3772,177 @@ def phase_graphs(dev: torch.device, stream_capture, block_dev: torch.Tensor, car
           f"phase 20 {time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 21: one program a sharded step (parallel/halo.py::StepGraphs), against
+# the eager step it replaced in run_stream_sharded on one card.
+STEP_VARIANTS = {  # name -> (extended, recover2, with_fields)
+    "DF17": (False, False, False),
+    "DF17 --recover2": (False, True, False),
+    "DF17 batched (F)": (False, False, True),
+    "extended": (True, False, False),
+    "extended batched --recover2 (F)": (True, True, True),
+}
+STEP_KERNELS = ("magdet_bits_kernel", "block_decode_kernel", "shard_gather_kernel")
+
+
+@contextlib.contextmanager
+def step_replayed():
+    """halo.step_graph_counts set to 0 on entry; on exit the dict holds the
+    first sightings, captures and replays of every StepGraphs inside."""
+    from airjax_torch.parallel import halo
+
+    halo.step_graph_counts.update(dict.fromkeys(halo.step_graph_counts, 0))
+    got: dict[str, int] = {}
+    yield got
+    got.update(halo.step_graph_counts)
+
+
+@contextlib.contextmanager
+def eager_steps():
+    """run_stream_sharded launches its steps eagerly on one card while the
+    context lasts: halo.EagerSteps, the form a mesh over several cards
+    keeps, is the step StepGraphs replaced (staged, uploaded shard by shard,
+    launched through the wrappers, fetched in two copies, pipeline.Fetcher)."""
+    from airjax_torch.parallel import halo
+
+    saved = halo.StepGraphs
+    halo.StepGraphs = halo.EagerSteps
+    try:
+        yield
+    finally:
+        halo.StepGraphs = saved
+
+
+def phase_step_graphs(dev: torch.device, stream_capture, tracker_iq: np.ndarray, card: str) -> None:
+    """Phase 21: run_stream_sharded on one card decodes a step by replaying
+    one CUDA graph (halo.StepGraphs). (1) One replay of each step variant
+    (DF17, --recover2, batched with the gather's F, extended, extended
+    batched --recover2) on phase 14's step shape (block 20,240, K 256, C 256
+    or 512), on 4 shards of the card and on make_mesh(1), on a step of the
+    tracker traffic: its dict == the eager step's bit for bit, D fronts, D
+    block decodes and one gather (F where batched) counted, and under the
+    profiler one upload, those kernels and one download, nothing else; for
+    the DF17 step on 4 shards a replay's time and its kernels' device time
+    against the eager step's. (2) Phase 14's sharded stream (BatchTracker,
+    the tracker traffic's first PIPE_SAMPLES) at depths 0 and 1 and phase
+    11's three (BatchTracker, --recover2, ExtendedBatchTracker on
+    ANALYTICS_SAMPLES, depth 1), on 4 shards of the card, with the eager
+    step (halo.EagerSteps) and with the graphs in turns: tables ==
+    run_stream's, dispatch, fetch and apply ms a step, MS/s, the slots'
+    bytes. (3) `adsb --playback FILE --fast --devices 1` on phase 6's
+    stream the same way."""
+    from airjax_torch import pipeline
+    from airjax_torch.config import DEFAULT_CONFIG
+    from airjax_torch.io.c16 import save_c16
+    from airjax_torch.parallel import halo
+    from airjax_torch.parallel.mesh import Mesh, make_mesh
+    from airjax_torch.runner import run_stream, run_stream_sharded
+    from airjax_torch.track.batch import BatchTracker, ExtendedBatchTracker
+
+    t_phase = time.perf_counter()
+    block = halo.tuned_block(max(16384, DEFAULT_CONFIG.block_len))
+    k = DEFAULT_CONFIG.max_candidates
+    print(f"step graphs: {card}; a shard {block} samples (halo {halo._halo_size(block)}), K {k}")
+    for mesh_name, mesh in (("4 shards of the card", Mesh([dev] * SHARDS)), ("make_mesh(1)", make_mesh(1, device=dev))):
+        d = mesh.size
+        n = d * block
+        step_iq = np.ascontiguousarray(tracker_iq[:n])
+        step_dev = torch.as_tensor(step_iq, device=dev)
+        for name, (ext, r2, with_fields) in STEP_VARIANTS.items():
+            c = max(512 if ext else 128, k)
+            eager = halo._compact_builder(ext)(mesh, n, k, c, with_fields=with_fields, recover2=r2)
+            want = pipeline.to_host(eager(step_dev))
+            steps = halo.StepGraphs(mesh, block, extended=ext, recover2=r2, with_fields=with_fields, depth=0)
+
+            def one():
+                slot = steps.dispatch(step_iq, k, c)
+                out = steps.fetch(slot)
+                steps.done(slot)
+                return out
+
+            one()  # the first sighting, eager
+            with counted() as cnt, step_replayed() as g:
+                got = one()  # the capture, then a replay
+            label = f"step graphs, {name}, {mesh_name}"
+            check(int(want["n_candidates" if ext else "n_good"]) > 0, f"{label}: the step holds no frame")
+            check(same_host_dict(got, want), f"{label}: a replay's dict != the eager step's")
+            check(cnt == {**ONE_PASS, "magdet_bits": d, "block_decode": d, "shard_gather": 1,
+                          "shard_gather_fields": int(with_fields)}
+                  and g == {"eager": 0, "captures": 1, "replays": 1}, f"{label}: a replay counted {cnt}, {g}")
+            replay_profile(label, one, {"front": d, "block decode": d, "gather": 1, "htod": 1, "dtoh": 1})
+            (slot,) = steps.slots()
+            print(f"  {label}: a slot downloads {slot.out.numel()} bytes (C {c}); holds {slot.pinned_bytes} pinned, "
+                  f"{slot.device_bytes} on the card")
+            if name == "DF17" and d == SHARDS:
+                replay_ms = back_to_back_ms(slot.graph.replay)
+                eager_ms = back_to_back_ms(lambda: eager(step_dev))
+                kernels_replay = device_us(slot.graph.replay, STEP_KERNELS)
+                kernels_eager = device_us(lambda: eager(step_dev), STEP_KERNELS)
+                print(f"step graphs, DF17 step on {mesh_name} ({card}): a replay {replay_ms * 1e3:.3f} us (upload, "
+                      f"kernels, download), the eager step {eager_ms * 1e3:.3f} us ({GRAPH_REPS} back to back between "
+                      f"two CUDA events, best of 3); the kernels' device time {kernels_replay:.3f} us in a replay, "
+                      f"{kernels_eager:.3f} us eager (profiler; {kernels_replay / kernels_eager:.4f} of eager)")
+    print("step graphs: a replay == the eager step bit for bit in each variant, D fronts, D block decodes and one "
+          "gather counted, and only those kernels and the two copies on the card")
+
+    def chunks(n_samples):
+        return lambda: (tracker_iq[i : i + CHUNK] for i in range(0, n_samples, CHUNK))
+
+    mesh4 = Mesh([dev] * SHARDS)
+    rows: dict[tuple[str, int, str], list] = {}
+    for label, n_samples, make, kw, depths in (
+            ("phase 14's BatchTracker", PIPE_SAMPLES, BatchTracker, {}, (0, 1)),
+            ("phase 11's BatchTracker", ANALYTICS_SAMPLES, BatchTracker, {}, (1,)),
+            ("phase 11's BatchTracker --recover2", ANALYTICS_SAMPLES, BatchTracker, {"recover2": True}, (1,)),
+            ("phase 11's ExtendedBatchTracker", ANALYTICS_SAMPLES, ExtendedBatchTracker, {"extended": True}, (1,))):
+        ext = kw.get("extended", False)
+        single = make()
+        run_stream(chunks(n_samples)(), single, device=dev, **kw)
+        want = table_view(single.aircrafts, ext)
+        for depth in depths:
+            for form in ("eager", "graphs", "graphs", "eager"):  # in turns
+                sink = make()
+                with (eager_steps() if form == "eager" else contextlib.nullcontext()), counted() as n, \
+                        step_replayed() as g:
+                    t0 = time.perf_counter()
+                    stats = run_stream_sharded(chunks(n_samples)(), sink, mesh=mesh4, pipeline_depth=depth, **kw)
+                    wall = time.perf_counter() - t0
+                name = f"{label}, {form}, depth {depth}"
+                check(same_table(table_view(sink.aircrafts, ext), want), f"{name}: the table != run_stream's")
+                check(n["shard_gather"] == n["shard_gather_fields"] > 0 and n["fields"] == 0
+                      and n["magdet_bits"] == n["block_decode"] == SHARDS * n["shard_gather"],
+                      f"{name}: not a front and a block decode a shard and a gather with F a step: {n}")
+                check(g == {"eager": 0, "captures": 0, "replays": 0} if form == "eager" else
+                      (g["eager"] >= 1 and g["replays"] > 0 and g["eager"] + g["replays"] == stats.blocks + 1),
+                      f"{name}: graphs {g} for {stats.blocks} steps and the warm-up")
+                row = (stage_ms(stats, "dispatch"), stage_ms(stats, "fetch"), stage_ms(stats, "apply"),
+                       n_samples / wall / 1e6)
+                rows.setdefault((label, depth, form), []).append(row)
+                print(f"step graphs A/B, {name}: dispatch {row[0]:.6f} ms, fetch {row[1]:.6f} ms, apply "
+                      f"{row[2]:.6f} ms a step, {row[3]:.3f} MS/s ({wall:.3f} s wall, {stats.blocks} steps, "
+                      f"{stats.overflow_blocks} regrown); {stats.overlapped} of {stats.fetches} fetches with the next "
+                      f"step pending; graphs {json.dumps(stats.graphs)}")
+            e, gr = (np.mean(rows[(label, depth, f)], axis=0) for f in ("eager", "graphs"))
+            print(f"step graphs A/B, {label}, depth {depth}, mean of 2 turns on {card}: dispatch + fetch "
+                  f"{e[0] + e[1]:.6f} ms eager, {gr[0] + gr[1]:.6f} ms graphs ({(gr[0] + gr[1]) / (e[0] + e[1]):.3f} "
+                  f"of eager); apply {e[2]:.6f} / {gr[2]:.6f} ms; {e[3]:.3f} MS/s eager, {gr[3]:.3f} MS/s graphs")
+
+    stream_iq, frames = stream_capture
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "stream.c16")
+        save_c16(stream_iq, path)
+        want = [f.hex() for f in frames]
+        for form in ("eager", "graphs", "graphs", "eager"):  # in turns
+            with (eager_steps() if form == "eager" else contextlib.nullcontext()), step_replayed() as g:
+                text, stats, wall = run_cli(["adsb", "--playback", path, "--fast", "--devices", "1"])
+            check(hexes(text) == want, f"adsb --devices 1, {form}: the packets are not the embedded frames in order")
+            check((g["replays"] == 0) == (form == "eager"), f"adsb --devices 1, {form}: graphs {g}")
+            st = stats["stages"]
+            print(f"step graphs A/B, adsb --playback --fast --devices 1, {form}: {STREAM_SAMPLES / wall / 1e6:.3f} "
+                  f"MS/s ({wall:.3f} s wall); dispatch {st['dispatch']['mean_ms']} ms, fetch {st['fetch']['mean_ms']} "
+                  f"ms, apply {st['apply']['mean_ms']} ms a step; graphs {json.dumps(g)}")
+    print(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
+
+
 def packet_view(packet) -> tuple:
     """A packet's class and fields but its wall-clock stamp."""
     import dataclasses
@@ -3905,6 +4089,7 @@ def main() -> int:
     kernels.append(count_row)
     phase_pipelined(dev, stream_capture, block, frames, tracker_iq)
     phase_graphs(dev, stream_capture, block_dev, card)
+    phase_step_graphs(dev, stream_capture, tracker_iq, card)
     del stream_capture
     phase_live(dev, tracker_iq)
     phase_tools()
