@@ -1,0 +1,7 @@
+"""dispatch_ms (dispatch_ms.live): the runner's "dispatch" stage, host ms a block over the window."""
+
+from adsbench.yardstick.readers import stage_ms
+
+
+def read(run):
+    return stage_ms(run, "dispatch")
