@@ -42,8 +42,10 @@ airjax's `adsb`). The debug aids, in stream mode:
 needs matplotlib), `--dump-preamble` prints each frame's preamble; both
 are refused with --devices (exit 2), as airjax refuses them. `--trace DIR`
 writes a torch.profiler trace of the run (the card's kernels included) to
-DIR. Each mode logs its final stats on the `airjax_torch` logger
-(observability.log_stats).
+DIR, with the runner's stage spans of every block on tracks of their own.
+Each mode logs its final stats on the `airjax_torch` logger
+(observability.log_stats): airjax's keys, then `backlog_max` and, in web
+mode, `summaries_sent` and `summaries_dropped` (`_stats_line`).
 """
 
 from __future__ import annotations
@@ -161,6 +163,18 @@ def _source(args):
     return source
 
 
+def _stats_line(stats, display=None) -> dict:
+    """The final stats: airjax's (StreamStats.as_dict), then the operator's
+    counters: `backlog_max`, the most blocks the source had ready and the
+    runner not yet taken (above 0, the receiver fell behind), and for the
+    web map `summaries_sent` and `summaries_dropped` (updates a lagging
+    client lost)."""
+    line = {**stats.as_dict(), "backlog_max": stats.backlog_max}
+    if display is not None:
+        line.update(summaries_sent=display.broadcast.sent, summaries_dropped=display.broadcast.dropped)
+    return line
+
+
 def _cmd_adsb(args) -> int:
     if args.trace:
         from airjax_torch import observability
@@ -239,7 +253,7 @@ def _cmd_adsb_inner(args) -> int:
         if args.jsonl:
             sink = tee(sink, jsonl_writer(args.jsonl))
         stats = _run(source, sink)
-        observability.log_stats("adsb_stream_done", stats.as_dict())
+        observability.log_stats("adsb_stream_done", _stats_line(stats))
     elif args.mode == "interactive":
         from airjax_torch.ui.tui import TuiApp, interactive_display
 
@@ -269,7 +283,7 @@ def _cmd_adsb_inner(args) -> int:
         decode_thread.join()
         with app._lock:
             _save_state(app.aircrafts)
-        observability.log_stats("adsb_interactive_done", tui_stats.as_dict())
+        observability.log_stats("adsb_interactive_done", _stats_line(tui_stats))
         return 0
     else:  # web
         from airjax_torch.ui.web import WebDisplay
@@ -284,7 +298,7 @@ def _cmd_adsb_inner(args) -> int:
         sink = display.batched_sink(extended=args.extended) if args.batched else display.on_packet
         try:
             stats = _run(source, sink)
-            observability.log_stats("adsb_web_done", stats.as_dict())
+            observability.log_stats("adsb_web_done", _stats_line(stats, display))
             print("source exhausted; web server still running (Ctrl-C to quit)")
             while True:
                 time.sleep(1)
@@ -294,7 +308,7 @@ def _cmd_adsb_inner(args) -> int:
             with display._lock:
                 _save_state(display.aircrafts)
 
-    print(f"\nstats: {stats.as_dict()}")
+    print(f"\nstats: {_stats_line(stats)}")
     return 0
 
 

@@ -78,20 +78,35 @@ def synthetic_blocks(
 class Prefetcher:
     """Bounded background prefetch of source blocks (airjax/io/source.py:
     82-115): the source is read on a thread while blocks are decoded, with
-    backpressure instead of an unbounded queue."""
+    backpressure instead of an unbounded queue.
+
+    The thread stamps each block as it gets it from the source; the
+    iteration keeps the latest block's stamps (time.perf_counter): `got`,
+    when the thread got it, `asked`, when the consumer began to wait for
+    it, and `received`, when it had it. `backlog_max` is the most blocks
+    the thread had got and the consumer not yet taken, at a receipt: above
+    0, the consumer fell behind the source."""
 
     _DONE = object()
 
     def __init__(self, source: Iterator[np.ndarray], depth: int = 4):
         self._queue: queue.Queue = queue.Queue(maxsize=depth)
-        self._thread = threading.Thread(target=self._run, args=(source,), daemon=True)
+        self._thread = threading.Thread(target=self._run, args=(source,), name="Prefetcher", daemon=True)
         self._error: Optional[BaseException] = None
+        self.got = self.asked = self.received = 0.0
+        self.backlog_max = 0
+        self._taken = self._delivered = 0
         self._thread.start()
+
+    @property
+    def thread_name(self) -> str:
+        return self._thread.name
 
     def _run(self, source):
         try:
             for block in source:
-                self._queue.put(block)
+                self._delivered += 1
+                self._queue.put((block, time.perf_counter()))
         except BaseException as e:  # surfaced on the consumer side
             self._error = e
         finally:
@@ -99,9 +114,15 @@ class Prefetcher:
 
     def __iter__(self):
         while True:
+            asked = time.perf_counter()
             item = self._queue.get()
+            received = time.perf_counter()
             if item is self._DONE:
                 if self._error is not None:
                     raise self._error
                 return
-            yield item
+            block, self.got = item
+            self.asked, self.received = asked, received
+            self._taken += 1
+            self.backlog_max = max(self.backlog_max, self._delivered - self._taken)
+            yield block

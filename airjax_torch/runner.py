@@ -50,6 +50,10 @@ copy back; on a mesh over several cards its steps launch eagerly
 (halo.EagerSteps, through pipeline.Fetcher). Entries are fetched and
 applied first in, first out, so packets, the recover2 gate, the ICAO
 cache and the stats follow stream order at every depth. The source is read on the Prefetcher's thread.
+Each step of a block is timed as a stage of `stats.stages` (StreamStats:
+source, handoff, carry, dispatch, hold, fetch, apply, sink) and, while
+an observability.trace is active, kept as a span with the block's
+sequence number in the stream.
 run_stream_sharded decodes the stream over a mesh of devices
 (parallel/halo.py), in steps of many blocks.
 """
@@ -64,6 +68,7 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
+from airjax_torch import observability
 from airjax_torch.config import DEFAULT_CONFIG, PipelineConfig
 from airjax_torch.io.source import Prefetcher
 from airjax_torch.dsp.demod import WINDOW
@@ -96,10 +101,16 @@ class StreamStats:
         self.recovered2 = 0  # 2-bit repairs accepted (recover2)
         self.overflow_blocks = 0
         self.started = time.time()
-        # Host wall-clock per stage: dispatch (the block's copy in + the
-        # decode's replay or launches), fetch (the wait and the result copy
-        # + overflow regrow), apply
-        # (packets + sink).
+        # Host wall-clock per stage, each on the time.perf_counter clock.
+        # The main thread's, disjoint: source (the wait for the next block
+        # in the Prefetcher's iteration), carry (the block's asarray, the
+        # short-read join, the carry's concatenate and copy), dispatch (the
+        # block's copy in + the decode's replay or launches), fetch (the
+        # wait and the result copy + overflow regrow), apply (packets +
+        # sink). Besides: handoff (from the prefetch thread's getting the
+        # block from the source to its receipt), hold (a block's end of
+        # dispatch to its start of fetch: the later blocks' work at depth
+        # 1), sink (the sink's own calls inside apply, once a block).
         self.stages = StageTimer()
         # Set at the stream's end, not in as_dict (airjax has no such keys):
         # decodes fetched, and those whose fetch returned while the next
@@ -107,6 +118,10 @@ class StreamStats:
         # pipeline.Fetcher).
         self.fetches = 0
         self.overlapped = 0
+        # The most blocks the source had ready and the runner not yet taken
+        # at a receipt (io.source.Prefetcher.backlog_max): above 0, the
+        # runner fell behind its source.
+        self.backlog_max = 0
         # run_stream's pipeline.BlockGraphs at the stream's end: first
         # sightings, captures, replays, and the bytes its slots hold.
         self.graphs: dict[str, int] = {}
@@ -171,17 +186,40 @@ class _Sink:
         self.batched = self.batch_fn is not None or self.ext_batch_fn is not None
         self.icao_cache = IcaoCache()
         self.seen_icaos: set[int] = set()  # the DF17 recover2 gate
+        self._block: int | None = None
+        self._sink_s = 0.0
+
+    def _call(self, fn, *args, **kw):
+        """A call of the sink, timed into the block's `sink` stage and, while
+        a span log is recording, kept as a span inside `apply`."""
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            t1 = time.perf_counter()
+            self._sink_s += t1 - t0
+            log = observability.recording
+            if log is not None:
+                log.add("sink", t0, t1, self._block, "apply")
 
     def apply(self, out: dict, keep: np.ndarray | None, min_offset: int | None, now: float,
-              on_frame: Callable[[int], None] | None = None) -> int:
+              on_frame: Callable[[int], None] | None = None, block: int | None = None) -> int:
         """One block's host dict to the sink -> the packets emitted. `keep`
         masks the DF17 rows; in extended mode the candidates at local
         offsets below `min_offset` (the padded head of the stream) seed the
         ICAO cache but are not emitted. A per-packet sink calls `on_frame`
-        with each emitted frame's local offset (the debug aids)."""
+        with each emitted frame's local offset (the debug aids). The sink's
+        calls add up to one `sink` stage of the block whose sequence
+        number is `block`."""
+        self._block, self._sink_s = block, 0.0
+        emitted = self._apply(out, keep, min_offset, now, on_frame)
+        self.stats.stages.add("sink", self._sink_s)
+        return emitted
+
+    def _apply(self, out, keep, min_offset, now, on_frame) -> int:
         stats = self.stats
         if self.ext_batch_fn is not None:
-            return self.ext_batch_fn(out, now, self.icao_cache, min_offset=min_offset)
+            return self._call(self.ext_batch_fn, out, now, self.icao_cache, min_offset=min_offset)
         emitted = 0
         if self.extended:
             # Offsets of the frames only the gated 2-flip repair validated.
@@ -194,7 +232,7 @@ class _Sink:
                     stats.recovered2 += 1
                 if on_frame is not None:
                     on_frame(local)
-                self.on_packet(packet)
+                self._call(self.on_packet, packet)
                 emitted += 1
             return emitted
         idx = np.nonzero(keep)[0]
@@ -202,7 +240,7 @@ class _Sink:
             if self.recover2:
                 idx, n_r2 = _gate_recover2_batch(idx, out["fields"]["icao"], out["recovered2"], self.seen_icaos)
                 stats.recovered2 += n_r2
-            return self.batch_fn(out["fields"], idx, now)
+            return self._call(self.batch_fn, out["fields"], idx, now)
         for k in idx:
             frame = out["frames"][k].tobytes()
             if self.recover2:
@@ -215,11 +253,22 @@ class _Sink:
                     stats.recovered2 += 1
                 else:
                     self.seen_icaos.add(icao)
-            self.on_packet(AdsbPacket.from_bytes(frame, now))
+            self._call(self.on_packet, AdsbPacket.from_bytes(frame, now))
             emitted += 1
             if on_frame is not None:
                 on_frame(int(out["offsets"][k]))
         return emitted
+
+
+def _received(prefetcher: Prefetcher, stages: StageTimer) -> Iterator[tuple[int, np.ndarray]]:
+    """The prefetcher's blocks with their sequence numbers; each block's
+    wait (`source`) and its handoff from the prefetch thread timed."""
+    for seq, block in enumerate(prefetcher):
+        asked, received = prefetcher.asked, prefetcher.received
+        stages.add("source", received - asked, start=asked, block=seq)
+        stages.add("handoff", received - prefetcher.got, start=prefetcher.got, block=seq,
+                   thread=prefetcher.thread_name)
+        yield seq, block
 
 
 def _decode_fn(extended: bool, batched: bool):
@@ -275,18 +324,21 @@ def run_stream(
     global_base = -halo  # global sample index of carry[0]
     pending = np.zeros((0, 2), dtype=np.int16)
     inflight: collections.deque = collections.deque()
+    stages = stats.stages
 
-    def _dispatch(ext: np.ndarray, n_off: int, base: int, n_samples: int) -> None:
-        with stats.stages.stage("dispatch"):
+    def _dispatch(ext: np.ndarray, n_off: int, base: int, n_samples: int, seq: int) -> None:
+        with stages.stage("dispatch", block=seq):
             slot = graphs.dispatch(ext, n_off, cfg.max_candidates)
         # `now` is stamped at dispatch, as airjax does; the slot keeps the
         # block on the device for a regrow, and the entry `ext` for the
-        # debug aids.
-        inflight.append((ext, n_off, base, time.time(), n_samples, slot))
+        # debug aids. The hold starts here.
+        inflight.append((ext, n_off, base, time.time(), n_samples, slot, seq, time.perf_counter()))
 
     def _process(entry) -> None:
-        ext, n_off, base, now, n_samples, slot = entry
-        with stats.stages.stage("fetch"):
+        ext, n_off, base, now, n_samples, slot, seq, held = entry
+        t_fetch = time.perf_counter()
+        stages.add("hold", t_fetch - held, start=held, block=seq)
+        with stages.stage("fetch", block=seq):
             out = graphs.fetch(slot)
             # Regrow on overflow: a dropped detection would lose a frame.
             overflowed = bool(out["overflow"])
@@ -304,8 +356,8 @@ def run_stream(
             good = good & (out["offsets"].astype(np.int64) + base >= 0)
         on_frame = functools.partial(_debug_frame, ext, base if overlap else 0, plot_dir, dump_preamble,
                                      extended) if debug else None
-        emitted = sink.apply(out, good, -base if overlap and base < 0 else None, now, on_frame)
-        stats.stages.add("apply", time.perf_counter() - t_apply)
+        emitted = sink.apply(out, good, -base if overlap and base < 0 else None, now, on_frame, seq)
+        stages.add("apply", time.perf_counter() - t_apply, start=t_apply, block=seq)
         # The tail flush is an extra decode, not a source block (n_samples=0).
         stats.blocks += 1 if n_samples else 0
         stats.samples += n_samples
@@ -315,7 +367,10 @@ def run_stream(
         # Blocks that needed a regrow (the regrown result's flag is clear).
         stats.overflow_blocks += overflowed
 
-    for block in Prefetcher(source, depth=prefetch_depth):
+    prefetcher = Prefetcher(source, depth=prefetch_depth)
+    seq = -1
+    for seq, block in _received(prefetcher, stages):
+        t_carry = time.perf_counter()
         block = np.asarray(block, dtype=np.int16)
         if overlap and len(pending):
             # Short reads accumulate rather than being dropped.
@@ -324,6 +379,7 @@ def run_stream(
         if block.shape[0] < WINDOW:
             if overlap:
                 pending = block
+            stages.add("carry", time.perf_counter() - t_carry, start=t_carry, block=seq)
             # parity: the reference cannot scan a block < 240 samples.
             continue
         if overlap:
@@ -339,7 +395,8 @@ def run_stream(
         else:
             n_off = block.shape[0] - WINDOW
             ext = block
-        _dispatch(ext, n_off, global_base, block.shape[0])
+        stages.add("carry", time.perf_counter() - t_carry, start=t_carry, block=seq)
+        _dispatch(ext, n_off, global_base, block.shape[0], seq)
         if overlap:
             global_base += n_off
         while len(inflight) > max(pipeline_depth, 0):
@@ -349,11 +406,13 @@ def run_stream(
         # it are scannable once appended to the carry.
         carry = np.concatenate([carry, pending], axis=0)
     if overlap and carry.shape[0] > halo:
-        # Tail flush: the carry's offsets whose windows end at the stream end.
-        _dispatch(carry, carry.shape[0] - halo, global_base, 0)
+        # Tail flush: the carry's offsets whose windows end at the stream
+        # end, numbered as the block after the source's last.
+        _dispatch(carry, carry.shape[0] - halo, global_base, 0, seq + 1)
     while inflight:
         _process(inflight.popleft())
     stats.fetches, stats.overlapped = graphs.fetches, graphs.overlapped
+    stats.backlog_max = prefetcher.backlog_max
     stats.graphs = graphs.summary()
     return stats
 
@@ -455,11 +514,14 @@ def run_stream_sharded(
     global_base = -HALO
     acc = np.zeros((0, 2), dtype=np.int16)
     inflight: collections.deque = collections.deque()
+    stages = stats.stages
 
     def _process(entry) -> None:
         nonlocal K, C
-        slot, base, now, n_fresh, max_local = entry
-        with stats.stages.stage("fetch"):
+        slot, base, now, n_fresh, max_local, seq, held = entry
+        t_fetch = time.perf_counter()
+        stages.add("hold", t_fetch - held, start=held, block=seq)
+        with stages.stage("fetch", block=seq):
             out = steps.fetch(slot)
             overflowed = bool(out["overflow"])
             while bool(out["overflow"]) and (K < block or C < T):
@@ -489,8 +551,8 @@ def run_stream_sharded(
                 unp["fields"] = rows["fields"]
                 unp["short_fields"] = rows["short_fields"]
             rows = unp
-        emitted = sink.apply(rows, ok, -base if base < 0 else None, now)
-        stats.stages.add("apply", time.perf_counter() - t_apply)
+        emitted = sink.apply(rows, ok, -base if base < 0 else None, now, block=seq)
+        stages.add("apply", time.perf_counter() - t_apply, start=t_apply, block=seq)
         stats.blocks += 1 if n_fresh else 0
         stats.samples += n_fresh
         stats.detections += int(out["n_detections"])
@@ -499,33 +561,42 @@ def run_stream_sharded(
             stats.recovered += int(np.sum(rows["recovered"][ok]))
         stats.overflow_blocks += overflowed
 
-    def _dispatch(fresh: np.ndarray, max_local: int | None) -> None:
+    def _dispatch(fresh: np.ndarray, max_local: int | None, seq: int) -> None:
+        """A step of the block numbered `seq`: its carry (the join and the
+        pad, the next carry's copy) and its dispatch, each a stage."""
         nonlocal carry, global_base
+        t_carry = time.perf_counter()
         full = np.concatenate([carry, fresh], axis=0)
         if full.shape[0] < T:
             full = pad_iq_non_detecting(full, T)
-        with stats.stages.stage("dispatch"):
-            slot = steps.dispatch(full, K, C)
-        inflight.append((slot, global_base, time.time(), fresh.shape[0], max_local))
         carry = full[F:].copy()
+        stages.add("carry", time.perf_counter() - t_carry, start=t_carry, block=seq)
+        with stages.stage("dispatch", block=seq):
+            slot = steps.dispatch(full, K, C)
+        inflight.append((slot, global_base, time.time(), fresh.shape[0], max_local, seq, time.perf_counter()))
         global_base += F
         while len(inflight) > max(pipeline_depth, 0):
             _process(inflight.popleft())
 
-    for blk in Prefetcher(source, depth=4):
+    prefetcher = Prefetcher(source, depth=4)
+    seq = -1
+    for seq, blk in _received(prefetcher, stages):
+        t_carry = time.perf_counter()
         blk = np.asarray(blk, dtype=np.int16)
         acc = np.concatenate([acc, blk], axis=0) if len(acc) else blk
+        stages.add("carry", time.perf_counter() - t_carry, start=t_carry, block=seq)
         while acc.shape[0] >= F:
             fresh, acc = acc[:F], acc[F:]
-            _dispatch(fresh, None)
+            _dispatch(fresh, None, seq)
     if acc.shape[0] > 0:
         # The last, partial step: only offsets whose window fits in
         # carry + acc are real.
         true_len = HALO + acc.shape[0]
         if true_len >= WINDOW:
-            _dispatch(acc, true_len - WINDOW)
+            _dispatch(acc, true_len - WINDOW, seq)
     while inflight:
         _process(inflight.popleft())
     stats.fetches, stats.overlapped = steps.fetches, steps.overlapped
+    stats.backlog_max = prefetcher.backlog_max
     stats.graphs = steps.summary()
     return stats

@@ -14,7 +14,7 @@ packet assembly, which is what a deployment sustains.
 The blocks are made on the card (io/synth.py::modulate_device), then copied
 to numpy, as the JAX tool's. One discarded warm run on two blocks, then a
 JSON line a depth: pipeline_depth, seconds, msps, good, and stage_s (the
-host's seconds in run_stream's dispatch, fetch and apply). Exits 1 when `good`
+host's seconds in each of run_stream's stages, runner.StreamStats). Exits 1 when `good`
 differs between depths or from the frames embedded.
 """
 
@@ -58,7 +58,7 @@ def make_blocks(block_len: int, n_blocks: int, seed: int = 0, *, device: torch.d
 
 def run_once(blocks, depth: int, *, device: torch.device | str = "cuda") -> dict:
     """One stream over the blocks -> the JAX tool's row, and the host's
-    seconds in each of run_stream's stages (dispatch, fetch, apply)."""
+    seconds in each of run_stream's stages (runner.StreamStats)."""
     t0 = time.perf_counter()
     stats = run_stream(iter(blocks), lambda p: None, pipeline_depth=depth, device=device)
     dt = time.perf_counter() - t0

@@ -50,6 +50,11 @@ class _Broadcast:
         self._lock = threading.Lock()
         self._next = 0
         self._depth = depth
+        # Summaries sent (one a packet; batched, one a touched aircraft a
+        # block), and those a lagging client's full queue dropped (one a
+        # client): updates that client's map lost.
+        self.sent = 0
+        self.dropped = 0
 
     def subscribe(self) -> tuple[int, queue.Queue]:
         with self._lock:
@@ -66,11 +71,12 @@ class _Broadcast:
     def send(self, msg: str) -> None:
         with self._lock:
             clients = list(self._clients.values())
+        self.sent += 1
         for q in clients:
             try:
                 q.put_nowait(msg)
             except queue.Full:
-                pass  # lagging client drops messages, like broadcast::Lagged
+                self.dropped += 1  # lagging client drops messages, like broadcast::Lagged
 
 
 class WebDisplay:

@@ -65,9 +65,15 @@ def test_run_stream_stats_carry_stage_timings():
     frames = [synth.make_df17(0x7C6B30, synth.make_id_me("OBSTEST"))]
     stats = run_stream(iter([synth.modulate(frames, [500], 30000, seed=21)]), lambda p: None, device="cpu")
     stages = stats.as_dict()["stages"]
-    assert set(stages) == {"dispatch", "fetch", "apply"}
-    assert stages["fetch"]["calls"] == stages["apply"]["calls"] >= 1
-    assert sum(s["total_s"] for s in stages.values()) <= time.time() - stats.started + 1e-3
+    assert set(stages) == {"source", "handoff", "carry", "dispatch", "hold", "fetch", "apply", "sink"}
+    assert stages["source"]["calls"] == stages["handoff"]["calls"] == stages["carry"]["calls"] == 1
+    assert stages["hold"]["calls"] == stages["fetch"]["calls"] == stages["apply"]["calls"] == stages["sink"]["calls"]
+    assert stages["dispatch"]["calls"] == stages["fetch"]["calls"] >= 1
+    # The account: the main thread's disjoint stages fit in the run's time,
+    # and the sink's calls lie inside apply.
+    main = ("source", "carry", "dispatch", "fetch", "apply")
+    assert sum(stages[k]["total_s"] for k in main) <= time.time() - stats.started + 1e-3
+    assert stages["sink"]["total_s"] <= stages["apply"]["total_s"]
 
 
 def test_cli_adsb_trace_flag_and_stats_line(tmp_path, monkeypatch, caplog):

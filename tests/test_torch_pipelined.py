@@ -91,7 +91,8 @@ def _run_both(blocks, kw: dict, sinks, depth: int, prefetch: int = 4, cfg=None):
         got, want = (state(t_sink.aircrafts), t_sink.n_messages), (state(j_sink.aircrafts), j_sink.n_messages)
     assert got == want
     assert _stats(t_stats) == _stats(j_stats)
-    assert set(t_stats.as_dict()["stages"]) == {"apply", "dispatch", "fetch"}
+    assert set(t_stats.as_dict()["stages"]) == {"source", "handoff", "carry", "dispatch", "hold", "fetch", "apply",
+                                                "sink"}
     assert t_stats.fetches >= t_stats.blocks and t_stats.overlapped == 0  # regrows fetch too
     return got, _stats(t_stats)
 

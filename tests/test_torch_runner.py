@@ -77,7 +77,7 @@ def test_run_stream_equals_airjax(overlap):
     assert got == want
     for key in STAT_KEYS:
         assert t_stats[key] == j_stats[key], key
-    assert set(t_stats["stages"]) == {"apply", "dispatch", "fetch"}
+    assert set(t_stats["stages"]) == {"source", "handoff", "carry", "dispatch", "hold", "fetch", "apply", "sink"}
     if overlap:
         assert got == frames  # every frame once, in order; repairs restore the sent frames
         assert t_stats["recovered"] == 3

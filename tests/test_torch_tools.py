@@ -178,7 +178,7 @@ def test_bench_stream_prints_each_depth(capsys):
     assert [r["pipeline_depth"] for r in rows] == [0, 1, 2]
     for row in rows:
         assert set(row) == {"pipeline_depth", "seconds", "msps", "good", "stage_s"}
-        assert set(row["stage_s"]) == {"dispatch", "fetch", "apply"}
+        assert set(row["stage_s"]) == {"source", "handoff", "carry", "dispatch", "hold", "fetch", "apply", "sink"}
         assert row["good"] == 4 and row["msps"] > 0
 
 
