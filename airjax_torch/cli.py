@@ -44,8 +44,9 @@ are refused with --devices (exit 2), as airjax refuses them. `--trace DIR`
 writes a torch.profiler trace of the run (the card's kernels included) to
 DIR, with the runner's stage spans of every block on tracks of their own.
 Each mode logs its final stats on the `airjax_torch` logger
-(observability.log_stats): airjax's keys, then `backlog_max` and, in web
-mode, `summaries_sent` and `summaries_dropped` (`_stats_line`).
+(observability.log_stats): airjax's keys, then `backlog_max`,
+`early_fetches` and, in web mode, `summaries_sent` and
+`summaries_dropped` (`_stats_line`).
 """
 
 from __future__ import annotations
@@ -166,10 +167,12 @@ def _source(args):
 def _stats_line(stats, display=None) -> dict:
     """The final stats: airjax's (StreamStats.as_dict), then the operator's
     counters: `backlog_max`, the most blocks the source had ready and the
-    runner not yet taken (above 0, the receiver fell behind), and for the
-    web map `summaries_sent` and `summaries_dropped` (updates a lagging
-    client lost)."""
-    line = {**stats.as_dict(), "backlog_max": stats.backlog_max}
+    runner not yet taken (above 0, the receiver fell behind),
+    `early_fetches`, the decodes fetched without waiting for the next block
+    because the source had none ready, and for the web map
+    `summaries_sent` and `summaries_dropped` (updates a lagging client
+    lost)."""
+    line = {**stats.as_dict(), "backlog_max": stats.backlog_max, "early_fetches": stats.early_fetches}
     if display is not None:
         line.update(summaries_sent=display.broadcast.sent, summaries_dropped=display.broadcast.dropped)
     return line

@@ -85,7 +85,8 @@ class Prefetcher:
     when the thread got it, `asked`, when the consumer began to wait for
     it, and `received`, when it had it. `backlog_max` is the most blocks
     the thread had got and the consumer not yet taken, at a receipt: above
-    0, the consumer fell behind the source."""
+    0, the consumer fell behind the source. `ready()` says, without
+    waiting, whether the iteration's next step would return at once."""
 
     _DONE = object()
 
@@ -101,6 +102,11 @@ class Prefetcher:
     @property
     def thread_name(self) -> str:
         return self._thread.name
+
+    def ready(self) -> bool:
+        """Whether a block, or the stream's end, is queued: a look at the
+        queue that neither waits nor takes an item."""
+        return not self._queue.empty()
 
     def _run(self, source):
         try:

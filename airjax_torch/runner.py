@@ -34,13 +34,20 @@ every frame one at a time, so they make the sink per packet:
 preamble (visualise.dump_preamble), after a DF17 packet's sink call and
 before an extended one's, as airjax prints them.
 
-Both runners keep `pipeline_depth` decodes in flight (default 1, as
+Both runners keep up to `pipeline_depth` decodes in flight (default 1, as
 airjax's, whose `adsb` passes none): block k+1 is dispatched before block
 k is fetched, so the card decodes block k+1 while the host copies and
-applies block k. run_stream decodes a block as one program, as airjax's
-jit does: a CUDA graph per block shape (pipeline.BlockGraphs) holds the
-block's upload from a pinned slot, the front and block-decode launches
-and the dict's copy back; a dispatch copies the block in and replays, a
+applies block k. run_stream holds block k so only while its source has a
+block ready (io.source.Prefetcher.ready): when it has none, as a paced
+receiver has not between blocks, nothing would overlap the decodes in
+flight, and run_stream fetches and applies them at once, oldest first,
+rather than hold block k until block k+1 arrives (`stats.early_fetches`).
+run_stream_sharded always holds its steps.
+
+run_stream decodes a block as one program, as airjax's jit does: a CUDA
+graph per block shape (pipeline.BlockGraphs) holds the block's upload
+from a pinned slot, the front and block-decode launches and the dict's
+copy back; a dispatch copies the block in and replays, a
 fetch waits on the block's event and reads the dict from the slot's two
 buffers. run_stream_sharded on one card decodes a step as one program the
 same way, as airjax's jitted shard_map step does: a CUDA graph per step
@@ -110,14 +117,20 @@ class StreamStats:
         # sink). Besides: handoff (from the prefetch thread's getting the
         # block from the source to its receipt), hold (a block's end of
         # dispatch to its start of fetch: the later blocks' work at depth
-        # 1), sink (the sink's own calls inside apply, once a block).
+        # 1 while the source has them ready, else only a look at the
+        # source's queue), sink (the sink's own calls inside apply, once a
+        # block).
         self.stages = StageTimer()
-        # Set at the stream's end, not in as_dict (airjax has no such keys):
-        # decodes fetched, and those whose fetch returned while the next
-        # decode was still running on the card (pipeline.BlockGraphs,
-        # pipeline.Fetcher).
+        # Not in as_dict (airjax has no such keys): decodes fetched, and
+        # those whose fetch returned while the next decode was still running
+        # on the card (pipeline.BlockGraphs, pipeline.Fetcher), set at the
+        # stream's end; run_stream's decodes fetched before pipeline_depth
+        # were in flight because the source had no block ready
+        # (early_fetches / fetches: the share of fetches that skipped the
+        # hold).
         self.fetches = 0
         self.overlapped = 0
+        self.early_fetches = 0
         # The most blocks the source had ready and the runner not yet taken
         # at a receipt (io.source.Prefetcher.backlog_max): above 0, the
         # runner fell behind its source.
@@ -299,11 +312,15 @@ def run_stream(
     and CommDReply objects), or hand a batched sink each block. plot_dir
     and dump_preamble are the debug aids (module docstring).
 
-    pipeline_depth decodes stay in flight before the oldest is fetched
-    (airjax/runner.py:105-116, :382-407): block k+1's upload and kernels
-    overlap block k's fetch and packet assembly. Packets come out in stream
-    order at every depth; 0 is the serial form. prefetch_depth bounds the
-    source's read-ahead queue (io.source.Prefetcher).
+    Up to pipeline_depth decodes stay in flight before the oldest is
+    fetched (airjax/runner.py:105-116, :382-407): block k+1's upload and
+    kernels overlap block k's fetch and packet assembly. That holds block k
+    only while the source has a block ready; when it has none, the decodes
+    in flight are fetched and applied at once, oldest first, so a paced
+    receiver's block reaches the sink after its own decode and not a block
+    period later (stats.early_fetches counts them). Packets come out in
+    stream order at every depth; 0 is the serial form. prefetch_depth
+    bounds the source's read-ahead queue (io.source.Prefetcher).
 
     The parameters are airjax's, in airjax's order; `device`, by keyword,
     is where the blocks decode (the card unless the caller asks for "cpu")."""
@@ -367,6 +384,14 @@ def run_stream(
         # Blocks that needed a regrow (the regrown result's flag is clear).
         stats.overflow_blocks += overflowed
 
+    def _fetch_while_idle() -> None:
+        # No block ready behind the last: nothing would overlap the decodes
+        # in flight, so fetch them now rather than at the next block.
+        while inflight and not prefetcher.ready():
+            fetched = graphs.fetches
+            _process(inflight.popleft())
+            stats.early_fetches += graphs.fetches - fetched  # regrows fetch too
+
     prefetcher = Prefetcher(source, depth=prefetch_depth)
     seq = -1
     for seq, block in _received(prefetcher, stages):
@@ -381,6 +406,7 @@ def run_stream(
                 pending = block
             stages.add("carry", time.perf_counter() - t_carry, start=t_carry, block=seq)
             # parity: the reference cannot scan a block < 240 samples.
+            _fetch_while_idle()
             continue
         if overlap:
             full = np.concatenate([carry, block], axis=0)
@@ -401,6 +427,7 @@ def run_stream(
             global_base += n_off
         while len(inflight) > max(pipeline_depth, 0):
             _process(inflight.popleft())
+        _fetch_while_idle()
     if overlap and len(pending):
         # A final short read still ends the stream: frames ending inside
         # it are scannable once appended to the carry.

@@ -2787,7 +2787,8 @@ BIG_STREAM_BLOCKS = 8  # phase 4's block, fed this many times
 def stream_pass(name: str, blocks, sink, runner=None, **kw):
     """One stream through `runner` (run_stream by default) -> (stats,
     stats.as_dict(), launches); prints its MS/s, the mean dispatch, fetch
-    and apply ms a decode, and the fetches that overlapped the next decode."""
+    and apply ms a decode, the fetches that overlapped the next decode, and
+    those made early because the source had no block ready."""
     from airjax_torch.runner import run_stream
 
     with counted() as n, replayed() as g:
@@ -2800,7 +2801,8 @@ def stream_pass(name: str, blocks, sink, runner=None, **kw):
     print(f"pipelined, {name}: {d['samples'] / wall / 1e6:.2f} MS/s ({wall:.3f} s wall, {d['samples']} samples); "
           f"dispatch / fetch / apply {st['dispatch']['mean_ms']:.4f} / {st['fetch']['mean_ms']:.4f} / "
           f"{st['apply']['mean_ms']:.4f} ms a decode ({st['fetch']['calls']} decodes); {stats.overlapped} of "
-          f"{stats.fetches} fetches returned with the next decode pending; launches {json.dumps(n)}"
+          f"{stats.fetches} fetches returned with the next decode pending, {stats.early_fetches} early; "
+          f"launches {json.dumps(n)}"
           + (f"; slots {stats.graphs['pinned_bytes']} B pinned, {stats.graphs['device_bytes']} B on the card"
              if stats.graphs else ""))
     return stats, d, n

@@ -1,10 +1,11 @@
 """airjax_torch.runner.run_stream with decodes in flight (pipeline_depth,
 prefetch_depth) against airjax's run_stream at the same depth on the CPU:
 overlap and parity modes, per packet and batched, extended, recover2, and a
-forced capacity regrow. The packets (their wall-clock stamps aside), the
-trackers' tables and the stats (the stage timings aside) are equal, and the
-same at every depth. pipeline.Fetcher's stream form runs on a card only
-(tests/test_torch_cuda.py)."""
+forced capacity regrow, and a source with no block ready (each decode
+fetched right after its dispatch). The packets (their wall-clock stamps
+aside), the trackers' tables and the stats (the stage timings aside) are
+equal, and the same at every depth. pipeline.Fetcher's stream form runs
+on a card only (tests/test_torch_cuda.py)."""
 
 import numpy as np
 import pytest
@@ -16,6 +17,7 @@ from airjax.track import batch as jbatch
 from airjax_torch import pipeline, runner
 from airjax_torch.config import PipelineConfig
 from airjax_torch.io import synth
+from airjax_torch.io.source import Prefetcher
 from airjax_torch.track import batch as tbatch
 from test_torch_track import state
 from torch_parity import packet_fields
@@ -70,9 +72,11 @@ MODES = {
 }
 
 
-def _run_both(blocks, kw: dict, sinks, depth: int, prefetch: int = 4, cfg=None):
+def _run_both(blocks, kw: dict, sinks, depth: int, prefetch: int = 4, cfg=None, idle: bool = False):
     """The stream through both packages at `depth` -> (the port's packets or
-    table, its stats), each asserted equal to airjax's."""
+    table, its stats), each asserted equal to airjax's. `idle`: the port's
+    source never has a block ready, so every decode is fetched right after
+    its dispatch."""
     cfg_kw = {} if cfg is None else {"cfg": cfg[1]}
     jcfg_kw = {} if cfg is None else {"cfg": cfg[0]}
     if sinks is None:
@@ -94,6 +98,9 @@ def _run_both(blocks, kw: dict, sinks, depth: int, prefetch: int = 4, cfg=None):
     assert set(t_stats.as_dict()["stages"]) == {"source", "handoff", "carry", "dispatch", "hold", "fetch", "apply",
                                                 "sink"}
     assert t_stats.fetches >= t_stats.blocks and t_stats.overlapped == 0  # regrows fetch too
+    if idle:
+        assert t_stats.early_fetches == t_stats.fetches
+    assert t_stats.early_fetches <= t_stats.fetches
     return got, _stats(t_stats)
 
 
@@ -103,11 +110,19 @@ def serial():
     return {}
 
 
-@pytest.mark.parametrize("depth", DEPTHS)
-@pytest.mark.parametrize("mode", list(MODES))
-def test_run_stream_at_depth_equals_airjax(mode, depth, serial):
+# (mode, depth, idle): every mode at every depth, and DF17 and extended at
+# depths 1 and 2 with the port's source never ready (Prefetcher.ready
+# forced false: no decode held for the next block).
+CASES = [(mode, depth, False) for mode in MODES for depth in DEPTHS] + [
+    (mode, depth, True) for mode in ("overlap", "extended") for depth in (1, 2)]
+
+
+@pytest.mark.parametrize("mode, depth, idle", CASES, ids=[f"{m}-{d}" + "-idle" * i for m, d, i in CASES])
+def test_run_stream_at_depth_equals_airjax(mode, depth, idle, serial, monkeypatch):
+    if idle:
+        monkeypatch.setattr(Prefetcher, "ready", lambda self: False)
     kw, sinks, stream_kw = MODES[mode]
-    got, stats = _run_both(_stream(11, **stream_kw), kw, sinks, depth)
+    got, stats = _run_both(_stream(11, **stream_kw), kw, sinks, depth, idle=idle)
     assert stats["good"] > 20
     if kw.get("recover2") and not kw.get("extended") and sinks is None:
         assert stats["recovered2"] > 0

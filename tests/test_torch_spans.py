@@ -1,8 +1,9 @@
 """The runner's stages as spans (airjax_torch.observability.SpanLog): the
 main thread's account of a stream, each block's spans in order under one
-sequence number, the hold at depths 1 and 0, nothing kept without a
-trace, the spans on the Chrome trace's clock, the operator's counters,
-and the benchmark's readers of the new stages."""
+sequence number, the hold at depths 1 and 0 with a block ready behind
+the last and without, nothing kept without a trace, the spans on the
+Chrome trace's clock, the operator's counters, and the benchmark's
+readers of the new stages."""
 
 import ast
 import json
@@ -61,8 +62,17 @@ def test_main_thread_stages_fit_in_the_run():
     assert totals["sink"] <= totals["apply"]
 
 
-def test_each_block_has_its_spans_in_order_and_holds_the_next(spans):
-    run_stream(iter(_blocks()), lambda p: None, device="cpu", pipeline_depth=1)
+def _source_ready(monkeypatch, ready: bool) -> None:
+    """The Prefetcher's look at its queue forced to `ready`."""
+    monkeypatch.setattr(Prefetcher, "ready", lambda self: ready)
+
+
+def test_each_block_has_its_spans_in_order_and_holds_the_next(spans, monkeypatch):
+    """With a block always ready behind the last, depth 1 holds block k
+    over block k+1's carry and dispatch, and nothing is fetched early."""
+    _source_ready(monkeypatch, True)
+    stats = run_stream(iter(_blocks()), lambda p: None, device="cpu", pipeline_depth=1)
+    assert stats.early_fetches == 0
     blocks = _by_block(spans)
     assert sorted(blocks) == list(range(N_BLOCKS))
     for seq, named in blocks.items():
@@ -77,6 +87,52 @@ def test_each_block_has_its_spans_in_order_and_holds_the_next(spans):
             nxt = blocks[seq + 1]
             hold_start, hold_end = named["hold"][0][:2]
             assert hold_start <= nxt["carry"][0][0] and nxt["dispatch"][0][1] <= hold_end
+
+
+def test_no_block_ready_ends_the_hold_before_the_next_block(spans, monkeypatch):
+    """With no block ready behind the last, depth 1 fetches each block right
+    after its own dispatch, before the next block is received. (The carry
+    is the window's 239 samples at the stream's end, so no tail flush.)"""
+    _source_ready(monkeypatch, False)
+    stats = run_stream(iter(_blocks()), lambda p: None, device="cpu", pipeline_depth=1)
+    assert stats.early_fetches == stats.fetches == N_BLOCKS
+    blocks = _by_block(spans)
+    assert sorted(blocks) == list(range(N_BLOCKS))
+    for seq in range(N_BLOCKS - 1):
+        named, nxt = blocks[seq], blocks[seq + 1]
+        assert all(len(named[k]) == 1 for k in BLOCK_ORDER), (seq, named.keys())
+        hold_start, hold_end = named["hold"][0][:2]
+        assert named["dispatch"][0][1] <= hold_start <= hold_end <= named["fetch"][0][0]
+        assert named["apply"][0][1] <= nxt["handoff"][0][1] <= nxt["carry"][0][0]
+
+
+def test_a_short_read_with_no_block_ready_ends_the_hold(spans, monkeypatch):
+    """A read too short to scan, with no block ready behind it, fetches the
+    block held in flight before the next read is received."""
+    answers = iter([True, False, False])  # after block 0, the short read, block 2
+    monkeypatch.setattr(Prefetcher, "ready", lambda self: next(answers))
+    iq = _blocks()[0]
+    got = []
+    stats = run_stream(iter([iq[:5000], iq[5000:5100], iq[5100:]]), got.append, device="cpu", pipeline_depth=1)
+    assert stats.early_fetches == stats.fetches == 2 and len(got) == 1
+    blocks = _by_block(spans)
+    assert "dispatch" not in blocks[1]
+    assert blocks[1]["carry"][0][1] <= blocks[0]["fetch"][0][0]
+    assert blocks[0]["apply"][0][1] <= blocks[2]["handoff"][0][1]
+
+
+def test_a_paced_source_is_fetched_without_a_hold(spans):
+    """A source that sleeps between blocks, as a live receiver waits for
+    its samples: each block is fetched as soon as it is decoded."""
+    def paced():
+        for block in _blocks()[:4]:
+            yield block
+            time.sleep(0.25)
+
+    stats = run_stream(paced(), lambda p: None, device="cpu", pipeline_depth=1)
+    holds = [end - start for name, _, start, end, _, _ in spans.spans if name == "hold"]
+    assert len(holds) == stats.stages.counts["hold"] == stats.fetches == 4
+    assert statistics.median(holds) < 5e-3 and stats.early_fetches >= 3
 
 
 def test_hold_is_about_zero_at_depth_zero(spans):
@@ -178,6 +234,33 @@ def test_prefetcher_counts_its_backlog():
     assert waiting.backlog_max == 0
 
 
+def test_prefetcher_ready_looks_at_its_queue():
+    """False before the source yields; true once a block or the stream's end
+    is queued; looking takes nothing."""
+    go = threading.Event()
+    block = np.zeros((10, 2), np.int16)
+
+    def gated():
+        go.wait()
+        yield block
+
+    def wait_ready(p):
+        deadline = time.perf_counter() + 10.0
+        while not p.ready() and time.perf_counter() < deadline:
+            time.sleep(0.001)
+        return p.ready()
+
+    p = Prefetcher(gated(), depth=4)
+    time.sleep(0.05)
+    assert not p.ready()
+    go.set()
+    assert wait_ready(p) and p.ready()
+    items = iter(p)
+    assert next(items) is block
+    assert wait_ready(p)  # the end marker, queued behind the block
+    assert list(items) == [] and not p.ready()
+
+
 def test_broadcast_counts_what_a_lagging_client_lost():
     cast = _Broadcast(depth=1)
     _, q = cast.subscribe()
@@ -189,15 +272,15 @@ def test_broadcast_counts_what_a_lagging_client_lost():
     display = WebDisplay(quiet=True)
     display.broadcast = cast
     line = cli._stats_line(StreamStats(), display)
-    assert list(line)[-3:] == ["backlog_max", "summaries_sent", "summaries_dropped"]
+    assert list(line)[-4:] == ["backlog_max", "early_fetches", "summaries_sent", "summaries_dropped"]
     assert (line["summaries_sent"], line["summaries_dropped"]) == (3, 2)
 
 
 def test_cli_line_carries_the_operators_counters(capsys):
     assert cli.main(["adsb", "--synthetic", "2", "--torch-device", "cpu"]) == 0
     line = ast.literal_eval(capsys.readouterr().out.rsplit("\nstats: ", 1)[1])
-    assert list(line)[:2] == ["blocks", "samples"] and list(line)[-2:] == ["stages", "backlog_max"]
-    assert line["blocks"] == 2 and line["backlog_max"] in (0, 1)
+    assert list(line)[:2] == ["blocks", "samples"] and list(line)[-3:] == ["stages", "backlog_max", "early_fetches"]
+    assert line["blocks"] == 2 and line["backlog_max"] in (0, 1) and 0 <= line["early_fetches"] <= 3
 
 
 def _view(stages: dict, blocks: int = 4):
