@@ -23,6 +23,13 @@ block j due at the window's open plus j blocks of the receiver's sample
 rate, sleeps until then, and ends the window when the next block would
 be due after its seconds. The window closes when the runner returns, every block it
 was handed decoded and applied.
+
+The latency (open drives) runs from the due time of a message's block to
+the return of the sink call that received it, the drive's late wake-up
+included. The drive stamps each block's hand-over, just before it yields
+the block: `drive_late_ms` reads how late it ran, and the log line gives
+the share of blocks the program was behind at (`behind_at_due`), so a
+reader can tell a late drive from a program that fell behind.
 """
 
 from __future__ import annotations
@@ -111,6 +118,8 @@ class Drive:
         self.pace_hz, self.seconds = pace_hz, seconds
         self.ready, self.on_open, self.on_close = ready, on_open, on_close
         self.due: list[float] = []
+        self.released: list[float] = []  # each window block's hand-over
+        self.slept: list[bool] = []  # whether the drive slept until the block was due
         self.waits: list[tuple[float, float]] = []
         self.t0 = None
 
@@ -142,10 +151,29 @@ class Drive:
                     time.sleep(due - now)
                     self.waits.append((now, time.perf_counter()))
             self.due.append(due)
+            self.slept.append(due > now)
+            self.released.append(time.perf_counter())
             yield self._block(k)
             k += 1
             j += 1
         self.on_close()
+
+
+def behind_at_due(due, slept, message_blocks, message_ends) -> np.ndarray:
+    """Whether the program was behind at each window block's due time: the
+    drive did not sleep until the block was due, or a message of a block
+    before it returned from the sink after that time. `message_blocks` are
+    the messages' window blocks (below 0 for the warm-up's), `message_ends`
+    their sink calls' returns."""
+    due = np.asarray(due, np.float64)
+    n = len(due)
+    # done[j]: the last return of a message of the blocks before j.
+    done = np.full(n, -np.inf)
+    after = np.asarray(message_blocks, np.int64) + 1
+    keep = after < n
+    np.maximum.at(done, np.maximum(after[keep], 0), np.asarray(message_ends, np.float64)[keep])
+    done = np.maximum.accumulate(done)
+    return ~np.asarray(slept, bool) | (done > due)
 
 
 @dataclasses.dataclass
@@ -164,6 +192,7 @@ class RunView:
     extended: bool
     fields: bool
     trace: dict | None
+    drive_late_s: np.ndarray | None = None  # each window block's hand-over less its due time (open drives)
 
 
 def host_clocks() -> dict:
@@ -297,15 +326,23 @@ def run_cell(bench: Bench, cell_name: str, seed: int, seconds: float, traced: bo
     del iq_dev
     numbers, facts = program.check(recorder, loop, len(sky.iq), n_stream, program_table, set(sky.aircraft))
 
-    latencies = None
+    latencies = drive_late = None
+    open_log = ""
     if pace_hz is not None:
         j = facts["message_blocks"] - program.warm_blocks
+        ends = facts["message_ends"]
         timed = (j >= 0) & (j < n_blocks)
-        latencies = facts["message_ends"][timed] - np.asarray(drive.due)[j[timed]]
+        latencies = ends[timed] - np.asarray(drive.due)[j[timed]]
+        drive_late = np.asarray(drive.released) - np.asarray(drive.due)
+        if n_blocks:
+            behind = behind_at_due(drive.due, drive.slept, j, ends)
+            open_log = (f"; drive late median {1e3 * np.median(drive_late):.6f} ms, p95 "
+                        f"{1e3 * np.percentile(drive_late, 95):.6f} ms; blocks behind at due "
+                        f"{int(behind.sum())} of {n_blocks}, share {behind.mean():.6f}")
 
     view = RunView(
         setup_s=drive.t0 - t_start, window_s=window_s, samples=n_blocks * block, blocks=n_blocks,
-        stages=stages, latencies_s=latencies, detections_a_block=detections_a_block,
+        stages=stages, latencies_s=latencies, drive_late_s=drive_late, detections_a_block=detections_a_block,
         block_shape=program.block_shape, extended=bool(decode["extended"]),
         fields=bool(config["sink"]["batched"]), trace=summary,
     )
@@ -328,7 +365,7 @@ def run_cell(bench: Bench, cell_name: str, seed: int, seconds: float, traced: bo
            f"block calls {len(recorder.blocks)}, stages {stages}; collector pauses in the window "
            f"{n_gc}, {gc_s:.6f} s, longest {gc_max:.6f} s; window {window_s:.6f} s, CPU {d['cpu_s']:.6f} s, "
            f"main thread {d['main_cpu_s']:.6f} s, involuntary switches {d['nivcsw']}, "
-           f"host steal {d['steal'] / max(d['jiffies'], 1):.6f}"]
+           f"host steal {d['steal'] / max(d['jiffies'], 1):.6f}{open_log}"]
     result = result_line(numbers, facts, metrics, dev, summary)
     result["log"] = log
     return result

@@ -1,4 +1,6 @@
-"""latency_p95_ms: the 95th percentile of latency_p50_ms's latencies."""
+"""latency_p95_ms (latency_p95_ms.live): the 95th percentile of
+latency_p50_ms's latencies, a per-layer tail with no bound (the host's
+pace spreads it wider from run to run than any bound may be)."""
 
 import numpy as np
 
