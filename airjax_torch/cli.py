@@ -45,8 +45,9 @@ writes a torch.profiler trace of the run (the card's kernels included) to
 DIR, with the runner's stage spans of every block on tracks of their own.
 Each mode logs its final stats on the `airjax_torch` logger
 (observability.log_stats): airjax's keys, then `backlog_max`,
-`early_fetches` and, in web mode, `summaries_sent` and
-`summaries_dropped` (`_stats_line`).
+`early_fetches`, in web mode `summaries_sent` and `summaries_dropped`,
+and with `--batched --extended` the tracker's `batched_blocks` and
+`fallback_rows` (`_stats_line`).
 """
 
 from __future__ import annotations
@@ -164,17 +165,21 @@ def _source(args):
     return source
 
 
-def _stats_line(stats, display=None) -> dict:
+def _stats_line(stats, display=None, tracker=None) -> dict:
     """The final stats: airjax's (StreamStats.as_dict), then the operator's
     counters: `backlog_max`, the most blocks the source had ready and the
     runner not yet taken (above 0, the receiver fell behind),
     `early_fetches`, the decodes fetched without waiting for the next block
-    because the source had none ready, and for the web map
-    `summaries_sent` and `summaries_dropped` (updates a lagging client
-    lost)."""
+    because the source had none ready, for the web map `summaries_sent`
+    and `summaries_dropped` (updates a lagging client lost), and for a
+    batched extended sink (`tracker`, an ExtendedBatchTracker)
+    `batched_blocks`, the blocks it applied, and `fallback_rows`, the rows
+    of them that took the per-packet path."""
     line = {**stats.as_dict(), "backlog_max": stats.backlog_max, "early_fetches": stats.early_fetches}
     if display is not None:
         line.update(summaries_sent=display.broadcast.sent, summaries_dropped=display.broadcast.dropped)
+    if tracker is not None:
+        line.update(batched_blocks=tracker.blocks, fallback_rows=tracker.fallback_rows)
     return line
 
 
@@ -264,6 +269,7 @@ def _cmd_adsb_inner(args) -> int:
         if restored:
             app.aircrafts.update(restored)
         sink = app.batched_sink(extended=args.extended) if args.batched else app.on_packet
+        tracker = sink.tracker if args.batched and args.extended else None
         stop = threading.Event()
 
         def until_stopped(blocks):
@@ -286,7 +292,7 @@ def _cmd_adsb_inner(args) -> int:
         decode_thread.join()
         with app._lock:
             _save_state(app.aircrafts)
-        observability.log_stats("adsb_interactive_done", _stats_line(tui_stats))
+        observability.log_stats("adsb_interactive_done", _stats_line(tui_stats, tracker=tracker))
         return 0
     else:  # web
         from airjax_torch.ui.web import WebDisplay
@@ -299,9 +305,10 @@ def _cmd_adsb_inner(args) -> int:
         if restored:
             display.aircrafts.update(restored)
         sink = display.batched_sink(extended=args.extended) if args.batched else display.on_packet
+        tracker = sink.tracker if args.batched and args.extended else None
         try:
             stats = _run(source, sink)
-            observability.log_stats("adsb_web_done", _stats_line(stats, display))
+            observability.log_stats("adsb_web_done", _stats_line(stats, display, tracker))
             print("source exhausted; web server still running (Ctrl-C to quit)")
             while True:
                 time.sleep(1)

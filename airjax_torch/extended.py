@@ -12,9 +12,10 @@ Turns the candidate dict of `airjax_torch.pipeline.decode_iq_block_extended`
   pass 2: AP-addressed DF0/4/5/16/20/21/24 candidates accepted only when
   their parity-recovered ICAO is in the cache (airjax_torch.track.icao_cache).
 
-The rest serves the batched tracker (airjax_torch.track.batch):
-`split_ap_candidates`, the Comm-D ELM reassembly (`assemble_elm`,
-`interpret_elm`) and `handle_extended_update`.
+The rest serves the batched tracker (airjax_torch.track.batch): the
+inline class codes, `ap_reply`, the Comm-D ELM reassembly
+(`assemble_elm`, `interpret_elm`) and `handle_extended_update`; and
+`split_ap_candidates`, airjax's batched pass 2, carried over.
 """
 
 from __future__ import annotations
@@ -228,68 +229,58 @@ def assemble_ap_candidates(
             }
         else:
             fields = _short_fields_host(raw[:7])
-        d = int(df[k])
-        if d in (0, 16):  # ACAS air-air (altitude in the same AC13 slot)
-            ra = None
-            if d == 16:
-                from airjax_torch.protocol.acas import decode_mv_ra
-
-                ra = decode_mv_ra(raw[4:11])
-            results.append(
-                (
-                    off,
-                    AcasReply(
-                        df=d,
-                        icao=icao,
-                        vertical_status=fields["vs"],
-                        sensitivity_level=fields["sl"],
-                        reply_information=fields["ri"],
-                        altitude_ft=fields["altitude_ft"],
-                        time_processed=now,
-                        ra=ra,
-                    ),
-                )
-            )
-            continue
-        if d >= 24:  # Comm-D ELM segment (AP-addressed like DF20/21)
-            results.append(
-                (
-                    off,
-                    CommDReply(
-                        icao=icao,
-                        ke=(raw[0] >> 4) & 1,
-                        nd=raw[0] & 0xF,
-                        md=raw[1:11],
-                        time_processed=now,
-                        # The 5-bit field runs 24-31 (its low bits are
-                        # KE/ND); report the canonical format number.
-                        df=24,
-                    ),
-                )
-            )
-            continue
-        bds = None
-        if d in (20, 21):
-            from airjax_torch.protocol.commb import infer_bds
-
-            bds = infer_bds(raw[4:11]) or None
-        results.append(
-            (
-                off,
-                SurveillanceReply(
-                    df=d,
-                    icao=icao,
-                    flight_status=fields["fs"],
-                    altitude_ft=fields["altitude_ft"] if d in (4, 20) else None,
-                    squawk=fields["squawk"] if d in (5, 21) else None,
-                    time_processed=now,
-                    bds=bds,
-                ),
-            )
-        )
+        results.append((off, ap_reply(int(df[k]), raw, icao, fields, now)))
 
     results.sort(key=lambda t: t[0])
     return results
+
+
+def ap_reply(d: int, raw: bytes, icao: int, fields: dict, now: float) -> ExtendedPacket:
+    """The packet of one accepted AP-addressed candidate of downlink
+    format `d`: its raw frame bytes, its gated address and its short-frame
+    fields (fs, altitude_ft or None, squawk, vs, sl, ri). One site for
+    assemble_ap_candidates and the batched sink's complex rows."""
+    if d in (0, 16):  # ACAS air-air (altitude in the same AC13 slot)
+        ra = None
+        if d == 16:
+            from airjax_torch.protocol.acas import decode_mv_ra
+
+            ra = decode_mv_ra(raw[4:11])
+        return AcasReply(
+            df=d,
+            icao=icao,
+            vertical_status=fields["vs"],
+            sensitivity_level=fields["sl"],
+            reply_information=fields["ri"],
+            altitude_ft=fields["altitude_ft"],
+            time_processed=now,
+            ra=ra,
+        )
+    if d >= 24:  # Comm-D ELM segment (AP-addressed like DF20/21)
+        return CommDReply(
+            icao=icao,
+            ke=(raw[0] >> 4) & 1,
+            nd=raw[0] & 0xF,
+            md=raw[1:11],
+            time_processed=now,
+            # The 5-bit field runs 24-31 (its low bits are KE/ND); report
+            # the canonical format number.
+            df=24,
+        )
+    bds = None
+    if d in (20, 21):
+        from airjax_torch.protocol.commb import infer_bds
+
+        bds = infer_bds(raw[4:11]) or None
+    return SurveillanceReply(
+        df=d,
+        icao=icao,
+        flight_status=fields["fs"],
+        altitude_ft=fields["altitude_ft"] if d in (4, 20) else None,
+        squawk=fields["squawk"] if d in (5, 21) else None,
+        time_processed=now,
+        bds=bds,
+    )
 
 
 # Inline class codes for the batched extended walk
@@ -308,7 +299,8 @@ CLS_FALLBACK_PKT = 13  # pass-2 packet needing per-packet host decode
 def split_ap_candidates(
     out: dict, now: float, cache: IcaoCache, min_offset: int | None = None
 ) -> tuple[dict, list[tuple[int, ExtendedPacket]]]:
-    """Pass 2 for the batched sink: same ICAO-cache gating as
+    """Pass 2 for airjax's batched sink (the port's ExtendedBatchTracker
+    gates its candidates in its row pass instead): same ICAO-cache gating as
     assemble_ap_candidates, but kinds whose tracker update is pure field
     writes (DF4/DF5 surveillance, DF0 ACAS, interrogated DF11) come back
     as parallel numpy arrays instead of packet objects; only DF16 (MV RA

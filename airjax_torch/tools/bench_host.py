@@ -24,12 +24,22 @@ aircraft and the same geo fixes, or it fails.
 
 Prints one JSON line: messages, per_packet_msgs_per_s, batched_msgs_per_s,
 speedup, aircraft, with_geo, and the same with an `extended_` prefix.
+
+  python3 airjax_torch/tools/bench_host.py --sink [--blocks 300] [--gap-ms 0] [--torch-device cuda|cpu]
+
+times the web map's extended batched sink instead (`adsb -m web
+--extended --batched`) on a busy sky's 20,000-sample blocks, in ms a
+block: the whole call, and its parts one after another (selection,
+gating, walk, CPR, summaries), with decode_pairs alone. `--gap-ms`
+sleeps that long before each whole call, as a live stream leaves the
+host idle between blocks. Prints one JSON line.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import sys
 import time
 
@@ -145,13 +155,187 @@ def run_extended(M: int, *, device: torch.device | str = "cuda") -> dict:
     }
 
 
+# The busy sky of the web map's extended cell (adsbench/traffic/
+# busy.live.json): 300 aircraft, each frame kind's rate a second an
+# aircraft (squitters: ICAO Annex 10 Vol IV, DO-260B; replies as that file
+# assumes), ~18 frames a 10 ms block. A copy, not that file's generator,
+# and it differs from it so: every interval within +-20% (the file draws
+# identification within +-4%); no frame with bit errors added (the file
+# flips one data bit in 1% of DF17s and two in 1%, so recover2's repairs
+# never run here); one amplitude for every frame in place of the file's
+# link model (transmit power, slant range, antenna gains, line loss);
+# aircraft that hold their position and a velocity of up to 400 kt on
+# each axis in place of level flights at 200-250 m/s; noise at
+# synth.modulate's 60 a rail, as the file's.
+LIVE_AIRCRAFT = 300
+LIVE_RATES = (("position", 2.0), ("velocity", 2.0), ("id", 0.2), ("df11", 1.0),
+              ("df4", 0.5), ("df5", 0.2), ("df20", 0.2))
+LIVE_BLOCK = 20_000  # samples a block at 2.0 MS/s
+LIVE_OVERLAP = 240  # the overlap scan's tail
+
+
+def build_live_blocks(n_blocks: int, *, device: torch.device | str = "cuda", seed: int = 1) -> list[dict]:
+    """`n_blocks` 20,000-sample blocks of the busy sky (LIVE_RATES, each
+    interval within +-20%, over 50-54 N, 2-7 E) as the overlap scan cuts
+    them, each decoded with its fields on `device` at the stream's
+    capacity (256 slots, regrown as run_stream regrows) -> the host dicts
+    of decode_iq_block_extended_with_fields."""
+    from airjax_torch.pipeline import decode_iq_block_extended_with_fields, to_host
+    from airjax_torch.protocol import shortframe
+
+    rng = np.random.default_rng(seed)
+    n = n_blocks * LIVE_BLOCK + LIVE_OVERLAP
+    seconds = (n - 240) / 2e6
+    frames, offsets = [], []
+    for a, icao in enumerate(rng.choice((1 << 24) - 2, LIVE_AIRCRAFT, replace=False) + 1):
+        icao = int(icao)
+        lat, lon = rng.uniform(50.0, 54.0), rng.uniform(2.0, 7.0)
+        alt = 25 * int(rng.integers(400, 1520))
+        ew, ns = (int(v) for v in rng.integers(-400, 401, 2))
+        for kind, rate in LIVE_RATES:
+            t = rng.uniform(0.0, 1.0 / rate)
+            odd = False
+            while t < seconds:
+                if kind == "position":
+                    cpr_lat, cpr_lon = synth.encode_airborne_cpr(lat, lon, odd)
+                    frame = synth.make_df17(icao, synth.make_position_me(11, alt, cpr_lat, cpr_lon, odd))
+                    odd = not odd
+                elif kind == "velocity":
+                    frame = synth.make_df17(icao, synth.make_velocity_me(ew, ns, vertical_rate_fpm=64 * (a % 20 - 10)))
+                elif kind == "id":
+                    frame = synth.make_df17(icao, synth.make_id_me(f"LV{a:04d}"))
+                elif kind == "df11":
+                    frame = shortframe.make_df11(icao)
+                elif kind == "df4":
+                    frame = shortframe.make_df4(icao, alt)
+                elif kind == "df5":
+                    frame = shortframe.make_df5(icao, 1000 + a)
+                else:
+                    frame = shortframe.make_df20(icao, alt, mb=synth.make_id_me(f"LV{a:04d}"))
+                offsets.append(int(t * 2e6))
+                frames.append(frame)
+                t += rng.uniform(0.8, 1.2) / rate
+    iq = torch.as_tensor(synth.modulate(frames, offsets, n, amplitude=3000.0, seed=seed)).to(device)
+    blocks = []
+    for j in range(n_blocks):
+        chunk = iq[j * LIVE_BLOCK : (j + 1) * LIVE_BLOCK + LIVE_OVERLAP]
+        capacity = 256
+        out = to_host(decode_iq_block_extended_with_fields(chunk, LIVE_BLOCK, capacity))
+        while bool(out["overflow"]) and capacity < LIVE_BLOCK:
+            capacity = min(capacity * 4, LIVE_BLOCK)
+            out = to_host(decode_iq_block_extended_with_fields(chunk, LIVE_BLOCK, capacity))
+        blocks.append(out)
+    return blocks
+
+
+def time_sink_calls(blocks: list[dict], passes: int = 5, gap_s: float = 0.0) -> dict:
+    """WebDisplay(quiet=True, extended_schema=True).batched_sink(extended=True)
+    over `blocks` in turn (block j at 10 ms a block), each call after
+    `gap_s` seconds of sleep, a fresh display a pass -> the median ms a call
+    of the fastest pass, and the summaries the last
+    pass sent; decode_pairs' median µs a call on the pairs of
+    synth.encode_airborne_cpr over 3 and over 12 aircraft."""
+    from airjax_torch.track.cpr_batch import decode_pairs
+    from airjax_torch.track.icao_cache import IcaoCache
+    from airjax_torch.ui.web import WebDisplay
+
+    best = None
+    for _ in range(passes):
+        display = WebDisplay(quiet=True, extended_schema=True)
+        sink = display.batched_sink(extended=True)
+        cache = IcaoCache()
+        spent = []
+        for j, out in enumerate(blocks):
+            if gap_s:
+                time.sleep(gap_s)
+            t0 = time.perf_counter()
+            sink.on_extended_block(out, 1000.0 + 0.01 * j, cache)
+            spent.append(time.perf_counter() - t0)
+        med = statistics.median(spent) * 1e3
+        best = med if best is None else min(best, med)
+    result = {"sink_ms": best, "summaries_sent": display.broadcast.sent}
+    for n in (3, 12):
+        pairs = [synth.encode_airborne_cpr(52.0 + i / 10, 4.0 + i / 10, odd) for i in range(n) for odd in (False, True)]
+        e_lat, e_lon = zip(*pairs[0::2])
+        o_lat, o_lon = zip(*pairs[1::2])
+        newest = [i % 2 == 0 for i in range(n)]
+        spent = []
+        for _ in range(200):
+            t0 = time.perf_counter()
+            decode_pairs(e_lat, e_lon, o_lat, o_lon, newest)
+            spent.append(time.perf_counter() - t0)
+        result[f"decode_pairs_us_{n}"] = statistics.median(spent) * 1e6
+    return result
+
+
+def time_sink_parts(blocks: list[dict], passes: int = 5) -> dict:
+    """The same sink's call cut into its parts, run one after another on
+    the display's own tracker as on_extended_block runs them: selection
+    (track.batch.select_rows), gating (_gate), the walk (_walk_block), CPR
+    (_resolve_pairs), the summaries (the display's on_applied) -> each
+    part's median ms a block in the pass whose parts sum least; rows and
+    messages a block (medians), and the share of blocks holding a row of
+    the per-packet path."""
+    from airjax_torch.track.batch import select_rows
+    from airjax_torch.track.icao_cache import IcaoCache
+    from airjax_torch.ui.web import WebDisplay
+
+    names = ("select", "gate", "walk", "cpr", "summaries")
+    best = None
+    for _ in range(passes):
+        display = WebDisplay(quiet=True, extended_schema=True)
+        tracker = display.batched_sink(extended=True).tracker
+        cache = IcaoCache()
+        parts = {name: [] for name in names}
+        rows, applied, with_fallback = [], [], 0
+        for j, out in enumerate(blocks):
+            now = 1000.0 + 0.01 * j
+            t0 = time.perf_counter()
+            sel = select_rows(out)
+            t1 = time.perf_counter()
+            kept, addr, kind = tracker._gate(out, sel, now, cache, None)
+            t2 = time.perf_counter()
+            pair_jobs, touched = [], set()
+            n, fallbacks = tracker._walk_block(out, kept, addr, kind, now, pair_jobs, touched)
+            t3 = time.perf_counter()
+            tracker._resolve_pairs(pair_jobs)
+            t4 = time.perf_counter()
+            if n:
+                tracker.on_applied(touched)
+            t5 = time.perf_counter()
+            for name, dt in zip(names, (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4)):
+                parts[name].append(dt)
+            rows.append(len(sel))
+            applied.append(n)
+            with_fallback += fallbacks > 0
+        meds = {f"{name}_ms": statistics.median(v) * 1e3 for name, v in parts.items()}
+        if best is None or sum(meds.values()) < sum(best.values()):
+            best = meds
+    return {**best, "rows_a_block": statistics.median(rows), "messages_a_block": statistics.median(applied),
+            "blocks_with_fallback": with_fallback / len(blocks)}
+
+
+def run_sink(n_blocks: int, *, device: torch.device | str = "cuda", gap_ms: float = 0.0) -> dict:
+    """The --sink line: the live sink's call and its parts."""
+    blocks = build_live_blocks(n_blocks, device=device)
+    return {"blocks": n_blocks, "gap_ms": gap_ms, **time_sink_calls(blocks, gap_s=gap_ms / 1e3),
+            **time_sink_parts(blocks)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--messages", type=int, default=200_000)
     ap.add_argument("--torch-device", choices=["cuda", "cpu"], default="cuda",
                     help="where the extended block is decoded: cuda (default; fails without a card) or the CPU")
+    ap.add_argument("--sink", action="store_true",
+                    help="time the web map's extended batched sink in parts instead (see the module's docstring)")
+    ap.add_argument("--blocks", type=int, default=300, help="--sink: busy-sky blocks to time")
+    ap.add_argument("--gap-ms", type=float, default=0.0, help="--sink: ms of sleep before each whole call")
     args = ap.parse_args(argv)
     device = check_device(args.torch_device)
+    if args.sink:
+        print(json.dumps(run_sink(args.blocks, device=device, gap_ms=args.gap_ms)))
+        return 0
     M = args.messages
 
     arr = build_stream(M)

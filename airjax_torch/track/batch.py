@@ -11,15 +11,19 @@ work shrinks to a few dict and attribute operations, and all CPR pair
 decodes of a block run through the vectorized
 airjax_torch.track.cpr_batch at once.
 
-Blocks are reduced to merged per-message COLUMNS in ascending offset
-order; in extended mode they unify the pass-1 validated frames with the
-cache-gated pass-2 candidates, where the simple kinds (DF11 all-calls,
-DF4/DF5 surveillance, DF0 ACAS) are inline class codes instead of packet
-objects. Fallback-free blocks (the common case) apply through `_vapply`,
-a vectorized last-write-wins reduction whose host cost scales with
-aircraft rather than messages; blocks holding complex kinds (DF16 MV-RA,
-DF20/21 Comm-B, non-batched MEs) take the ordered zip walk (`_walk`)
-with the per-packet path interleaved at each fallback's offset position.
+An extended block takes one row pass (ExtendedBatchTracker): its rows
+selected once in ascending offset order (`select_rows`: the pass-1
+validated frames and the cache-gated pass-2 candidates, one nonzero),
+the ICAO cache seeded and asked once an address (`_gate`), then each row
+classed and applied in order (`_walk`): the simple kinds (DF11
+all-calls, DF4/DF5 surveillance, DF0 ACAS) and the dominant ADS-B
+classes as inline class codes, the complex kinds (DF16 MV-RA, DF20/21
+Comm-B, non-batched MEs) through the per-packet path at their row, and
+the block's CPR pairs in one vectorized decode. A block's cost is a few
+dozen numpy calls and one Python step a row, a whole capture's
+(multihost's) included. DF17 blocks (`BatchTracker.on_fields`) take
+`_vapply`, a vectorized last-write-wins reduction whose host cost scales
+with aircraft rather than messages.
 
 Semantics are EXACTLY the per-packet tracker's (parity scope: the DF17
 pipeline's AircraftID / AircraftPosition / Unknown classes,
@@ -51,12 +55,12 @@ from airjax_torch.track.cpr import GeographicPosition
 
 from airjax_torch.protocol.packet import DF18_ADSB_CF, DF19_ADSB_AF
 
-# Subformat (3-bit CF/AF field) -> "ME is ADS-B-shaped" lookup tables:
-# ~3x faster than np.isin on the small per-block subsets.
-_DF18_CF_LUT = np.zeros(8, bool)
-_DF18_CF_LUT[list(DF18_ADSB_CF)] = True
-_DF19_AF_LUT = np.zeros(8, bool)
-_DF19_AF_LUT[list(DF19_ADSB_AF)] = True
+# (df, subformat) -> "the ME is ADS-B-shaped": DF17, DF18 with an ADS-B CF
+# and DF19 with an ADS-B AF (the 5-bit DF and the 3-bit CF/AF field).
+_ADSB_ME = np.zeros((32, 8), bool)
+_ADSB_ME[17] = True
+_ADSB_ME[18, list(DF18_ADSB_CF)] = True
+_ADSB_ME[19, list(DF19_ADSB_AF)] = True
 
 # Names of the 13 hot per-message columns the ordered walk zips over (the
 # rare columns — callsign codes, surveillance alt-valid/squawk/VS,
@@ -70,6 +74,50 @@ _VEL_KEYS = (
     ("vrs", "vel_vr_sign"),
     ("vrv", "vel_vr_val"),
 )
+
+# A row's kind (ExtendedBatchTracker._gate): 0 a pass-1 long frame, 1 a
+# DF11 all-call, 2 a short AP reply (DF0/4/5), 3 a long AP reply
+# (DF16/20/21/24). The row pass walks the fields of _ROW_WALK_KEYS (the 13
+# values `_walk` unpacks, class, address and altitude set by kind) and,
+# for short AP replies, those of _ROW_SHORT_KEYS.
+_ROW_WALK_KEYS = (
+    "msg_class_ext", "icao", "altitude_ft", "cpr_odd", "cpr_lat", "cpr_lon",
+) + tuple(key for _, key in _VEL_KEYS)
+_ROW_SHORT_KEYS = ("altitude_ft", "altitude_valid", "squawk", "vs")
+
+
+def _kind_classes() -> np.ndarray:
+    """(kind, df of the raw frame) -> the walk's class of a row that is
+    not an inline ADS-B row: a DF11 all-call; DF4, DF5 or (DF0) ACAS for a
+    short AP reply; the per-packet path otherwise."""
+    from airjax_torch.extended import CLS_ACAS, CLS_ALLCALL, CLS_FALLBACK_LONG, CLS_SURV_ALT, CLS_SURV_SQK
+
+    table = np.full((4, 32), CLS_FALLBACK_LONG, np.int64)
+    table[1] = CLS_ALLCALL
+    table[2] = CLS_ACAS
+    table[2, 4], table[2, 5] = CLS_SURV_ALT, CLS_SURV_SQK
+    return table
+
+
+_KIND_CLASSES = _kind_classes()
+# The AA's three raw bytes (frame bytes 1-3) -> the address.
+_AA_WEIGHTS = np.array([1 << 16, 1 << 8, 1], np.int64)
+
+
+def select_rows(out: dict) -> np.ndarray:
+    """The row pass's selection of an extended block: one union mask of
+    pass 1 (`good_long`, recover2's repairs among them, and `good_df11`)
+    and the AP and interrogated DF11 candidates, one nonzero -> the slots
+    in ascending offset order (a stable sort; the block decode and
+    multihost's gather already hand them so)."""
+    sel = np.nonzero(
+        np.asarray(out["good_long"])
+        | np.asarray(out["good_df11"])
+        | np.asarray(out["cand_df11_ic"])
+        | np.asarray(out["cand_short_ap"])
+        | np.asarray(out["cand_long_ap"])
+    )[0]
+    return sel[np.argsort(np.asarray(out["offsets"])[sel], kind="stable")]
 
 
 class CprStash(typing.NamedTuple):
@@ -139,7 +187,7 @@ class BatchTracker:
             return np.asarray(fields[key])[idx]
 
         # Parity classing never produces velocity / surveillance codes,
-        # so those columns stay None (their masks never select them).
+        # so _vapply reads no column of theirs.
         C = {
             "cls": take("msg_class"),
             "icao": take("icao"),
@@ -168,19 +216,11 @@ class BatchTracker:
         host work scales with *aircraft*, not messages. CPR pairing — the
         one genuinely order-dependent part — is reproduced exactly with a
         segmented previous-opposite-parity scan (see inline comments).
-        State equivalence with the ordered walk / per-packet path is
-        fuzzed in tests/test_torch_track.py.
+        State equivalence with the per-packet path is fuzzed in
+        tests/test_torch_track.py.
 
-        `C` holds numpy columns: cls, icao, alt, odd, clat, clon always;
-        altv/sqk/vs and the 7 velocity columns only when an extended
-        merge produced them (None ⇒ their classes cannot occur)."""
-        from airjax_torch.extended import (
-            CLS_ACAS,
-            CLS_ALLCALL,
-            CLS_SURV_ALT,
-            CLS_SURV_SQK,
-        )
-
+        `C` holds the numpy columns cls, icao, alt, odd, clat, clon of a
+        parity-classed block (IDs, positions and Unknown)."""
         cls = C["cls"]
         icao = C["icao"]
         aircrafts = self.aircrafts
@@ -195,8 +235,6 @@ class BatchTracker:
                 aircrafts[ic] = Aircraft(ic)
 
         is_pos = cls == MSG_AIRCRAFT_POSITION
-        is_vel = cls == MSG_AIRCRAFT_VELOCITY
-        extended = C.get("vst") is not None
 
         # --- CPR pairing (BEFORE stash updates: partner-less positions
         # must see the pre-block stashes, exactly like the walk) ---
@@ -289,34 +327,15 @@ class BatchTracker:
                 a.last_odd_packet = CprStash(*st)
                 a.last_odd_processed = now
 
-        # --- last_contact: every class except AircraftID / Unknown ---
-        lc = is_pos | is_vel
-        if extended:
-            lc |= cls >= CLS_ALLCALL
-        for ic in set(icao[lc].tolist()):
-            aircrafts[ic].last_contact = now
-
-        # --- altitude: positions always; DF4 / DF0 when AC13 decoded ---
-        aw = is_pos
-        if extended:
-            aw = aw | (
-                ((cls == CLS_SURV_ALT) | (cls == CLS_ACAS))
-                & C["altv"]
-            )
-        alt = C["alt"]
-        for ic, v in dict(zip(icao[aw].tolist(), alt[aw].tolist())).items():
+        # --- last_contact, altitude, on_ground: positions (IDs and
+        # Unknown leave them) ---
+        pos_icao = icao[is_pos].tolist()
+        for ic in set(pos_icao):
+            a = aircrafts[ic]
+            a.last_contact = now
+            a.on_ground = False
+        for ic, v in dict(zip(pos_icao, C["alt"][is_pos].tolist())).items():
             aircrafts[ic].altitude = v
-
-        # --- on_ground: positions clear it; DF0 ACAS sets VS ---
-        og = is_pos
-        if extended:
-            acas = cls == CLS_ACAS
-            og = og | acas
-            og_val = acas & (C["vs"] != 0)
-        else:
-            og_val = np.zeros(len(cls), bool)
-        for ic, v in dict(zip(icao[og].tolist(), og_val[og].tolist())).items():
-            aircrafts[ic].on_ground = v
 
         # --- callsign (ID frames; decode only each aircraft's last) ---
         iw = np.nonzero(cls == MSG_AIRCRAFT_ID)[0]
@@ -324,61 +343,9 @@ class BatchTracker:
             for ic, i in dict(zip(icao[iw].tolist(), iw.tolist())).items():
                 aircrafts[ic].callsign = bytes(codes[i]).decode("ascii")
 
-        if extended:
-            # --- squawk (DF5) ---
-            qw = cls == CLS_SURV_SQK
-            if np.any(qw):
-                sqk = C["sqk"]
-                for ic, v in dict(
-                    zip(icao[qw].tolist(), sqk[qw].tolist())
-                ).items():
-                    aircrafts[ic].squawk = v
-
-        if extended and np.any(is_vel):
-            # --- TC19 velocity: same integer->float math as the walk,
-            # vectorized (numpy hypot/arctan2 vs math.* agree to ~1 ulp;
-            # the equivalence fuzz compares at 1e-9 abs) ---
-            vst = C["vst"]
-            vw = (
-                is_vel
-                & ((vst == 1) | (vst == 2))
-                & (C["vva"] != 0)
-                & (C["vvb"] != 0)
-            )
-            if np.any(vw):
-                scale = np.where(vst[vw] == 2, 4, 1)
-                vx = (
-                    (C["vva"][vw] - 1)
-                    * scale
-                    * np.where(C["vsa"][vw] != 0, -1, 1)
-                )
-                vy = (
-                    (C["vvb"][vw] - 1)
-                    * scale
-                    * np.where(C["vsb"][vw] != 0, -1, 1)
-                )
-                gs = np.hypot(vx, vy)
-                trk = np.degrees(np.arctan2(vx, vy)) % 360.0
-                for ic, gt in dict(
-                    zip(icao[vw].tolist(), zip(gs.tolist(), trk.tolist()))
-                ).items():
-                    a = aircrafts[ic]
-                    a.ground_speed_kt = gt[0]
-                    a.track_deg = gt[1]
-            vrv = C["vrv"]
-            rw = is_vel & (vrv != 0)
-            if np.any(rw):
-                vr = (vrv[rw] - 1) * 64 * np.where(
-                    C["vrs"][rw] != 0, -1, 1
-                )
-                for ic, v in dict(
-                    zip(icao[rw].tolist(), vr.tolist())
-                ).items():
-                    aircrafts[ic].vertical_rate_fpm = v
-
     def _walk(
         self,
-        zcols: tuple,
+        rows,
         codes,
         altv,
         sqk,
@@ -388,21 +355,26 @@ class BatchTracker:
         pair_jobs: list,
         touched: Optional[set],
         pending_icaos: Optional[set] = None,
-    ) -> None:
-        """Apply one block's messages in stream order from parallel
-        columns. `zcols` is the 13-tuple of hot per-message lists
-        (cls, icao, alt, odd, clat, clon, 7 velocity ints); `codes` is the
-        (n, 8) uint8 callsign array; `altv`/`sqk`/`vsl` the surveillance
-        alt-valid / squawk / vertical-status lists and `fb_payload` a
-        {position: packet} dict — all rare, indexed only when their class
-        code comes up (None where a path can't produce that class).
+    ) -> int:
+        """Apply one block's messages in stream order; returns how many.
+        `rows` yields each message's 13 hot values (cls, icao, alt, odd,
+        clat, clon, 7 velocity ints); `codes` maps a message's position to
+        its 8 callsign codes, `altv`/`sqk`/`vsl` to its surveillance
+        alt-valid / squawk / vertical status and `fb_payload` to its
+        packet — all rare, indexed only when their class code comes up.
 
         Position pair decodes are APPENDED to pair_jobs, not resolved —
         the caller batches them through one vectorized decode_pairs call
         (_resolve_pairs): its fixed cost per call outweighs 1-2 pairs.
         A fallback packet that can itself write geo_position forces the
         pending pairs of its ICAO to resolve first (strict offset order
-        for position fixes)."""
+        for position fixes).
+
+        Ground speed and track take airjax's float expression for the
+        block: math.* at the row once the block has met a fallback row
+        (airjax's walk), one numpy expression over the block's ground
+        velocities when it meets none (airjax's `_vapply`). Until the first
+        fallback they wait in `ground`; nothing between writes them."""
         from airjax_torch.extended import (
             CLS_ACAS,
             CLS_ALLCALL,
@@ -412,10 +384,15 @@ class BatchTracker:
         )
 
         aircrafts = self.aircrafts
-        for i, (cls, icao, alt, odd, clat, clon, vst, vsa, vva, vsb, vvb, vrs, vrv) in enumerate(
-            zip(*zcols)
-        ):
+        ground: Optional[list] = []  # None once a fallback row was met
+        i = -1
+        for i, (cls, icao, alt, odd, clat, clon, vst, vsa, vva, vsb, vvb, vrs, vrv) in enumerate(rows):
             if cls >= CLS_FALLBACK_LONG:
+                if ground:
+                    for a, vx, vy in ground:
+                        a.ground_speed_kt = math.hypot(vx, vy)
+                        a.track_deg = math.degrees(math.atan2(vx, vy)) % 360.0
+                ground = None
                 self._apply_fallback(
                     fb_payload[i], now, pair_jobs, pending_icaos, touched
                 )
@@ -458,8 +435,11 @@ class BatchTracker:
                     scale = 4 if vst == 2 else 1
                     vx = (vva - 1) * scale * (-1 if vsa else 1)
                     vy = (vvb - 1) * scale * (-1 if vsb else 1)
-                    a.ground_speed_kt = math.hypot(vx, vy)
-                    a.track_deg = math.degrees(math.atan2(vx, vy)) % 360.0
+                    if ground is None:
+                        a.ground_speed_kt = math.hypot(vx, vy)
+                        a.track_deg = math.degrees(math.atan2(vx, vy)) % 360.0
+                    else:
+                        ground.append((a, vx, vy))
                 if vrv != 0:
                     a.vertical_rate_fpm = (vrv - 1) * 64 * (-1 if vrs else 1)
             elif cls == MSG_AIRCRAFT_ID:
@@ -479,6 +459,15 @@ class BatchTracker:
                     a.altitude = alt
                 a.on_ground = bool(vsl[i])
             # MSG_UNKNOWN: upsert only (src/adsb/aircraft.rs:107-109).
+        if ground:
+            vx = np.array([g[1] for g in ground], np.int64)
+            vy = np.array([g[2] for g in ground], np.int64)
+            gs = np.hypot(vx, vy)
+            trk = np.degrees(np.arctan2(vx, vy)) % 360.0
+            for (a, _, _), g, t in zip(ground, gs.tolist(), trk.tolist()):
+                a.ground_speed_kt = g
+                a.track_deg = t
+        return i + 1
 
     def _apply_fallback(
         self,
@@ -525,17 +514,12 @@ class BatchTracker:
             return
         from airjax_torch.track.cpr_batch import decode_pairs
 
-        arr = np.asarray([j[:4] for j in pair_jobs], dtype=np.int64)
-        newest = np.asarray([j[4] for j in pair_jobs], dtype=bool)
-        lat, lon, valid = decode_pairs(
-            arr[:, 0], arr[:, 1], arr[:, 2], arr[:, 3], newest
-        )
+        e_lat, e_lon, o_lat, o_lon, newest, icaos = zip(*pair_jobs)
+        lat, lon, valid = decode_pairs(e_lat, e_lon, o_lat, o_lon, newest)
         aircrafts = self.aircrafts
-        for j, la, lo, ok in zip(pair_jobs, lat, lon, valid):
+        for icao, la, lo, ok in zip(icaos, lat.tolist(), lon.tolist(), valid.tolist()):
             if ok:
-                aircrafts[j[5]].geo_position = GeographicPosition(
-                    float(la), float(lo)
-                )
+                aircrafts[icao].geo_position = GeographicPosition(la, lo)
 
 
 class ExtendedBatchTracker(BatchTracker):
@@ -546,7 +530,7 @@ class ExtendedBatchTracker(BatchTracker):
     (TC1-4), airborne position (TC9-18) and velocity (TC19) from DF17 /
     DF18 CF 0,1,2,5,6 / DF19 AF 0 — AND the simple short-frame kinds
     (DF11 all-calls incl. cache-gated interrogated ones, DF4/DF5
-    surveillance, DF0 ACAS), via device-extracted field arrays merged in
+    surveillance, DF0 ACAS), via device-extracted field arrays in
     ascending offset order; only complex kinds (other MEs needing the
     typed decode — TC0/5-8/20-22/28/29/31, non-ADS-B ME — plus DF16
     MV-RA and DF20/21 Comm-B) fall back to the exact per-packet path at
@@ -563,6 +547,10 @@ class ExtendedBatchTracker(BatchTracker):
     ):
         super().__init__(evict_after_s)
         self.ref_position = ref_position
+        # Blocks applied, and the rows of them that took the per-packet
+        # path (`adsb --batched --extended` prints both in its stats line).
+        self.blocks = 0
+        self.fallback_rows = 0
 
     def on_extended_block(
         self, out: dict, now: float, cache, min_offset: int | None = None
@@ -575,190 +563,19 @@ class ExtendedBatchTracker(BatchTracker):
         first block) suppresses APPLICATION of any slot below it while
         still seeding the acceptance cache with its ICAO — exactly the
         per-packet path's split, where assemble_extended registers ICAOs
-        in pass 1 and the runner skips only the emission."""
-        from airjax_torch.extended import (
-            CLS_ALLCALL,
-            CLS_FALLBACK_LONG,
-            CLS_FALLBACK_PKT,
-            split_ap_candidates,
-        )
-        from airjax_torch.protocol.packet import AdsbPacket
+        in pass 1 and the runner skips only the emission.
 
-        good_long = np.asarray(out["good_long"])
-        good_df11 = np.asarray(out["good_df11"])
-        # 2-flip-repaired frames (recover2 mode) never SEED the cache;
-        # they are gated on it below, mirroring assemble_extended's
-        # pass 1.5 exactly.
-        rec2 = (
-            np.asarray(out["recovered2"])
-            if "recovered2" in out
-            else np.zeros_like(good_long)
-        )
-        k_pass1 = np.nonzero((good_long & ~rec2) | good_df11)[0]
-        fields = out["fields"]
-        frames = np.asarray(out["frames"])
-        frames_raw = np.asarray(out["frames_raw"])
-        offsets = np.asarray(out["offsets"])
-
-        # --- pass 1 column subsets (one fancy-index per field) ---
-        from airjax_torch.extended import icao_from_raw
-
-        gl1 = good_long[k_pass1]
-        icao1 = np.where(
-            gl1,
-            np.asarray(fields["icao"])[k_pass1],
-            icao_from_raw(frames_raw, k_pass1),
-        )
-
-        # Seed the acceptance cache with every pass-1 ICAO first (same
-        # visibility as assemble_extended: pass 2 gating sees the whole
-        # block's validated addresses).
-        cache.add_many(icao1.tolist(), now)
-
-        # Pass 1.5 (recover2): cache-gated repairs join the applied
-        # pass-1 rows in offset order; rejected repairs vanish. The
-        # repair class is rare, so the per-row contains() loop is cheap.
-        k_rec2 = np.nonzero(good_long & rec2)[0]
-        if len(k_rec2):
-            ic_r2 = np.asarray(fields["icao"])[k_rec2]
-            acc = np.fromiter(
-                (cache.contains(int(i), now) for i in ic_r2),
-                bool,
-                len(ic_r2),
-            )
-            if np.any(acc):
-                k_pass1 = np.sort(np.concatenate([k_pass1, k_rec2[acc]]))
-                gl1 = good_long[k_pass1]
-                icao1 = np.where(
-                    gl1,
-                    np.asarray(fields["icao"])[k_pass1],
-                    icao_from_raw(frames_raw, k_pass1),
-                )
-
-        simple, complex_pkts = split_ap_candidates(
-            out, now, cache, min_offset=min_offset
-        )
-
-        # Applied pass-1 subset (min_offset skips application only).
-        if min_offset is not None:
-            m = offsets[k_pass1] >= min_offset
-            k1a, gl1a, icao1a = k_pass1[m], gl1[m], icao1[m]
-        else:
-            k1a, gl1a, icao1a = k_pass1, gl1, icao1
-        df1 = np.asarray(fields["df"])[k1a]
-        sub1 = np.asarray(fields["subformat"])[k1a]
-        cls1 = np.asarray(fields["msg_class_ext"])[k1a]
-        adsb_me = (
-            (df1 == 17)
-            | ((df1 == 18) & _DF18_CF_LUT[sub1])
-            | ((df1 == 19) & _DF19_AF_LUT[sub1])
-        )
-        fast = (
-            gl1a
-            & adsb_me
-            & (cls1 >= MSG_AIRCRAFT_ID)
-            & (cls1 <= MSG_AIRCRAFT_VELOCITY)
-        )
-        cls_a = np.where(
-            fast, cls1, np.where(gl1a, CLS_FALLBACK_LONG, CLS_ALLCALL)
-        )
-
-        n_a, n_s, n_c = len(k1a), len(simple["cls"]), len(complex_pkts)
-        n = n_a + n_s + n_c
-        applied = n
+        One row pass, whatever the call's size: its rows selected once
+        (`select_rows`), the cache seeded and asked (`_gate`), each row
+        classed and applied in offset order (`_walk_block`), the CPR pairs
+        decoded in one call (`_resolve_pairs`)."""
         touched: Optional[set] = set() if self.on_applied is not None else None
-
-        if n:
-            za = np.zeros(n_a, np.int64)
-            zs = np.zeros(n_s, np.int64)
-            zc = np.zeros(n_c, np.int64)
-
-            off_all = np.concatenate(
-                (
-                    offsets[k1a].astype(np.int64),
-                    simple["off"],
-                    np.asarray([off for off, _ in complex_pkts], np.int64),
-                )
-            )
-            order = np.argsort(off_all, kind="stable")
-            identity = bool(np.all(order[1:] >= order[:-1])) if n > 1 else True
-
-            def merged(a, s, c):
-                m = np.concatenate((a, s, c))
-                return m if identity else m[order]
-
-            cls_m = merged(
-                cls_a.astype(np.int64),
-                simple["cls"],
-                np.full(n_c, CLS_FALLBACK_PKT, np.int64),
-            )
-            C = {
-                "cls": cls_m,
-                "icao": merged(icao1a.astype(np.int64), simple["icao"], zc),
-                "alt": merged(
-                    np.asarray(fields["altitude_ft"])[k1a].astype(np.int64),
-                    simple["alt"],
-                    zc,
-                ),
-                "altv": merged(
-                    np.ones(n_a, bool), simple["alt_valid"], np.zeros(n_c, bool)
-                ),
-                "sqk": merged(za, simple["squawk"], zc),
-                "vs": merged(za, simple["vs"], zc),
-            }
-            for short, key in (
-                ("odd", "cpr_odd"), ("clat", "cpr_lat"), ("clon", "cpr_lon")
-            ):
-                C[short] = merged(
-                    np.asarray(fields[key])[k1a].astype(np.int64), zs, zc
-                )
-            any_vel = bool(np.any(cls_a == MSG_AIRCRAFT_VELOCITY))
-            for short, key in _VEL_KEYS:
-                C[short] = (
-                    merged(
-                        np.asarray(fields[key])[k1a].astype(np.int64), zs, zc
-                    )
-                    if any_vel
-                    else za if n == n_a else np.zeros(n, np.int64)
-                )
-            codes = merged(
-                np.asarray(fields["callsign_codes"])[k1a],
-                np.zeros((n_s, 8), np.uint8),
-                np.zeros((n_c, 8), np.uint8),
-            )
-
-            # Fallback payloads, prebuilt at their merged positions.
-            fb_payload: dict[int, object] = {}
-            if n_c or not bool(np.all(fast | ~gl1a)):
-                k_m = merged(k1a.astype(np.int64), zs, zc)
-                for i in np.nonzero(cls_m == CLS_FALLBACK_LONG)[0].tolist():
-                    fb_payload[i] = AdsbPacket.from_bytes(
-                        frames[k_m[i]].tobytes(), now, extensions=True
-                    )
-                ci = np.nonzero(cls_m == CLS_FALLBACK_PKT)[0].tolist()
-                for i, (_off, pkt) in zip(ci, complex_pkts):
-                    fb_payload[i] = pkt
-
-            if not fb_payload and not getattr(self, "_force_walk", False):
-                self._vapply(C, codes, now, touched)
-            else:
-                # Ordered walk: exact per-packet interleaving around the
-                # complex fallback kinds.
-                zcols = tuple(
-                    C[k].tolist()
-                    for k in (
-                        "cls", "icao", "alt", "odd", "clat", "clon",
-                        "vst", "vsa", "vva", "vsb", "vvb", "vrs", "vrv",
-                    )
-                )
-                pair_jobs: list[tuple] = []
-                self._walk(
-                    zcols, codes, C["altv"].tolist(), C["sqk"].tolist(),
-                    C["vs"].tolist(), fb_payload, now, pair_jobs, touched,
-                    set(),
-                )
-                self._resolve_pairs(pair_jobs)
-
+        kept, addr, kind = self._gate(out, select_rows(out), now, cache, min_offset)
+        pair_jobs: list[tuple] = []
+        applied, fallbacks = self._walk_block(out, kept, addr, kind, now, pair_jobs, touched)
+        self._resolve_pairs(pair_jobs)
+        self.blocks += 1
+        self.fallback_rows += fallbacks
         if self.evict_after_s is not None:
             from airjax_torch.track.aircraft import evict_stale
 
@@ -767,6 +584,123 @@ class ExtendedBatchTracker(BatchTracker):
         if touched is not None and applied:
             self.on_applied(touched)
         return applied
+
+    @staticmethod
+    def _gate(
+        out: dict, sel: np.ndarray, now: float, cache, min_offset: int | None
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Seed `cache` with every pass-1 address of the selected slots
+        (slots below `min_offset` too), then ask it once an address for the
+        rows it gates: recover2's repairs (below `min_offset` too) and the
+        AP and interrogated DF11 candidates at or above it, as
+        assemble_extended asks -> the slots to apply, in order, with the
+        address and the kind (the comment above _ROW_WALK_KEYS) of each."""
+        long_ok = np.asarray(out["good_long"])[sel]
+        df11_ok = np.asarray(out["good_df11"])[sel]
+        df11 = df11_ok | np.asarray(out["cand_df11_ic"])[sel]
+        short_ap = np.asarray(out["cand_short_ap"])[sel]
+        rec2 = out.get("recovered2")
+        rec2 = long_ok & np.asarray(rec2)[sel] if rec2 is not None else np.zeros_like(long_ok)
+        kind = np.where(long_ok, 0, np.where(df11, 1, np.where(short_ap, 2, 3)))
+        addr = np.choose(
+            kind,
+            (
+                np.asarray(out["fields"]["icao"])[sel],
+                np.asarray(out["frames_raw"])[sel, 1:4].astype(np.int64) @ _AA_WEIGHTS,
+                np.asarray(out["icao_ap_short"])[sel],
+                np.asarray(out["icao_ap_long"])[sel],
+            ),
+        )
+        seed = (long_ok & ~rec2) | df11_ok
+        cache.add_many(addr[seed].tolist(), now)
+        if min_offset is None:
+            keep, ask = seed, rec2 | ~seed
+        else:
+            due = np.asarray(out["offsets"])[sel] >= min_offset
+            keep, ask = seed & due, rec2 | (~seed & due)
+        asked = addr[ask].tolist()
+        if asked:
+            contains = cache.contains
+            accepted = {icao: contains(icao, now) for icao in dict.fromkeys(asked)}
+            keep[ask] = [accepted[icao] for icao in asked]
+            if min_offset is not None:
+                keep &= due
+        return sel[keep], addr[keep], kind[keep]
+
+    def _walk_block(
+        self,
+        out: dict,
+        kept: np.ndarray,
+        addr: np.ndarray,
+        kind: np.ndarray,
+        now: float,
+        pair_jobs: list,
+        touched: Optional[set],
+    ) -> tuple[int, int]:
+        """Gather the applied slots' columns once, class every row in them
+        and apply the rows in order (`_walk`): pass 1's ADS-B rows, DF11
+        all-calls and the short AP replies (DF0/4/5) inline; pass 1's other
+        long frames through AdsbPacket.from_bytes and the long AP replies
+        (DF16/20/21/24) as packets (extended.ap_reply), built before the
+        walk. A candidate's short fields come from `short_fields`, or from
+        the scalar host decode where the block has none. -> (messages
+        applied, fallback rows)."""
+        from airjax_torch.extended import CLS_FALLBACK_LONG, _short_fields_host, ap_reply
+        from airjax_torch.protocol.packet import AdsbPacket
+
+        fields = out["fields"]
+        frames_raw = np.asarray(out["frames_raw"])
+        sf = out.get("short_fields")
+        cols = [np.asarray(fields[key])[kept] for key in _ROW_WALK_KEYS]
+        cls = cols[0]
+        df_long = np.asarray(fields["df"])[kept]
+        sub = np.asarray(fields["subformat"])[kept]
+        df = np.asarray(out["df"])[kept]
+        surv = kind == 2
+        if sf is None:
+            alt, altv, sqk, vs = (np.zeros(len(kept), np.int64) for _ in range(4))
+            for i in np.nonzero(surv)[0].tolist():
+                host = _short_fields_host(frames_raw[kept[i]].tobytes()[:7])
+                altv[i] = host["altitude_ft"] is not None
+                alt[i], sqk[i], vs[i] = host["altitude_ft"] or 0, host["squawk"], host["vs"]
+        else:
+            alt, altv, sqk, vs = (np.asarray(sf[key])[kept] for key in _ROW_SHORT_KEYS)
+        # Pass 1's rows the walk applies inline: ADS-B MEs of the three
+        # classes; every other row takes its kind's class.
+        inline = (kind == 0) & _ADSB_ME[df_long, sub] & (cls >= MSG_AIRCRAFT_ID) & (cls <= MSG_AIRCRAFT_VELOCITY)
+        cls = np.where(inline, cls, _KIND_CLASSES[kind, df])
+        cols[:3] = cls, addr, np.where(surv, np.where(altv, alt, 0), cols[2])
+
+        fb_payload: dict = {}
+        fallback = np.nonzero(cls == CLS_FALLBACK_LONG)[0].tolist()
+        if fallback:
+            frames = np.asarray(out["frames"])
+            for i in fallback:
+                k = int(kept[i])
+                if kind[i] == 0:
+                    fb_payload[i] = AdsbPacket.from_bytes(frames[k].tobytes(), now, extensions=True)
+                    continue
+                raw = frames_raw[k].tobytes()
+                if sf is None:
+                    short = _short_fields_host(raw[:7])
+                else:
+                    short = {key: int(sf[key][k]) for key in ("fs", "squawk", "vs", "sl", "ri")}
+                    short["altitude_ft"] = int(alt[i]) if altv[i] else None
+                fb_payload[i] = ap_reply(int(df[i]), raw, int(addr[i]), short, now)
+
+        applied = self._walk(
+            zip(*[col.tolist() for col in cols]),
+            np.asarray(fields["callsign_codes"])[kept],
+            altv.tolist(),
+            sqk.tolist(),
+            vs.tolist(),
+            fb_payload,
+            now,
+            pair_jobs,
+            touched,
+            set(),
+        )
+        return applied, len(fb_payload)
 
 
 def locked_sink(inner, lock, extended: bool = False):

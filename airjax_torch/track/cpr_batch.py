@@ -21,6 +21,10 @@ import numpy as np
 from airjax_torch.track.cpr import NUM_ZONES, _CPR_SCALE
 
 _NL_D1 = 1.0 - np.cos(np.pi / (2.0 * NUM_ZONES))
+# The even and odd rows' latitude zone widths and zone counts:
+# 360 / (4 * NUM_ZONES) and 360 / (4 * NUM_ZONES - 1); 60 and 59.
+_DIV_EO = np.array([[360.0 / (4.0 * NUM_ZONES)], [360.0 / (4.0 * NUM_ZONES - 1.0)]])
+_ZONES_EO = np.array([[60.0], [59.0]])
 
 
 def calc_num_zones_batch(lat: np.ndarray) -> np.ndarray:
@@ -30,11 +34,15 @@ def calc_num_zones_batch(lat: np.ndarray) -> np.ndarray:
     # Guard the acos domain; out-of-domain inputs are overridden below.
     ratio = np.clip(1.0 - _NL_D1 / np.maximum(cos2, 1e-12), -1.0, 1.0)
     with np.errstate(divide="ignore", invalid="ignore"):
-        nl = np.floor((2.0 * np.pi) / np.arccos(ratio))
-    nl = np.where(np.isfinite(nl), nl, 1.0).astype(np.int64)
-    nl = np.where(lat == 0.0, 59, nl)
-    nl = np.where(np.abs(lat) == 87.0, 2, nl)
-    nl = np.where(np.abs(lat) > 87.0, 1, nl)
+        nl = np.floor((2.0 * np.pi) / np.arccos(ratio), out=np.empty_like(lat))
+    # The special cases written in place: numpy's where() with a scalar
+    # costs more than the rest of the function on a block's few pairs.
+    nl[~np.isfinite(nl)] = 1.0
+    nl = nl.astype(np.int64)
+    nl[lat == 0.0] = 59
+    lat = np.abs(lat)
+    nl[lat == 87.0] = 2
+    nl[lat > 87.0] = 1
     return nl
 
 
@@ -55,31 +63,33 @@ def decode_pairs(
       (N,) f64 latitude, (N,) f64 longitude, (N,) bool valid (the even/odd
       NL consistency gate, src/adsb/cpr.rs:138-141). Invalid entries hold
       whatever the formulas produced — mask with `valid`.
+
+    The even and odd halves of each step run as one (2, N) operation and
+    NL as one evaluation over the four latitudes that need it: the same
+    element-wise functions of the same values as one step per half, at a
+    fraction of the fixed cost a numpy call has on a block's few pairs.
     """
     newest_is_odd = np.asarray(newest_is_odd, dtype=bool)
-    lat_e = np.asarray(even_lat, np.float64) / _CPR_SCALE
-    lat_o = np.asarray(odd_lat, np.float64) / _CPR_SCALE
-    lon_e = np.asarray(even_lon, np.float64) / _CPR_SCALE
-    lon_o = np.asarray(odd_lon, np.float64) / _CPR_SCALE
-
-    even_div = 360.0 / (4.0 * NUM_ZONES)
-    odd_div = 360.0 / (4.0 * NUM_ZONES - 1.0)
+    # Rows: even, odd.
+    lat_eo = np.array((even_lat, odd_lat), np.float64) / _CPR_SCALE
+    lon_eo = np.array((even_lon, odd_lon), np.float64) / _CPR_SCALE
+    lat_e, lat_o = lat_eo
+    lon_e, lon_o = lon_eo
 
     j = np.floor(59.0 * lat_e - 60.0 * lat_o + 0.5)
-    even_latitude = even_div * (np.fmod(j, 60.0) + lat_e)
-    odd_latitude = odd_div * (np.fmod(j, 59.0) + lat_o)
+    # even_div * (fmod(j, 60) + lat_e), odd_div * (fmod(j, 59) + lat_o)
+    lat_eo = _DIV_EO * (np.fmod(j, _ZONES_EO) + lat_eo)
 
-    latitude = np.where(newest_is_odd, odd_latitude, even_latitude)
+    latitude = np.where(newest_is_odd, lat_eo[1], lat_eo[0])
     latitude = np.where(latitude > 270.0, latitude - 360.0, latitude)
 
-    valid = calc_num_zones_batch(even_latitude) == calc_num_zones_batch(
-        odd_latitude
-    )
-
-    nl = calc_num_zones_batch(latitude)
+    nl_even, nl_odd, nl, nl_below = calc_num_zones_batch(
+        np.concatenate((lat_eo.reshape(-1), latitude, latitude - 1.0))
+    ).reshape(4, -1)
+    valid = nl_even == nl_odd
     num_zones = np.where(
         newest_is_odd,
-        np.maximum(calc_num_zones_batch(latitude - 1.0), 1),
+        np.maximum(nl_below, 1),
         np.maximum(nl, 1),
     ).astype(np.float64)
 

@@ -219,6 +219,16 @@ def test_bench_host_counts_equal_airjax(messages, monkeypatch, capsys):
     assert got["aircraft"] == got["with_geo"] == 64 and got["extended_messages"] > 0
 
 
+@pytest.mark.parametrize("gap_ms", [0.0, 8.0])
+def test_bench_host_sink_times_the_call_and_its_parts(gap_ms, capsys):
+    assert bench_host.main(["--sink", "--blocks", "12", "--gap-ms", str(gap_ms), *CPU]) == 0
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    parts = ("select_ms", "gate_ms", "walk_ms", "cpr_ms", "summaries_ms")
+    assert line["blocks"] == 12 and line["gap_ms"] == gap_ms and line["summaries_sent"] > 0 and line["rows_a_block"] > 0
+    assert all(line[k] > 0 for k in ("sink_ms", "decode_pairs_us_3", "decode_pairs_us_12", *parts))
+    assert 0 <= line["blocks_with_fallback"] <= 1
+
+
 def test_bench_extended_prints_the_jax_tools_lines(capsys):
     assert bench_extended.main(["--block-len", "32768", "--r-small", "1", "--r-big", "3", *CPU]) == 0
     lines = capsys.readouterr().out.splitlines()

@@ -26,6 +26,7 @@ from airjax.track import cpr as jcpr
 from airjax.track import cpr_batch as jcpr_batch
 from airjax.track import state as jstate
 from airjax.track.icao_cache import IcaoCache as JCache
+from airjax_torch import cli
 from airjax_torch import extended as text
 from airjax_torch import pipeline as tpipe
 from airjax_torch import runner as trunner
@@ -39,7 +40,9 @@ from airjax_torch.track import batch as tbatch
 from airjax_torch.track import cpr as tcpr
 from airjax_torch.track import cpr_batch as tcpr_batch
 from airjax_torch.track import state as tstate
+from airjax_torch.runner import StreamStats
 from airjax_torch.track.icao_cache import IcaoCache as TCache
+from airjax_torch.ui.web import WebDisplay
 from torch_parity import packet_fields
 
 ICAOS = [0x7C6B30, 0x40621D, 0xABCDEF, 0x111111, 0x0F00BA]
@@ -276,6 +279,139 @@ def test_extended_batch_tracker_equals_airjax(seed, recover2):
         assert cache_t._seen == cache_j._seen
         assert state(bt_t.aircrafts) == state(bt_j.aircrafts)
     assert bt_t.n_messages == bt_j.n_messages > 0
+
+
+# Addresses of the inline blocks: many aircraft, so that a block leaves
+# many ground speeds and tracks to compare.
+INLINE_ICAOS = [0x3C0000 + 0x1357 * k for k in range(48)]
+
+
+def _inline_frame(rng) -> bytes:
+    """One frame of a kind the row pass applies inline: a DF17 identity,
+    airborne position or TC19 velocity, a DF11 all-call (a share
+    interrogated), a DF4, DF5 or DF0 reply."""
+    icao = INLINE_ICAOS[rng.integers(len(INLINE_ICAOS))]
+    kind = int(rng.integers(0, 8))
+    if kind == 0:
+        return synth.make_df17(icao, synth.make_id_me("".join(chr(65 + rng.integers(26)) for _ in range(6))))
+    if kind in (1, 2):
+        return synth.make_df17(icao, synth.make_position_me(
+            11, int(rng.integers(0, 1600)) * 25 - 1000, int(rng.integers(0, 1 << 17)), int(rng.integers(0, 1 << 17)),
+            bool(rng.integers(2))))
+    if kind in (3, 4):
+        return synth.make_df17(icao, synth.make_velocity_me(
+            ew_kt=int(rng.integers(-300, 301)), ns_kt=int(rng.integers(-300, 301)),
+            vertical_rate_fpm=None if rng.random() < 0.3 else int(rng.integers(-80, 81)) * 64,
+            subtype=int(rng.choice([1, 1, 2]))))
+    if kind == 5:
+        return shortframe.make_df11(icao, interrogator=int(rng.integers(1, 16)) if rng.random() < 0.3 else 0)
+    alt = int(rng.integers(0, 2000)) * 25 - 1000
+    if kind == 6:
+        return shortframe.make_df4(icao, alt) if rng.random() < 0.5 else shortframe.make_df0(icao, alt, vs=int(rng.integers(2)))
+    return shortframe.make_df5(icao, int("".join(str(rng.integers(0, 8)) for _ in range(4))))
+
+
+def _spaced_capture(rng, frames: list[bytes], n: int) -> np.ndarray:
+    """`frames` at random 260-sample slots of an n-sample capture (no two
+    overlap), a share of the long ones with one bit flipped: bit 3 in some,
+    which turns DF17 into DF19 until the repair turns it back."""
+    slots = np.sort(rng.choice((n - 600) // 260, len(frames), replace=False)) * 260 + 100
+    frames = [synth.flip_bit(f, 3 if rng.random() < 0.5 else int(rng.integers(0, 112)))
+              if len(f) == 14 and rng.random() < 0.2 else f for f in frames]
+    return synth.modulate(frames, slots.tolist(), n, noise_std=float(rng.uniform(10, 80)),
+                          seed=int(rng.integers(0, 1 << 31)))
+
+
+def _like_per_packet(table: dict) -> dict:
+    """state() with each CPR stash as its (lat, lon) and the velocity
+    floats rounded to 1e-9: the per-packet path stashes messages and takes
+    ground speed and track from math.*, the batched one (without a row of
+    the per-packet path) from numpy."""
+    out = state(table)
+    for d in out.values():
+        for key in ("last_even_packet", "last_odd_packet"):
+            v = d[key]
+            if v is not None and isinstance(v[1], dict):
+                d[key] = (v[1]["cpr_latitude"], v[1]["cpr_longitude"])
+        for key in ("ground_speed_kt", "track_deg"):
+            if d[key] is not None:
+                d[key] = round(d[key], 9)
+        d["summary"] = {k: round(v, 9) if isinstance(v, float) else v for k, v in d["summary"].items()}
+    return out
+
+
+def _permuted(out: dict, order: np.ndarray) -> dict:
+    """A decode dict with its slots, in every slot-wide array, put in
+    `order`: its offsets no longer ascend."""
+    return {key: _permuted(v, order) if isinstance(v, dict) else v[order] if np.ndim(v) and len(v) == len(order) else v
+            for key, v in out.items()}
+
+
+ROW_PASS_CASES = ("inline", "mixed", "min_offset", "recover2", "bulk", "unordered", "oracle")
+
+
+@pytest.mark.parametrize("case", ROW_PASS_CASES)
+def test_extended_row_pass_equals_airjax_and_per_packet(case, monkeypatch):
+    """ExtendedBatchTracker's row pass against airjax's tracker, exactly,
+    and against the per-packet path (assemble_extended +
+    handle_extended_update), block after block on the port's dicts: blocks
+    of inline kinds only (ground speed and track then take airjax's numpy
+    expression), blocks with rows of the per-packet path, min_offset,
+    recover2, calls of hundreds of rows (`bulk`, as a whole capture's),
+    slots out of offset order (`unordered`) and blocks without
+    `short_fields` (`oracle`: the host decodes the candidates' fields).
+    The selected slots come in ascending offset order; the counters count
+    the blocks and the rows that took the per-packet path."""
+    rng = np.random.default_rng(10 + ROW_PASS_CASES.index(case))
+    recover2 = case == "recover2"
+    bt_t, bt_j = tbatch.ExtendedBatchTracker(ref_position=REF_POS), jbatch.ExtendedBatchTracker(ref_position=REF_POS)
+    cache_t, cache_j, cache_p = TCache(), JCache(), TCache()
+    per: dict = {}
+    per_packet_rows = []
+    apply_fallback = tbatch.BatchTracker._apply_fallback
+    monkeypatch.setattr(tbatch.BatchTracker, "_apply_fallback",
+                        lambda self, pkt, *a: (per_packet_rows.append(pkt), apply_fallback(self, pkt, *a)))
+    n_blocks = 2 if case == "bulk" else 6
+    t = 1000.0
+    for block in range(n_blocks):
+        t += float(rng.choice([0.5, 3.0, 11.0, 61.0]))
+        if case == "bulk":
+            n, cap = 260 * 316, 1024
+            iq = _spaced_capture(rng, [_inline_frame(rng) for _ in range(300)], n)
+        elif case == "inline":
+            n, cap = N, CAP
+            iq = _spaced_capture(rng, [_inline_frame(rng) for _ in range(int(rng.integers(20, 40)))], n)
+        else:
+            n, cap = N, CAP
+            iq = _random_capture(rng)
+        out = tpipe.to_host(tpipe.decode_iq_block_extended_with_fields(torch.as_tensor(iq), n - 240, cap, recover2))
+        union = out["good_long"] | out["good_df11"] | out["cand_df11_ic"] | out["cand_short_ap"] | out["cand_long_ap"]
+        offsets = out["offsets"][np.nonzero(union)[0]]
+        assert np.all(offsets[1:] > offsets[:-1])
+        if case == "unordered":
+            out = _permuted(out, rng.permutation(len(out["offsets"])))
+        elif case == "oracle":
+            del out["short_fields"]
+        assert out["offsets"][tbatch.select_rows(out)].tolist() == offsets.tolist()
+        min_offset = int(rng.integers(500, 6000)) if case == "min_offset" else None
+        applied = bt_t.on_extended_block(out, t, cache_t, min_offset=min_offset)
+        assert applied == bt_j.on_extended_block(out, t, cache_j, min_offset=min_offset)
+        assert cache_t._seen == cache_j._seen
+        assert state(bt_t.aircrafts) == state(bt_j.aircrafts)
+        packets = [p for off, p in text.assemble_extended(out, t, cache_p) if min_offset is None or off >= min_offset]
+        for p in packets:
+            text.handle_extended_update(p, per, ref_position=REF_POS)
+        assert applied == len(packets)
+        assert cache_t._seen == cache_p._seen
+        assert _like_per_packet(bt_t.aircrafts) == _like_per_packet(per)
+    assert bt_t.n_messages > 0
+    assert bt_t.blocks == n_blocks and bt_t.fallback_rows == len(per_packet_rows)
+    assert (bt_t.fallback_rows == 0) == (case in ("inline", "bulk"))
+    if case == "inline":
+        assert any(a.ground_speed_kt is not None for a in bt_t.aircrafts.values())
+        line = cli._stats_line(StreamStats(), WebDisplay(quiet=True), bt_t)
+        assert list(line)[-4:] == ["summaries_sent", "summaries_dropped", "batched_blocks", "fallback_rows"]
+        assert (line["batched_blocks"], line["fallback_rows"]) == (n_blocks, 0)
 
 
 def test_split_ap_candidates_and_elm_equal_airjax():
