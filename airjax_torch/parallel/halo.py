@@ -43,6 +43,7 @@ sets `block`, the regrow caps and which offsets wrap, and so the stats
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Callable
 
@@ -117,7 +118,7 @@ def shard_iq(iq, mesh: Mesh, block: int, halo: int, non_blocking: bool = False) 
     whole array, so that a regrow does not copy the capture again.
     non_blocking=True queues the copies from a pinned host tensor on the
     devices' current streams without waiting (the caller keeps it alive
-    until they ran: runner.run_stream_sharded's pipeline.Fetcher)."""
+    until they ran: EagerSteps' pipeline.Fetcher)."""
     src = torch.from_numpy(np.ascontiguousarray(iq, dtype=np.int16)) if isinstance(iq, np.ndarray) else iq
     n_dev = mesh.size
     if src.dtype != torch.int16 or tuple(src.shape) != (n_dev * block, 2):
@@ -379,6 +380,52 @@ def compact_rows(out: dict, n: int) -> dict:
 step_graph_counts = {"eager": 0, "captures": 0, "replays": 0}
 
 
+class _StepEngine:
+    """What the step engines share: the stream's K and C. A step that
+    overflows is decoded again (`_again`) from its own device input with
+    both grown 4x, K up to `block` and C up to T, and later steps run at
+    the grown K and C (airjax/runner.py:562-566). Which later ones, the
+    dispatch order alone decides: a step runs at the K and C left once the
+    steps dispatched depth + 1 or more before it are done, those airjax's
+    loop has fetched when it dispatches it. So a step fetched early
+    (runner._run, the source idle) changes neither the keys nor the stats."""
+
+    def _setup(self, mesh: Mesh, block: int, k: int, c: int, depth: int, extended: bool, recover2: bool,
+               with_fields: bool) -> None:
+        self.mesh, self.block, self.halo = mesh, block, _halo_size(block)
+        self.n_samples = block * mesh.size
+        self.extended, self.recover2, self.with_fields = extended, recover2, with_fields
+        self.k, self.c = k, c  # where a regrow starts: as the steps collected so far left them
+        self._in_force = (k, c)  # what the last step was dispatched at
+        # What the next dispatches run at, in order: k and c for the first
+        # depth + 1, then what each step collected left.
+        self._left = collections.deque([(k, c)] * (max(depth, 0) + 1))
+
+    def _capacity(self) -> tuple[int, int]:
+        """(K, C) of the step dispatched now (a step fetched and done
+        without `collect` leaves K and C as they were)."""
+        if self._left:
+            self._in_force = self._left.popleft()
+        return self._in_force
+
+    def collect(self, slot) -> tuple[dict, bool]:
+        """The slot's dict, fetched and regrown while it overflows; then the
+        slot is done -> (host arrays, whether the first fetch overflowed)."""
+        out = self.fetch(slot)
+        overflowed = bool(out["overflow"])
+        while bool(out["overflow"]) and (self.k < self.block or self.c < self.n_samples):
+            self.k, self.c = min(self.k * 4, self.block), min(self.c * 4, self.n_samples)
+            out = self._again(slot)
+        self.done(slot)
+        self._left.append((self.k, self.c))
+        return out, overflowed
+
+    def _step(self, k: int, c: int) -> Callable:
+        """The eager compact step at K = k and C = c."""
+        return _compact_builder(self.extended)(self.mesh, self.n_samples, k, c, self.mesh.axis,
+                                               with_fields=self.with_fields, recover2=self.recover2)
+
+
 @dataclasses.dataclass(eq=False)
 class StepSlot(Slot):
     """A step in flight: Slot's buffers (n_off a shard's `block` offsets,
@@ -389,7 +436,7 @@ class StepSlot(Slot):
     shards: list = dataclasses.field(default_factory=list)
 
 
-class StepGraphs(GraphRing):
+class StepGraphs(_StepEngine, GraphRing):
     """The compact sharded step of a stream on one card, as one program
     each, the counterpart of airjax's jitted shard_map step (:404, :412;
     extended :600, :608), one per (K, C) in airjax/runner.py:505-511: a CUDA
@@ -415,44 +462,42 @@ class StepGraphs(GraphRing):
     pointer table is read from host memory. A slot downloads its C rows
     whole, where airjax fetches the count and then n rows.
 
-    A regrow decodes the slot's own device input again with the eager step
-    at the grown K and C; the stream's later steps are the grown key's.
+    K = k and C = c at first; a regrow (`collect`) decodes the slot's own
+    device input again with the eager step at the grown K and C, and the
+    stream's later steps are the grown key's.
     A mesh over several cards is not taken: its step copies every other
     card's dicts to the first (EagerSteps).
     """
 
     counts = step_graph_counts
 
-    def __init__(self, mesh: Mesh, block: int, *, extended: bool = False, recover2: bool = False,
+    def __init__(self, mesh: Mesh, block: int, k: int, c: int, *, extended: bool = False, recover2: bool = False,
                  with_fields: bool = False, depth: int = 1):
         if len(set(mesh.devices)) != 1:
             raise ValueError(f"StepGraphs: a mesh of one device, got {[str(d) for d in mesh.devices]}")
         super().__init__(mesh.devices[0], depth)
-        self.mesh, self.block, self.halo = mesh, block, _halo_size(block)
-        self.n_samples = block * mesh.size
+        self._setup(mesh, block, k, c, depth, extended, recover2, with_fields)
         _shape(mesh, self.n_samples, mesh.axis)
-        self.extended, self.recover2, self.with_fields = extended, recover2, with_fields
 
-    def dispatch(self, iq: np.ndarray, k: int, c: int) -> StepSlot:
-        """Start the step of one (T, 2) int16 host array at per-shard
-        capacity K = k and C = c rows. Returns its slot."""
+    def dispatch(self, iq: np.ndarray) -> StepSlot:
+        """Start the step of one (T, 2) int16 host array at the stream's
+        per-shard capacity K and C rows (_StepEngine). Returns its slot."""
         t = self.n_samples
         if iq.shape != (t, 2):
             raise ValueError(f"iq: expected ({t}, 2), got {iq.shape}")
+        k, c = self._capacity()
         slot, first = self._take((t, self.mesh.size, self.block, self.halo, k, c), lambda: self._slot(k, c))
         copy_in(slot.host_iq[:t], iq)
         slot.host_iq[t:] = slot.host_iq[: self.halo]
         self._launch(slot, first)
         return slot
 
-    def regrow(self, slot: StepSlot, k: int, c: int) -> dict:
-        """The slot's step decoded again at K = k and C = c by the eager
+    def _again(self, slot: StepSlot) -> dict:
+        """The slot's step decoded again at the grown K and C by the eager
         step, from the slot's device input (which no step overwrites before
         `done`) -> host arrays."""
         self.fetches += 1
-        step = _compact_builder(self.extended)(self.mesh, self.n_samples, k, c, self.mesh.axis,
-                                               with_fields=self.with_fields, recover2=self.recover2)
-        return to_host(step(slot.shards))
+        return to_host(self._step(self.k, self.c)(slot.shards))
 
     def _slot(self, k: int, c: int) -> StepSlot:
         lay = gather_layout(c, self.extended, self.recover2, self.with_fields)
@@ -474,7 +519,7 @@ class StepGraphs(GraphRing):
         slot.host_out.copy_(slot.out, non_blocking=True)
 
 
-class EagerSteps:
+class EagerSteps(_StepEngine):
     """The compact sharded step launched eagerly, behind StepGraphs'
     interface: the step of a mesh over several cards, whose shards send
     their dicts to the first card by peer copies that a graph of one card
@@ -482,17 +527,15 @@ class EagerSteps:
     by shard (shard_iq), decoded through the wrappers and gathered, with an
     event recorded after it; a fetch copies the count, then its n rows, on a
     copy stream that waits on that event alone (pipeline.Fetcher, whose
-    pool holds a staging buffer a step in flight, so `depth` sets
-    nothing here)."""
+    pool holds a staging buffer a step in flight, so `depth` sets only
+    when a regrow applies). A regrow runs the grown step on the slot's
+    shards."""
 
-    def __init__(self, mesh: Mesh, block: int, *, extended: bool = False, recover2: bool = False,
+    def __init__(self, mesh: Mesh, block: int, k: int, c: int, *, extended: bool = False, recover2: bool = False,
                  with_fields: bool = False, depth: int = 1):
-        self.mesh, self.block, self.halo = mesh, block, _halo_size(block)
-        self.n_samples = block * mesh.size
-        self.extended, self.recover2, self.with_fields = extended, recover2, with_fields
+        self._setup(mesh, block, k, c, depth, extended, recover2, with_fields)
         self.fetcher = Fetcher(mesh.devices[0])
         self.scalar_keys = ("n_candidates" if extended else "n_good", "n_detections", "overflow")
-        self._steps: dict[tuple[int, int], Callable] = {}
         self.eager = 0
 
     @property
@@ -503,10 +546,10 @@ class EagerSteps:
     def overlapped(self) -> int:
         return self.fetcher.overlapped
 
-    def dispatch(self, iq: np.ndarray, k: int, c: int) -> list:
+    def dispatch(self, iq: np.ndarray) -> list:
         staged = self.fetcher.stage(iq)
         shards = shard_iq(staged, self.mesh, self.block, self.halo, non_blocking=True)
-        out = self._step(k, c)(shards)
+        out = self._step(*self._capacity())(shards)
         self.eager += 1
         # The shards stay on their devices for a regrow.
         return [shards, out, self.fetcher.launched(staged)]
@@ -516,8 +559,8 @@ class EagerSteps:
         scal = self.fetcher.fetch({k: out[k] for k in self.scalar_keys}, ticket)
         return {**scal, **self.fetcher.fetch(compact_rows(out, int(scal[self.scalar_keys[0]])), ticket)}
 
-    def regrow(self, slot: list, k: int, c: int) -> dict:
-        slot[1] = self._step(k, c)(slot[0])
+    def _again(self, slot: list) -> dict:
+        slot[1] = self._step(self.k, self.c)(slot[0])
         self.fetcher.done(slot[2])
         slot[2] = self.fetcher.launched()
         return self.fetch(slot)
@@ -527,12 +570,6 @@ class EagerSteps:
 
     def summary(self) -> dict[str, int]:
         return {"eager": self.eager, "captures": 0, "replays": 0, "pinned_bytes": 0, "device_bytes": 0}
-
-    def _step(self, k: int, c: int):
-        if (k, c) not in self._steps:
-            self._steps[(k, c)] = _compact_builder(self.extended)(
-                self.mesh, self.n_samples, k, c, self.mesh.axis, with_fields=self.with_fields, recover2=self.recover2)
-        return self._steps[(k, c)]
 
 
 def _prepare(iq, mesh: Mesh, axis: str) -> tuple[np.ndarray, int, int, int, list[torch.Tensor]]:

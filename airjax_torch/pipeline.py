@@ -245,9 +245,9 @@ class Ticket:
 
 
 class Fetcher:
-    """The uploads and result copies of a stream, so that decodes stay in
-    flight on a card (runner.run_stream and run_stream_sharded; airjax keeps
-    them in flight through JAX's async dispatch, airjax/runner.py:382-388).
+    """The uploads and result copies of eager decodes, so that they stay in
+    flight on a card (parallel/halo.py::EagerSteps; airjax keeps them in
+    flight through JAX's async dispatch, airjax/runner.py:382-388).
 
     On a card: `stage` copies a block into a pinned buffer, which the
     upload reads with non_blocking=True, so a dispatch does not wait for the
@@ -604,12 +604,20 @@ class BlockGraphs(GraphRing):
         self._launch(slot, first)
         return slot
 
-    def regrow(self, slot: Slot, capacity: int) -> dict:
-        """The slot's block decoded again at `capacity` by the eager
-        wrappers, from the slot's device input (which no decode overwrites
-        before `done`) -> host arrays."""
-        self.fetches += 1
-        return to_host(self.decode(slot.device_iq, slot.n_off, capacity))
+    def collect(self, slot: Slot) -> tuple[dict, bool]:
+        """The slot's dict, decoded again while it overflows by the eager
+        wrappers from the slot's device input at 4x the capacity, up to its
+        n_off (airjax/runner.py:231-237); then the slot is done -> (host
+        arrays, whether the first fetch overflowed)."""
+        out = self.fetch(slot)
+        overflowed = bool(out["overflow"])
+        capacity = slot.capacity
+        while bool(out["overflow"]) and capacity < slot.n_off:
+            capacity = min(capacity * 4, slot.n_off)
+            self.fetches += 1
+            out = to_host(self.decode(slot.device_iq, slot.n_off, capacity))
+        self.done(slot)
+        return out, overflowed
 
     def _slot(self, n_samples: int, n_off: int, capacity: int) -> Slot:
         lay = dict_layout(capacity, self.extended, self.recover2, self.fields)
@@ -768,8 +776,8 @@ def _overlap_scan(
     iq_dev: torch.Tensor, n: int, slice_len: int, scan: int, n_blocks: int, cfg: PipelineConfig
 ) -> tuple[list[Hit], dict]:
     """airjax/pipeline.py:542-576: decode each block slice of the
-    resident capture through one BlockGraphs key, regrowing capacity on
-    overflow."""
+    resident capture through one BlockGraphs key, whose collect regrows
+    capacity on overflow."""
     max_global = n - WINDOW  # windows past the capture end are not scanned
     hits = []
     stats = {"n_detections": 0, "n_good": 0, "n_recovered": 0, "overflow": False}
@@ -777,13 +785,7 @@ def _overlap_scan(
     # block is copied on the device into the slot's input, then replayed.
     graphs = BlockGraphs(decode_iq_block, device=iq_dev.device, depth=0, upload=False)
     for b in range(n_blocks):
-        capacity = cfg.max_candidates
-        slot = graphs.dispatch(iq_dev[b * scan : b * scan + slice_len], scan, capacity)
-        out = graphs.fetch(slot)
-        while bool(out["overflow"]) and capacity < scan:
-            capacity = min(capacity * 4, scan)
-            out = graphs.regrow(slot, capacity)
-        graphs.done(slot)
+        out, _ = graphs.collect(graphs.dispatch(iq_dev[b * scan : b * scan + slice_len], scan, cfg.max_candidates))
         for k in np.nonzero(out["good"])[0]:
             g = b * scan + int(out["offsets"][k])
             if g <= max_global:

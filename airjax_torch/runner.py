@@ -34,35 +34,29 @@ every frame one at a time, so they make the sink per packet:
 preamble (visualise.dump_preamble), after a DF17 packet's sink call and
 before an extended one's, as airjax prints them.
 
-Both runners keep up to `pipeline_depth` decodes in flight (default 1, as
+Both runners are one loop (`_run`) over a framing, which cuts the
+stream into decodes (`_Blocks`: a block behind the overlap carry;
+`_Steps`: a step of many blocks over a mesh), and a decode engine, which
+runs each as one program, as airjax's jit does: a CUDA graph per shape
+(pipeline.BlockGraphs; parallel/halo.py::StepGraphs, or halo.EagerSteps'
+eager launches on a mesh over several cards). An engine holds its
+capacity and, in `collect`, decodes a dict that overflowed again from
+its own device input at a capacity grown 4x.
+
+The loop keeps up to `pipeline_depth` decodes in flight (default 1, as
 airjax's, whose `adsb` passes none): block k+1 is dispatched before block
 k is fetched, so the card decodes block k+1 while the host copies and
-applies block k. run_stream holds block k so only while its source has a
-block ready (io.source.Prefetcher.ready): when it has none, as a paced
-receiver has not between blocks, nothing would overlap the decodes in
-flight, and run_stream fetches and applies them at once, oldest first,
-rather than hold block k until block k+1 arrives (`stats.early_fetches`).
-run_stream_sharded always holds its steps.
-
-run_stream decodes a block as one program, as airjax's jit does: a CUDA
-graph per block shape (pipeline.BlockGraphs) holds the block's upload
-from a pinned slot, the front and block-decode launches and the dict's
-copy back; a dispatch copies the block in and replays, a
-fetch waits on the block's event and reads the dict from the slot's two
-buffers. run_stream_sharded on one card decodes a step as one program the
-same way, as airjax's jitted shard_map step does: a CUDA graph per step
-shape (parallel/halo.py::StepGraphs) holds the step's upload, every
-shard's front and block decode, the shard gather and the gathered rows'
-copy back; on a mesh over several cards its steps launch eagerly
-(halo.EagerSteps, through pipeline.Fetcher). Entries are fetched and
-applied first in, first out, so packets, the recover2 gate, the ICAO
-cache and the stats follow stream order at every depth. The source is read on the Prefetcher's thread.
-Each step of a block is timed as a stage of `stats.stages` (StreamStats:
-source, handoff, carry, dispatch, hold, fetch, apply, sink) and, while
-an observability.trace is active, kept as a span with the block's
-sequence number in the stream.
-run_stream_sharded decodes the stream over a mesh of devices
-(parallel/halo.py), in steps of many blocks.
+applies block k. It holds block k so only while the source has a block
+ready (io.source.Prefetcher.ready): when it has none, as a paced receiver
+has not between blocks, nothing would overlap the decodes in flight, and
+they are fetched and applied at once, oldest first, rather than held
+until the next block arrives (`stats.early_fetches`). Entries are fetched
+and applied first in, first out, so packets, the recover2 gate, the ICAO
+cache and the stats follow stream order at every depth. The source is
+read on the Prefetcher's thread. Each step of a block is timed as a stage
+of `stats.stages` (StreamStats: source, handoff, carry, dispatch, hold,
+fetch, apply, sink) and, while an observability.trace is active, kept as
+a span with the block's sequence number in the stream.
 """
 
 from __future__ import annotations
@@ -81,12 +75,15 @@ from airjax_torch.io.source import Prefetcher
 from airjax_torch.dsp.demod import WINDOW
 from airjax_torch.observability import StageTimer
 from airjax_torch.extended import assemble_extended
+from airjax_torch.parallel import halo as sharding
+from airjax_torch.parallel.halo import HALO as _HALO
 from airjax_torch.pipeline import (
     BlockGraphs,
     decode_iq_block,
     decode_iq_block_extended,
     decode_iq_block_extended_with_fields,
     decode_iq_block_with_fields,
+    pad_iq_non_detecting,
 )
 from airjax_torch.protocol.packet import AdsbPacket
 from airjax_torch.track.icao_cache import IcaoCache
@@ -123,11 +120,10 @@ class StreamStats:
         self.stages = StageTimer()
         # Not in as_dict (airjax has no such keys): decodes fetched, and
         # those whose fetch returned while the next decode was still running
-        # on the card (pipeline.BlockGraphs, pipeline.Fetcher), set at the
-        # stream's end; run_stream's decodes fetched before pipeline_depth
-        # were in flight because the source had no block ready
-        # (early_fetches / fetches: the share of fetches that skipped the
-        # hold).
+        # on the card (pipeline.GraphRing, pipeline.Fetcher), set at the
+        # stream's end; decodes fetched before pipeline_depth were in
+        # flight because the source had no block ready (early_fetches /
+        # fetches: the share of fetches that skipped the hold).
         self.fetches = 0
         self.overlapped = 0
         self.early_fetches = 0
@@ -135,8 +131,8 @@ class StreamStats:
         # at a receipt (io.source.Prefetcher.backlog_max): above 0, the
         # runner fell behind its source.
         self.backlog_max = 0
-        # run_stream's pipeline.BlockGraphs at the stream's end: first
-        # sightings, captures, replays, and the bytes its slots hold.
+        # The decode engine at the stream's end: first sightings,
+        # captures, replays, and the bytes its slots hold.
         self.graphs: dict[str, int] = {}
 
     def as_dict(self) -> dict:
@@ -292,6 +288,141 @@ def _decode_fn(extended: bool, batched: bool):
     return decode_iq_block_with_fields if batched else decode_iq_block
 
 
+def _run(source: Iterator[np.ndarray], prefetch_depth: int, framing, engine, sink: _Sink, stats: StreamStats,
+         depth: int) -> StreamStats:
+    """The stream loop of both runners (airjax/runner.py:382-407, :601-686;
+    the module docstring says how it keeps decodes in flight). `framing`'s
+    `decodes(seq, block)` are a received block's decodes, `tail(seq)` those
+    of the source's end after block `seq`: each (sequence number,
+    engine.dispatch's arguments, the source samples it holds, the job),
+    its carry timed. `framing.rows(out, job)` turns the dict that
+    `engine.collect` fetched into _Sink.apply's rows, mask, minimum offset
+    and frame callback, and its `recovered` count."""
+    stages = stats.stages
+    inflight: collections.deque = collections.deque()
+
+    def process(entry) -> None:
+        slot, now, n_samples, job, seq, held = entry
+        t_fetch = time.perf_counter()
+        stages.add("hold", t_fetch - held, start=held, block=seq)
+        with stages.stage("fetch", block=seq):
+            out, overflowed = engine.collect(slot)
+        t_apply = time.perf_counter()
+        rows, keep, min_offset, on_frame, recovered = framing.rows(out, job)
+        emitted = sink.apply(rows, keep, min_offset, now, on_frame, seq)
+        stages.add("apply", time.perf_counter() - t_apply, start=t_apply, block=seq)
+        # A tail flush is a decode, not a source block (n_samples=0).
+        stats.blocks += 1 if n_samples else 0
+        stats.samples += n_samples
+        stats.detections += int(out["n_detections"])
+        stats.good += emitted
+        stats.recovered += recovered
+        # Decodes that needed a regrow (the regrown result's flag is clear).
+        stats.overflow_blocks += overflowed
+
+    def run(decodes) -> None:
+        for seq, args, n_samples, job in decodes:
+            with stages.stage("dispatch", block=seq):
+                slot = engine.dispatch(*args)
+            # `now` is stamped at dispatch, as airjax does; the hold starts here.
+            inflight.append((slot, time.time(), n_samples, job, seq, time.perf_counter()))
+            while len(inflight) > max(depth, 0):
+                process(inflight.popleft())
+        # No block ready behind the last: nothing would overlap the decodes
+        # in flight, so fetch them now rather than at the next block.
+        while inflight and not prefetcher.ready():
+            fetched = engine.fetches
+            process(inflight.popleft())
+            stats.early_fetches += engine.fetches - fetched  # regrows fetch too
+
+    prefetcher = Prefetcher(source, depth=prefetch_depth)
+    seq = -1
+    for seq, block in _received(prefetcher, stages):
+        run(framing.decodes(seq, block))
+    run(framing.tail(seq))
+    while inflight:
+        process(inflight.popleft())
+    stats.fetches, stats.overlapped = engine.fetches, engine.overlapped
+    stats.backlog_max = prefetcher.backlog_max
+    stats.graphs = engine.summary()
+    return stats
+
+
+def _non_detecting(n: int) -> np.ndarray:
+    """n samples of the non-detecting (1,0)-magnitude pattern: the initial
+    carry (a zero carry passes the equality-tolerant gate at every offset)
+    and the warm-up step."""
+    return pad_iq_non_detecting(np.zeros((0, 2), dtype=np.int16), n)
+
+
+class _Blocks:
+    """run_stream's framing: a decode a block, alone (parity) or behind the
+    carry of the last 239 samples (overlap), short reads joined to the
+    next; in overlap mode the carry flushed at the source's end."""
+
+    def __init__(self, cfg: PipelineConfig, overlap: bool, stages: StageTimer, debug: tuple | None):
+        self.capacity, self.overlap, self.stages, self.debug = cfg.max_candidates, overlap, stages, debug
+        self.carry = _non_detecting(_HALO) if overlap else None
+        self.base = -_HALO  # global sample index of carry[0]
+        self.pending = np.zeros((0, 2), dtype=np.int16)
+
+    def decodes(self, seq: int, block: np.ndarray):
+        t_carry = time.perf_counter()
+        block = np.asarray(block, dtype=np.int16)
+        if self.overlap and len(self.pending):
+            # Short reads accumulate rather than being dropped.
+            block = np.concatenate([self.pending, block], axis=0)
+            self.pending = self.pending[:0]
+        if block.shape[0] < WINDOW:
+            if self.overlap:
+                self.pending = block
+            self.stages.add("carry", time.perf_counter() - t_carry, start=t_carry, block=seq)
+            # parity: the reference cannot scan a block < 240 samples.
+            return
+        if self.overlap:
+            full = np.concatenate([self.carry, block], axis=0)
+            if full.shape[0] >= TUNED_STREAM_MIN:
+                slice_len = (full.shape[0] // 1024) * 1024
+                n_off = slice_len - 240
+                ext = full[:slice_len]
+            else:
+                n_off = full.shape[0] - _HALO
+                ext = full
+            self.carry = full[n_off:].copy()
+        else:
+            n_off = block.shape[0] - WINDOW
+            ext = block
+        self.stages.add("carry", time.perf_counter() - t_carry, start=t_carry, block=seq)
+        yield self._decode(seq, ext, n_off, block.shape[0])
+
+    def tail(self, seq: int):
+        if self.overlap and len(self.pending):
+            # A final short read still ends the stream: frames ending inside
+            # it are scannable once appended to the carry.
+            self.carry = np.concatenate([self.carry, self.pending], axis=0)
+        if self.overlap and self.carry.shape[0] > _HALO:
+            # The carry's offsets whose windows end at the stream end,
+            # numbered as the block after the source's last.
+            yield self._decode(seq + 1, self.carry, self.carry.shape[0] - _HALO, 0)
+
+    def _decode(self, seq: int, ext: np.ndarray, n_off: int, n_samples: int) -> tuple:
+        base = self.base  # the job keeps `ext` for the debug aids
+        if self.overlap:
+            self.base += n_off
+        return seq, (ext, n_off, self.capacity), n_samples, (ext, base)
+
+    def rows(self, out: dict, job: tuple) -> tuple:
+        ext, base = job
+        good = out.get("good")
+        if good is not None and self.overlap:
+            # int64 before adding the base: it passes 2^31 after ~18 min of
+            # stream (airjax/runner.py:283-289). Offsets below 0 are the
+            # padded head of the first block.
+            good = good & (out["offsets"].astype(np.int64) + base >= 0)
+        on_frame = self.debug and functools.partial(_debug_frame, ext, base if self.overlap else 0, *self.debug)
+        return out, good, -base if self.overlap and base < 0 else None, on_frame, int(np.sum(out["recovered"]))
+
+
 def run_stream(
     source: Iterator[np.ndarray],
     on_packet: Callable[[AdsbPacket], None],
@@ -327,121 +458,12 @@ def run_stream(
     stats = stats or StreamStats()
     # A batched sink (track.batch): on_fields in DF17 mode, on_extended_block
     # in extended mode; any other sink, or the debug aids, take packets.
-    debug = plot_dir is not None or dump_preamble
-    sink = _Sink(on_packet, extended, recover2, stats, per_packet=debug)
+    debug = (plot_dir, dump_preamble, extended) if plot_dir is not None or dump_preamble else None
+    sink = _Sink(on_packet, extended, recover2, stats, per_packet=debug is not None)
     graphs = BlockGraphs(_decode_fn(extended, sink.batched), recover2=recover2, device=device,
                          depth=pipeline_depth)
-    halo = WINDOW - 1
-    # The initial carry is the non-detecting (1,0)-magnitude pattern: a
-    # zero carry passes the equality-tolerant gate at every offset.
-    carry = None
-    if overlap:
-        carry = np.zeros((halo, 2), dtype=np.int16)
-        carry[::2, 0] = 1
-    global_base = -halo  # global sample index of carry[0]
-    pending = np.zeros((0, 2), dtype=np.int16)
-    inflight: collections.deque = collections.deque()
-    stages = stats.stages
-
-    def _dispatch(ext: np.ndarray, n_off: int, base: int, n_samples: int, seq: int) -> None:
-        with stages.stage("dispatch", block=seq):
-            slot = graphs.dispatch(ext, n_off, cfg.max_candidates)
-        # `now` is stamped at dispatch, as airjax does; the slot keeps the
-        # block on the device for a regrow, and the entry `ext` for the
-        # debug aids. The hold starts here.
-        inflight.append((ext, n_off, base, time.time(), n_samples, slot, seq, time.perf_counter()))
-
-    def _process(entry) -> None:
-        ext, n_off, base, now, n_samples, slot, seq, held = entry
-        t_fetch = time.perf_counter()
-        stages.add("hold", t_fetch - held, start=held, block=seq)
-        with stages.stage("fetch", block=seq):
-            out = graphs.fetch(slot)
-            # Regrow on overflow: a dropped detection would lose a frame.
-            overflowed = bool(out["overflow"])
-            capacity = cfg.max_candidates
-            while bool(out["overflow"]) and capacity < n_off:
-                capacity = min(capacity * 4, n_off)
-                out = graphs.regrow(slot, capacity)
-            graphs.done(slot)
-        t_apply = time.perf_counter()
-        good = out.get("good")
-        if good is not None and overlap:
-            # int64 before adding the base: it passes 2^31 after ~18 min of
-            # stream (airjax/runner.py:283-289). Offsets below 0 are the
-            # padded head of the first block.
-            good = good & (out["offsets"].astype(np.int64) + base >= 0)
-        on_frame = functools.partial(_debug_frame, ext, base if overlap else 0, plot_dir, dump_preamble,
-                                     extended) if debug else None
-        emitted = sink.apply(out, good, -base if overlap and base < 0 else None, now, on_frame, seq)
-        stages.add("apply", time.perf_counter() - t_apply, start=t_apply, block=seq)
-        # The tail flush is an extra decode, not a source block (n_samples=0).
-        stats.blocks += 1 if n_samples else 0
-        stats.samples += n_samples
-        stats.detections += int(out["n_detections"])
-        stats.good += emitted
-        stats.recovered += int(np.sum(out["recovered"]))
-        # Blocks that needed a regrow (the regrown result's flag is clear).
-        stats.overflow_blocks += overflowed
-
-    def _fetch_while_idle() -> None:
-        # No block ready behind the last: nothing would overlap the decodes
-        # in flight, so fetch them now rather than at the next block.
-        while inflight and not prefetcher.ready():
-            fetched = graphs.fetches
-            _process(inflight.popleft())
-            stats.early_fetches += graphs.fetches - fetched  # regrows fetch too
-
-    prefetcher = Prefetcher(source, depth=prefetch_depth)
-    seq = -1
-    for seq, block in _received(prefetcher, stages):
-        t_carry = time.perf_counter()
-        block = np.asarray(block, dtype=np.int16)
-        if overlap and len(pending):
-            # Short reads accumulate rather than being dropped.
-            block = np.concatenate([pending, block], axis=0)
-            pending = pending[:0]
-        if block.shape[0] < WINDOW:
-            if overlap:
-                pending = block
-            stages.add("carry", time.perf_counter() - t_carry, start=t_carry, block=seq)
-            # parity: the reference cannot scan a block < 240 samples.
-            _fetch_while_idle()
-            continue
-        if overlap:
-            full = np.concatenate([carry, block], axis=0)
-            if full.shape[0] >= TUNED_STREAM_MIN:
-                slice_len = (full.shape[0] // 1024) * 1024
-                n_off = slice_len - 240
-                ext = full[:slice_len]
-            else:
-                n_off = full.shape[0] - halo
-                ext = full
-            carry = full[n_off:].copy()
-        else:
-            n_off = block.shape[0] - WINDOW
-            ext = block
-        stages.add("carry", time.perf_counter() - t_carry, start=t_carry, block=seq)
-        _dispatch(ext, n_off, global_base, block.shape[0], seq)
-        if overlap:
-            global_base += n_off
-        while len(inflight) > max(pipeline_depth, 0):
-            _process(inflight.popleft())
-        _fetch_while_idle()
-    if overlap and len(pending):
-        # A final short read still ends the stream: frames ending inside
-        # it are scannable once appended to the carry.
-        carry = np.concatenate([carry, pending], axis=0)
-    if overlap and carry.shape[0] > halo:
-        # Tail flush: the carry's offsets whose windows end at the stream
-        # end, numbered as the block after the source's last.
-        _dispatch(carry, carry.shape[0] - halo, global_base, 0, seq + 1)
-    while inflight:
-        _process(inflight.popleft())
-    stats.fetches, stats.overlapped = graphs.fetches, graphs.overlapped
-    stats.backlog_max = prefetcher.backlog_max
-    stats.graphs = graphs.summary()
-    return stats
+    return _run(source, prefetch_depth, _Blocks(cfg, overlap, stats.stages, debug), graphs, sink, stats,
+                pipeline_depth)
 
 
 def _debug_frame(ext: np.ndarray, base: int, plot_dir: str | None, dump_preamble: bool, extended: bool,
@@ -456,6 +478,75 @@ def _debug_frame(ext: np.ndarray, base: int, plot_dir: str | None, dump_preamble
                                   detection_offset=0, title=f"frame @ {base + local}")
     if dump_preamble:
         print(visualise.dump_preamble(golden.magnitude(ext[local : local + 16]), offset=base + local))
+
+
+class _Steps:
+    """run_stream_sharded's framing: steps of F = T - 239 fresh samples
+    behind the carry of the last 239, the rest in a padded last step."""
+
+    def __init__(self, T: int, extended: bool, recover2: bool, batched: bool, stages: StageTimer):
+        self.T, self.F = T, T - _HALO
+        self.extended, self.recover2, self.batched, self.stages = extended, recover2, batched, stages
+        self.count_key = "n_candidates" if extended else "n_good"
+        # Its offsets masked by base < 0.
+        self.carry = _non_detecting(_HALO)
+        self.base = -_HALO
+        self.acc = np.zeros((0, 2), dtype=np.int16)
+
+    def decodes(self, seq: int, blk: np.ndarray):
+        t_carry = time.perf_counter()
+        blk = np.asarray(blk, dtype=np.int16)
+        self.acc = np.concatenate([self.acc, blk], axis=0) if len(self.acc) else blk
+        self.stages.add("carry", time.perf_counter() - t_carry, start=t_carry, block=seq)
+        while self.acc.shape[0] >= self.F:
+            fresh, self.acc = self.acc[: self.F], self.acc[self.F :]
+            yield self._step(seq, fresh, None)
+
+    def tail(self, seq: int):
+        # The last, partial step: only offsets whose window fits in carry +
+        # acc are real.
+        if len(self.acc):
+            yield self._step(seq, self.acc, _HALO + len(self.acc) - WINDOW)
+
+    def _step(self, seq: int, fresh: np.ndarray, max_local: int | None) -> tuple:
+        """A step of the block numbered `seq`, its carry (the join and the
+        pad, the next carry's copy) timed."""
+        t_carry = time.perf_counter()
+        full = np.concatenate([self.carry, fresh], axis=0)
+        if full.shape[0] < self.T:
+            full = pad_iq_non_detecting(full, self.T)
+        self.carry = full[self.F :].copy()
+        self.stages.add("carry", time.perf_counter() - t_carry, start=t_carry, block=seq)
+        base = self.base
+        self.base += self.F
+        return seq, (full,), fresh.shape[0], (base, max_local)
+
+    def rows(self, out: dict, job: tuple) -> tuple:
+        base, max_local = job
+        n = int(out[self.count_key])
+        rows = sharding.compact_rows(out, n)
+        # int64: the stream base passes 2^31 after ~18 min of stream.
+        offs = rows["offsets"].astype(np.int64)
+        # The padded head of the first step (base < 0) and, on the padded
+        # last step, offsets whose window runs past the stream's end.
+        ok = offs + base >= 0
+        if max_local is not None:
+            ok &= offs <= max_local
+        if self.extended:
+            unp = sharding.unpack_extended_compact(rows, n)
+            if max_local is not None:
+                # Padding candidates must not even seed the ICAO cache:
+                # run_stream never scans those offsets.
+                for k in sharding._EXT_MASK_KEYS + (("recovered2",) if self.recover2 else ()):
+                    unp[k] = unp[k] & (offs <= max_local)
+            recovered = int(np.sum(unp["recovered"]))
+            if self.batched:
+                unp["fields"] = rows["fields"]
+                unp["short_fields"] = rows["short_fields"]
+            rows = unp
+        else:
+            recovered = int(np.sum(rows["recovered"][ok]))
+        return rows, ok, -base if base < 0 else None, None, recovered
 
 
 def run_stream_sharded(
@@ -477,25 +568,22 @@ def run_stream_sharded(
     """The stream decoded over a mesh (airjax/runner.py:410-686): `mesh`, or
     make_mesh(n_devices, device=device) (the cards, unless device="cpu").
 
-    Blocks are gathered into steps of T = shard_block * D samples; a step is
-    the compact sharded decode (parallel/halo.py: each shard's front and
-    block decode, then one shard gather), and a carry of the last 239
-    samples joins each step to the next, so every offset of the stream is
-    scanned once and the emitted stream equals run_stream's in overlap mode.
-    The last step is padded with the non-detecting pattern and its offsets
-    past the stream's end dropped (`max_local`). On a mesh of one card a
-    step is one CUDA graph replay (halo.StepGraphs: the step copied into a
-    pinned slot, its upload, kernels and one download of the gathered rows
-    replayed, an event recorded; the warm-up step is its shape's first
-    sighting, run eagerly); on a mesh over several cards it launches
-    eagerly (halo.EagerSteps: a pinned upload, the launches, then the count
-    and the rows copied back after the step's event, pipeline.Fetcher).
-    `pipeline_depth` steps are dispatched before the oldest is fetched, so
-    that step k's copy back and packets overlap step k+1's kernels; a step
-    that overflows is decoded again with K and C grown 4x, from its own
-    device input, and the later steps run at the grown K and C.
-    `stats.graphs` counts the step graphs' first sightings, captures and
-    replays and the bytes their slots hold. Sinks as
+    Blocks are gathered into steps of T = shard_block * D samples
+    (`_Steps`); a step is the compact sharded decode (parallel/halo.py:
+    each shard's front and block decode, then one shard gather), and a
+    carry of the last 239 samples joins each step to the next, so every
+    offset of the stream is scanned once and the emitted stream equals
+    run_stream's in overlap mode. The last step is padded with the
+    non-detecting pattern and its offsets past the stream's end dropped.
+    On a mesh of one card a step is one CUDA graph replay (halo.StepGraphs;
+    the warm-up step, decoded before the source is read, is its shape's
+    first sighting, run eagerly); on a mesh over several cards it launches
+    eagerly (halo.EagerSteps). Steps stay in flight as run_stream's blocks
+    do: up to `pipeline_depth`, and none once the source has no block ready
+    (stats.early_fetches). A step that overflows is decoded again from its
+    own device input with K and C grown 4x, and the later steps run at the
+    grown K and C. `stats.graphs` counts the step graphs' first sightings,
+    captures and replays and the bytes their slots hold. Sinks as
     run_stream: per packet, or a batched one (`on_fields`,
     `on_extended_block`), whose fields the shard gather writes for the
     gathered rows in the same launch (its flag F); recover2 gates as there.
@@ -504,126 +592,25 @@ def run_stream_sharded(
     step scans them with the wrapped halo (and masks their hits), the next
     one with the real samples. `good` and the packets are exact.
     """
-    from airjax_torch.parallel import halo as sharding
     from airjax_torch.parallel.mesh import make_mesh
-    from airjax_torch.pipeline import pad_iq_non_detecting
 
     if mesh is None:
         mesh = make_mesh(n_devices, device=device)
-    HALO = sharding.HALO
     stats = stats or StreamStats()
-
     sink = _Sink(on_packet, extended, recover2, stats)
-
     block = shard_block or sharding.tuned_block(max(16384, cfg.block_len))
     T = block * mesh.size  # samples a step
-    F = T - HALO  # fresh samples a step
     K = capacity_per_shard or cfg.max_candidates
     C = compact_capacity or max(128 if not extended else 512, K)
     # One card: a graph a step shape; a mesh over several cards launches
     # its steps eagerly (halo.EagerSteps: the peer copies to the first card).
-    cache = sharding.StepGraphs if len(set(mesh.devices)) == 1 else sharding.EagerSteps
-    steps = cache(mesh, block, extended=extended, recover2=recover2, with_fields=sink.batched, depth=pipeline_depth)
-    count_key = "n_candidates" if extended else "n_good"
-
+    engine = sharding.StepGraphs if len(set(mesh.devices)) == 1 else sharding.EagerSteps
+    steps = engine(mesh, block, K, C, extended=extended, recover2=recover2, with_fields=sink.batched,
+                   depth=pipeline_depth)
     # A warm-up step on the non-detecting pattern before the source is read
     # (airjax :521-530), the first sighting of the stream's step shape: the
     # kernels build and load here, not while frames of the first step age
-    # in the ICAO cache's 60 s window.
-    warm = steps.dispatch(pad_iq_non_detecting(np.zeros((0, 2), dtype=np.int16), T), K, C)
-    steps.fetch(warm)
-    steps.done(warm)
-
-    # The initial carry: the non-detecting pattern, its offsets masked by
-    # global_base < 0.
-    carry = np.zeros((HALO, 2), dtype=np.int16)
-    carry[::2, 0] = 1
-    global_base = -HALO
-    acc = np.zeros((0, 2), dtype=np.int16)
-    inflight: collections.deque = collections.deque()
-    stages = stats.stages
-
-    def _process(entry) -> None:
-        nonlocal K, C
-        slot, base, now, n_fresh, max_local, seq, held = entry
-        t_fetch = time.perf_counter()
-        stages.add("hold", t_fetch - held, start=held, block=seq)
-        with stages.stage("fetch", block=seq):
-            out = steps.fetch(slot)
-            overflowed = bool(out["overflow"])
-            while bool(out["overflow"]) and (K < block or C < T):
-                K = min(K * 4, block)
-                C = min(C * 4, T)
-                out = steps.regrow(slot, K, C)
-            steps.done(slot)
-        t_apply = time.perf_counter()
-        n = int(out[count_key])
-        rows = sharding.compact_rows(out, n)
-        # int64: the stream base passes 2^31 after ~18 min of stream.
-        offs = rows["offsets"].astype(np.int64)
-        # The padded head of the first step (base < 0) and, on the padded
-        # last step, offsets whose window runs past the stream's end.
-        ok = offs + base >= 0
-        if max_local is not None:
-            ok &= offs <= max_local
-        if extended:
-            unp = sharding.unpack_extended_compact(rows, n)
-            if max_local is not None:
-                # Padding candidates must not even seed the ICAO cache:
-                # run_stream never scans those offsets.
-                for k in sharding._EXT_MASK_KEYS + (("recovered2",) if recover2 else ()):
-                    unp[k] = unp[k] & (offs <= max_local)
-            stats.recovered += int(np.sum(unp["recovered"]))
-            if sink.batched:
-                unp["fields"] = rows["fields"]
-                unp["short_fields"] = rows["short_fields"]
-            rows = unp
-        emitted = sink.apply(rows, ok, -base if base < 0 else None, now, block=seq)
-        stages.add("apply", time.perf_counter() - t_apply, start=t_apply, block=seq)
-        stats.blocks += 1 if n_fresh else 0
-        stats.samples += n_fresh
-        stats.detections += int(out["n_detections"])
-        stats.good += emitted
-        if not extended:
-            stats.recovered += int(np.sum(rows["recovered"][ok]))
-        stats.overflow_blocks += overflowed
-
-    def _dispatch(fresh: np.ndarray, max_local: int | None, seq: int) -> None:
-        """A step of the block numbered `seq`: its carry (the join and the
-        pad, the next carry's copy) and its dispatch, each a stage."""
-        nonlocal carry, global_base
-        t_carry = time.perf_counter()
-        full = np.concatenate([carry, fresh], axis=0)
-        if full.shape[0] < T:
-            full = pad_iq_non_detecting(full, T)
-        carry = full[F:].copy()
-        stages.add("carry", time.perf_counter() - t_carry, start=t_carry, block=seq)
-        with stages.stage("dispatch", block=seq):
-            slot = steps.dispatch(full, K, C)
-        inflight.append((slot, global_base, time.time(), fresh.shape[0], max_local, seq, time.perf_counter()))
-        global_base += F
-        while len(inflight) > max(pipeline_depth, 0):
-            _process(inflight.popleft())
-
-    prefetcher = Prefetcher(source, depth=4)
-    seq = -1
-    for seq, blk in _received(prefetcher, stages):
-        t_carry = time.perf_counter()
-        blk = np.asarray(blk, dtype=np.int16)
-        acc = np.concatenate([acc, blk], axis=0) if len(acc) else blk
-        stages.add("carry", time.perf_counter() - t_carry, start=t_carry, block=seq)
-        while acc.shape[0] >= F:
-            fresh, acc = acc[:F], acc[F:]
-            _dispatch(fresh, None, seq)
-    if acc.shape[0] > 0:
-        # The last, partial step: only offsets whose window fits in
-        # carry + acc are real.
-        true_len = HALO + acc.shape[0]
-        if true_len >= WINDOW:
-            _dispatch(acc, true_len - WINDOW, seq)
-    while inflight:
-        _process(inflight.popleft())
-    stats.fetches, stats.overlapped = steps.fetches, steps.overlapped
-    stats.backlog_max = prefetcher.backlog_max
-    stats.graphs = steps.summary()
-    return stats
+    # in the ICAO cache's 60 s window. It never overflows.
+    steps.collect(steps.dispatch(_non_detecting(T)))
+    return _run(source, 4, _Steps(T, extended, recover2, sink.batched, stats.stages), steps, sink, stats,
+                pipeline_depth)

@@ -3497,16 +3497,23 @@ class EagerBlocks:
         block_dev = self.fetcher.upload(staged)
         out = self.decode(block_dev, n_off, capacity)
         self.eager += 1
-        return [block_dev, n_off, out, self.fetcher.launched(staged)]
+        return [block_dev, n_off, out, self.fetcher.launched(staged), capacity]
 
     def fetch(self, slot: list) -> dict:
         return self.fetcher.fetch(slot[2], slot[3])
 
-    def regrow(self, slot: list, capacity: int) -> dict:
-        out = self.decode(slot[0], slot[1], capacity)
-        self.fetcher.done(slot[3])
-        slot[3] = self.fetcher.launched()
-        return self.fetcher.fetch(out, slot[3])
+    def collect(self, slot: list) -> tuple[dict, bool]:
+        """BlockGraphs.collect's regrow, from the block's device copy."""
+        out = self.fetch(slot)
+        overflowed, capacity = bool(out["overflow"]), slot[4]
+        while bool(out["overflow"]) and capacity < slot[1]:
+            capacity = min(capacity * 4, slot[1])
+            regrown = self.decode(slot[0], slot[1], capacity)
+            self.fetcher.done(slot[3])
+            slot[3] = self.fetcher.launched()
+            out = self.fetcher.fetch(regrown, slot[3])
+        self.done(slot)
+        return out, overflowed
 
     def done(self, slot: list) -> None:
         self.fetcher.done(slot[3])
@@ -3853,10 +3860,10 @@ def phase_step_graphs(dev: torch.device, stream_capture, tracker_iq: np.ndarray,
             c = max(512 if ext else 128, k)
             eager = halo._compact_builder(ext)(mesh, n, k, c, with_fields=with_fields, recover2=r2)
             want = pipeline.to_host(eager(step_dev))
-            steps = halo.StepGraphs(mesh, block, extended=ext, recover2=r2, with_fields=with_fields, depth=0)
+            steps = halo.StepGraphs(mesh, block, k, c, extended=ext, recover2=r2, with_fields=with_fields, depth=0)
 
             def one():
-                slot = steps.dispatch(step_iq, k, c)
+                slot = steps.dispatch(step_iq)
                 out = steps.fetch(slot)
                 steps.done(slot)
                 return out

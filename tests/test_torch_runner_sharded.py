@@ -24,8 +24,9 @@ from airjax.runner import run_stream_sharded as jrun_stream_sharded
 from airjax.track.batch import BatchTracker as JBatchTracker
 from airjax.track.batch import ExtendedBatchTracker as JExtendedBatchTracker
 from airjax_torch import cli
+from airjax_torch.io.source import Prefetcher
 from airjax_torch.parallel.mesh import make_mesh
-from airjax_torch.runner import run_stream, run_stream_sharded
+from airjax_torch.runner import StreamStats, run_stream, run_stream_sharded
 from airjax_torch.track.batch import BatchTracker, ExtendedBatchTracker
 from torch_parity import airjax_builders_cached
 
@@ -75,12 +76,13 @@ def _key(p) -> tuple:
     return type(p).__name__, dataclasses.asdict(p, dict_factory=factory)
 
 
-def _three(meshes, blocks, **kw):
+def _three(meshes, blocks, t_stats=None, **kw):
     """The stream through airjax's and the port's sharded runners and the
-    port's run_stream -> the three (packets, stats), asserted equal."""
+    port's run_stream -> the three (packets, stats), asserted equal. The
+    port's sharded runner counts into `t_stats` where one is given."""
     runs = []
     for run in (lambda s: jrun_stream_sharded(blocks(), s, mesh=meshes[0], **kw),
-                lambda s: run_stream_sharded(blocks(), s, mesh=meshes[1], **kw),
+                lambda s: run_stream_sharded(blocks(), s, mesh=meshes[1], stats=t_stats, **kw),
                 lambda s: run_stream(blocks(), s, device="cpu", extended=kw.get("extended", False),
                                      recover2=kw.get("recover2", False))):
         got = []
@@ -110,6 +112,18 @@ def test_parity_tail_partial_step(meshes):
 def test_parity_overflow_regrow(meshes):
     _, stats = _three(meshes, _stream(300_000), capacity_per_shard=2, compact_capacity=4)
     assert stats["overflow_blocks"] >= 1
+
+
+@pytest.mark.parametrize("depth", [1, 3])
+def test_overflow_regrow_fetched_early(meshes, depth, monkeypatch):
+    """The source never has a block ready: every step is fetched before
+    the next is dispatched, yet each runs at the K and C airjax's would,
+    so the regrows, and the stats, are airjax's."""
+    monkeypatch.setattr(Prefetcher, "ready", lambda self: False)
+    stats = StreamStats()
+    _, s = _three(meshes, _stream(300_000), t_stats=stats, capacity_per_shard=2, compact_capacity=4,
+                  pipeline_depth=depth)
+    assert s["overflow_blocks"] >= 2 and stats.early_fetches == stats.fetches - 1
 
 
 @pytest.mark.parametrize("extended", [False, True])
@@ -179,13 +193,22 @@ def test_cli_devices_rejects_no_overlap(capsys):
     assert "single-device debug aids" in capsys.readouterr().err
 
 
-def test_pipeline_depth_invariance(meshes):
-    """How many steps are in flight does not change the stream."""
+@pytest.mark.parametrize("idle", [False, True], ids=["ready", "idle"])
+def test_pipeline_depth_invariance(meshes, idle, monkeypatch):
+    """How many steps are in flight does not change the stream. `idle`: the
+    port's source never has a block ready (Prefetcher.ready forced false),
+    so at depths 1 and 3 every step is fetched early, as run_stream's
+    blocks are, but the warm-up step, fetched before the source is read."""
+    if idle:
+        monkeypatch.setattr(Prefetcher, "ready", lambda self: False)
     blocks = _stream(400_000, extra_offsets=[STEP_F - 130])
     outs = []
     for depth in (0, 1, 3):
-        got, _ = _three(meshes, blocks, pipeline_depth=depth)
+        stats = StreamStats()
+        got, _ = _three(meshes, blocks, t_stats=stats, pipeline_depth=depth)
         outs.append(got)
+        if idle and depth:
+            assert stats.early_fetches == stats.fetches - 1, depth
     assert outs[0] == outs[1] == outs[2] and len(outs[0]) > 40
 
 

@@ -121,17 +121,30 @@ def test_a_short_read_with_no_block_ready_ends_the_hold(spans, monkeypatch):
     assert blocks[0]["apply"][0][1] <= blocks[2]["handoff"][0][1]
 
 
-def test_a_paced_source_is_fetched_without_a_hold(spans):
+# runner -> (a run of it on the CPU, the decodes it fetches before the
+# source is read). The sharded runner's steps on one shard of CHUNK + 239
+# samples take CHUNK fresh samples each: a block completes a step.
+RUNNERS = {
+    "run_stream": (lambda source, **kw: run_stream(source, lambda p: None, device="cpu", **kw), 0),
+    "run_stream_sharded": (lambda source, **kw: run_stream_sharded(
+        source, lambda p: None, n_devices=1, shard_block=CHUNK + 239, device="cpu", **kw), 1),
+}
+
+
+@pytest.mark.parametrize("runner", list(RUNNERS))
+def test_a_paced_source_is_fetched_without_a_hold(spans, runner):
     """A source that sleeps between blocks, as a live receiver waits for
-    its samples: each block is fetched as soon as it is decoded."""
+    its samples: each block is fetched as soon as it is decoded, by both
+    runners (the sharded one's warm-up step is fetched without a hold)."""
     def paced():
         for block in _blocks()[:4]:
             yield block
             time.sleep(0.25)
 
-    stats = run_stream(paced(), lambda p: None, device="cpu", pipeline_depth=1)
+    run, warm = RUNNERS[runner]
+    stats = run(paced(), pipeline_depth=1)
     holds = [end - start for name, _, start, end, _, _ in spans.spans if name == "hold"]
-    assert len(holds) == stats.stages.counts["hold"] == stats.fetches == 4
+    assert len(holds) == stats.stages.counts["hold"] == stats.fetches - warm == 4
     assert statistics.median(holds) < 5e-3 and stats.early_fetches >= 3
 
 

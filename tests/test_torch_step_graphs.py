@@ -164,11 +164,11 @@ def test_slot_views_are_shard_iq(d, block):
     captured and replayed."""
     mesh = make_mesh(d, device="cpu")
     size = halo._halo_size(block)
-    steps = halo.StepGraphs(mesh, block, depth=1)
+    steps = halo.StepGraphs(mesh, block, 4, 16, depth=1)
     rng = np.random.default_rng(d)
     for _ in range(4):
         iq = rng.integers(-32768, 32768, (d * block, 2), dtype=np.int16)
-        slot = steps.dispatch(iq, 4, 16)
+        slot = steps.dispatch(iq)
         want = halo.shard_iq(iq, mesh, block, size)
         assert len(slot.shards) == d
         for i, (got, ref) in enumerate(zip(slot.shards, want)):
@@ -233,10 +233,10 @@ def test_layout_equals_the_eager_gather(mode, c):
                 assert v.dtype == want[key].dtype, key
 
     eager = halo._compact_builder(extended)(mesh, D * SHARD_BLOCK, K, c, recover2=recover2, with_fields=with_fields)
-    steps = halo.StepGraphs(mesh, SHARD_BLOCK, depth=0, **kw)
+    steps = halo.StepGraphs(mesh, SHARD_BLOCK, K, c, depth=0, **kw)
     for seed in (5, 6, 5):  # eager, then the slot's capture and replay, then a replay
         step = _step_iq(seed)
-        slot = steps.dispatch(step, K, c)
+        slot = steps.dispatch(step)
         _same_tree(pipeline.to_host(eager(step)), steps.fetch(slot))
         steps.done(slot)
     assert (steps.eager, steps.captures, steps.replays) == (1, 1, 2)
@@ -245,16 +245,16 @@ def test_layout_equals_the_eager_gather(mode, c):
 def test_slots_in_flight_beyond_the_ring_raise():
     """depth + 1 slots a key: a step more in flight than that would
     overwrite one, and raises instead; a fetched, done slot is taken again."""
-    steps = halo.StepGraphs(make_mesh(2, device="cpu"), 3000, depth=1)
+    steps = halo.StepGraphs(make_mesh(2, device="cpu"), 3000, 4, 16, depth=1)
     iq = pipeline.pad_iq_non_detecting(np.zeros((0, 2), np.int16), 6000)
-    a, b = steps.dispatch(iq, 4, 16), steps.dispatch(iq, 4, 16)
+    a, b = steps.dispatch(iq), steps.dispatch(iq)
     assert a is not b
     with pytest.raises(RuntimeError, match="StepGraphs slot is still in flight"):
-        steps.dispatch(iq, 4, 16)
+        steps.dispatch(iq)
     steps.fetch(a), steps.done(a)
-    assert steps.dispatch(iq, 4, 16) is a
+    assert steps.dispatch(iq) is a
     with pytest.raises(ValueError, match=r"expected \(6000, 2\)"):
-        steps.dispatch(iq[:5000], 4, 16)
+        steps.dispatch(iq[:5000])
 
 
 @pytest.mark.cuda
@@ -269,7 +269,7 @@ def test_replay_equals_the_eager_step_on_the_card(mode, d, cuda_device):  # noqa
     mesh = Mesh([cuda_device] * d)
     n = d * SHARD_BLOCK
     eager = halo._compact_builder(extended)(mesh, n, K, 64, recover2=recover2, with_fields=with_fields)
-    steps = halo.StepGraphs(mesh, SHARD_BLOCK, depth=0, extended=extended, recover2=recover2,
+    steps = halo.StepGraphs(mesh, SHARD_BLOCK, K, 64, depth=0, extended=extended, recover2=recover2,
                             with_fields=with_fields)
     iqs = [_step_iq(20 + i)[:n] for i in range(3)]
 
@@ -280,7 +280,7 @@ def test_replay_equals_the_eager_step_on_the_card(mode, d, cuda_device):  # noqa
     for i, iq in enumerate(iqs + iqs[:1]):
         want = pipeline.to_host(eager(torch.as_tensor(iq, device=cuda_device)))
         before = counts()
-        slot = steps.dispatch(iq, K, 64)
+        slot = steps.dispatch(iq)
         got = steps.fetch(slot)
         steps.done(slot)
         _same_tree(want, got)
